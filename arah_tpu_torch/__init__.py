@@ -1,0 +1,15 @@
+"""arah_tpu_torch — the ARAH eval renderer in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of the `arah_tpu` JAX package, which stays the reference. The
+layout mirrors it module for module (`core/`, `nn/`, `solver/`,
+`render/`, `ops/`, `model.py`), and the parameter tree mirrors the JAX
+tree key for key (`convert.params_from_jax` moves one across).
+
+Entry points run on `cuda` unless the caller passes `device='cpu'`.
+Each kernel wrapper in `ops/` launches its CUDA kernel for a CUDA tensor
+and computes its plain PyTorch version only for a CPU tensor; the
+kernels build from `csrc/` with `nvcc` at first use (`ops/_build.py`).
+This package imports torch and numpy, never JAX and nothing of
+`arah_tpu`.
+"""

@@ -1,0 +1,291 @@
+// Kernel B: per-point Broyden search of the canonical correspondence,
+// fwd_skin(x_hat) = x_bar.
+//
+// Replaces the TPU kernel arah_tpu/ops/pallas/corr_kernel_t.py:
+// corr_search_pallas_t (body _make_kernel): skinning MLP (softplus100
+// hidden layers) -> hierarchical softmax of logits*20 -> bone blend ->
+// LBS; closed-form 3x3 inverse init Jacobian, good-Broyden rank-1
+// updates with +/-eps denominators, best-iterate tracking, convergence at
+// |g| < cvg, divergence freeze at |g| >= dvg, masked points frozen at
+// their init, and the `active` (still iterating at max_steps) output.
+//
+// Bound on the H100: operations. Each Broyden iteration of each point
+// evaluates the skinning MLP (3x128 + 3x128x128 + 128x25 multiply-adds
+// at the flagship widths, ~53k FMAs) plus ~200 flops of softmax and 3x3
+// algebra; the bytes are 100 B per point in and out.
+//
+// Design: one thread per point, so a thread leaves its loop as soon as its
+// point converges or diverges (a point's trajectory does not depend on
+// the others, so this gives the values of the TPU's per-tile exit). The
+// 128-wide hidden activations do not fit in registers; each thread keeps
+// its own two activation columns in shared memory (layout [k][thread], so
+// a warp's accesses hit 32 banks), and no thread ever waits for another.
+// The collapsed MLP weights (~210 KB at the flagship) are read through
+// L1/L2 rather than staged in shared memory: every thread of a warp reads
+// the same weight, so each load is one broadcast transaction. The bone
+// table (24x16) is staged in shared memory. Plain f32 FMAs throughout,
+// exact expf/log1pf (no fast math).
+#include "common.cuh"
+
+#define CORR_THREADS 64
+#define MAX_LAYERS 8
+#define N_BONES 24
+
+struct MlpDims {
+  int n_layers;          // linear layers
+  int dims[MAX_LAYERS + 1];   // widths: dims[0] = 3, dims[n_layers] = 25
+};
+
+__device__ __forceinline__ float softplus100(float x) {
+  const float bx = 100.f * x;
+  return bx > 20.f ? x : log1pf(expf(bx)) / 100.f;
+}
+
+__device__ __forceinline__ float sigm(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// SNARF hierarchical softmax, (25) logits -> (24) probabilities, in the
+// order of corr_kernel_t.py:_hier_softmax_rows.
+__device__ void hier_softmax(const float* c, float* p) {
+  const float m_hip = fmaxf(fmaxf(c[1], c[2]), c[3]);
+  const float e1 = expf(c[1] - m_hip), e2 = expf(c[2] - m_hip),
+              e3 = expf(c[3] - m_hip);
+  const float denom = e1 + e2 + e3;
+  const float root_gate = sigm(c[0]);
+  p[1] = root_gate * e1 / denom;
+  p[2] = root_gate * e2 / denom;
+  p[3] = root_gate * e3 / denom;
+  p[0] = 1.f - root_gate;
+  const int ch1[8] = {4, 5, 6, 7, 8, 9, 10, 11};
+  const int pa1[8] = {1, 2, 3, 4, 5, 6, 7, 8};
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const float s = sigm(c[ch1[t]]);
+    p[ch1[t]] = p[pa1[t]] * s;
+    p[pa1[t]] = p[pa1[t]] * (1.f - s);
+  }
+  const float spine_gate = sigm(c[24]);
+  const float m_sp = fmaxf(fmaxf(c[12], c[13]), c[14]);
+  const float e12 = expf(c[12] - m_sp), e13 = expf(c[13] - m_sp),
+              e14 = expf(c[14] - m_sp);
+  const float denom_s = e12 + e13 + e14;
+  p[12] = p[9] * spine_gate * e12 / denom_s;
+  p[13] = p[9] * spine_gate * e13 / denom_s;
+  p[14] = p[9] * spine_gate * e14 / denom_s;
+  p[9] = p[9] * (1.f - spine_gate);
+  const int ch2[9] = {15, 16, 17, 18, 19, 20, 21, 22, 23};
+  const int pa2[9] = {12, 13, 14, 16, 17, 18, 19, 20, 21};
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    const float s = sigm(c[ch2[t]]);
+    p[ch2[t]] = p[pa2[t]] * s;
+    p[pa2[t]] = p[pa2[t]] * (1.f - s);
+  }
+}
+
+// fwd_skin at x (metric canonical): residual xb - x_bar and the blended
+// transform T16 (row-major 4x4). hA/hB: this thread's activation columns
+// (stride CORR_THREADS).
+__device__ void skin_fwd(const float x[3], const float scale,
+                         const float off[3], const float xbar[3],
+                         const float* __restrict__ P, const MlpDims& md,
+                         float* hA, float* hB, const float* bones,
+                         float softmax_scale, float g[3], float T[16]) {
+  float xn[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) xn[c] = x[c] * scale + off[c];
+  const int L = md.n_layers;
+  long long wo = 0;
+  float* hin = hA;
+  float* hout = hB;
+  for (int l = 0; l < L; ++l) {
+    const int in = md.dims[l], out = md.dims[l + 1];
+    const float* W = P + wo;          // (out, in) row-major
+    const float* b = W + (long long)out * in;
+    for (int j0 = 0; j0 < out; j0 += 8) {
+      float acc[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[r] = 0.f;
+      for (int k = 0; k < in; ++k) {
+        const float hk = (l == 0) ? xn[k] : hin[k * CORR_THREADS];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (j0 + r < out)
+            acc[r] = fmaf(__ldg(W + (long long)(j0 + r) * in + k), hk,
+                          acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (j0 + r < out) {
+          const float z = acc[r] + __ldg(b + j0 + r);
+          hout[(j0 + r) * CORR_THREADS] =
+              (l < L - 1) ? softplus100(z) : z * softmax_scale;
+        }
+      }
+    }
+    wo += (long long)out * in + out;
+    float* t = hin; hin = hout; hout = t;
+  }
+  // hin now holds the 25 scaled logits
+  float c[25], w[N_BONES];
+#pragma unroll
+  for (int k = 0; k < 25; ++k) c[k] = hin[k * CORR_THREADS];
+  hier_softmax(c, w);
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < N_BONES; ++j) s = fmaf(bones[j * 16 + m], w[j], s);
+    T[m] = s;
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    g[r] = T[4 * r] * x[0] + T[4 * r + 1] * x[1] + T[4 * r + 2] * x[2]
+           + T[4 * r + 3] - xbar[r];
+}
+
+__device__ void inv3x3(const float m[9], float o[9]) {
+  const float a = m[0], b = m[1], c = m[2], d = m[3], e = m[4], f = m[5],
+              g = m[6], h = m[7], i = m[8];
+  const float A = e * i - f * h, B = -(d * i - f * g), C = d * h - e * g;
+  const float D = -(b * i - c * h), E = a * i - c * g, F = -(a * h - b * g);
+  const float G = b * f - c * e, H = -(a * f - c * d), I = a * e - b * d;
+  const float inv_det = 1.f / (a * A + b * B + c * C);
+  o[0] = A * inv_det; o[1] = D * inv_det; o[2] = G * inv_det;
+  o[3] = B * inv_det; o[4] = E * inv_det; o[5] = H * inv_det;
+  o[6] = C * inv_det; o[7] = F * inv_det; o[8] = I * inv_det;
+}
+
+__global__ void __launch_bounds__(CORR_THREADS)
+corr_kernel(const float* __restrict__ xbar_g, const float* __restrict__ x0_g,
+            const float* __restrict__ t0_g,
+            const unsigned char* __restrict__ mask_g, int n,
+            const float* __restrict__ P, MlpDims md, int hmax,
+            const float* __restrict__ bones_g,
+            const float* __restrict__ frame_g, int max_steps, float cvg,
+            float dvg, float eps, float softmax_scale, float* xout,
+            float* tout, unsigned char* valid_out,
+            unsigned char* active_out) {
+  extern __shared__ float smem[];
+  __shared__ float bones[N_BONES * 16];
+  for (int k = threadIdx.x; k < N_BONES * 16; k += blockDim.x)
+    bones[k] = bones_g[k];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;   // no block-wide synchronisation below
+  float* hA = smem + threadIdx.x;
+  float* hB = hA + hmax * CORR_THREADS;
+
+  // normalize: ((x - center - cmin + 0.05 ext) / ext / 1.1 - 0.5) * 2
+  const float cmin = frame_g[0], cmax = frame_g[1];
+  const float ext = cmax - cmin;
+  const float scale = 2.f / (ext * 1.1f);
+  float off[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    off[c] = (-frame_g[2 + c] - cmin + 0.05f * ext) * scale - 1.f;
+
+  float xbar[3], x[3], x0[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    xbar[c] = xbar_g[3 * i + c];
+    x0[c] = x0_g[3 * i + c];
+    x[c] = x0[c];
+  }
+  const bool mask0 = mask_g[i] != 0;
+
+  float gx[3], T[16], Ji[9], J0[9], upd[3];
+  skin_fwd(x, scale, off, xbar, P, md, hA, hB, bones, softmax_scale, gx, T);
+  J0[0] = T[0]; J0[1] = T[1]; J0[2] = T[2];
+  J0[3] = T[4]; J0[4] = T[5]; J0[5] = T[6];
+  J0[6] = T[8]; J0[7] = T[9]; J0[8] = T[10];
+  inv3x3(J0, Ji);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    upd[r] = -(Ji[3 * r] * gx[0] + Ji[3 * r + 1] * gx[1]
+               + Ji[3 * r + 2] * gx[2]);
+  float gn_opt = sqrtf(gx[0] * gx[0] + gx[1] * gx[1] + gx[2] * gx[2]);
+  float x_opt[3] = {x[0], x[1], x[2]};
+  float t_opt[16];
+#pragma unroll
+  for (int m = 0; m < 16; ++m) t_opt[m] = t0_g[16 * i + m];
+
+  bool active = mask0;
+  for (int it = 0; it < max_steps && active; ++it) {
+    float dx[3], xn[3], gn_v[3], Tn[16];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      dx[c] = upd[c];
+      xn[c] = x[c] + dx[c];
+    }
+    skin_fwd(xn, scale, off, xbar, P, md, hA, hB, bones, softmax_scale,
+             gn_v, Tn);
+    float dg[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) dg[c] = gn_v[c] - gx[c];
+    const float gn = sqrtf(gn_v[0] * gn_v[0] + gn_v[1] * gn_v[1]
+                           + gn_v[2] * gn_v[2]);
+    if (gn < gn_opt) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) x_opt[c] = xn[c];
+#pragma unroll
+      for (int m = 0; m < 16; ++m) t_opt[m] = Tn[m];
+      gn_opt = gn;
+    }
+    active = (gn_opt > cvg) && (gn < dvg);
+
+    float vT[3], a[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      vT[c] = dx[0] * Ji[c] + dx[1] * Ji[3 + c] + dx[2] * Ji[6 + c];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      a[r] = dx[r] - (Ji[3 * r] * dg[0] + Ji[3 * r + 1] * dg[1]
+                      + Ji[3 * r + 2] * dg[2]);
+    float bd = vT[0] * dg[0] + vT[1] * dg[1] + vT[2] * dg[2];
+    bd = (bd >= 0.f) ? bd + eps : bd - eps;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float u = a[r] / bd;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) Ji[3 * r + c] += u * vT[c];
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      upd[r] = -(Ji[3 * r] * gn_v[0] + Ji[3 * r + 1] * gn_v[1]
+                 + Ji[3 * r + 2] * gn_v[2]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      x[c] = xn[c];
+      gx[c] = gn_v[c];
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < 3; ++c) xout[3 * i + c] = mask0 ? x_opt[c] : x0[c];
+#pragma unroll
+  for (int m = 0; m < 16; ++m)
+    tout[16 * i + m] = mask0 ? t_opt[m] : t0_g[16 * i + m];
+  valid_out[i] = (mask0 && gn_opt < cvg) ? 1 : 0;
+  active_out[i] = active ? 1 : 0;
+}
+
+extern "C" int arah_corr(const float* xbar, const float* x0, const float* t0,
+                         const unsigned char* mask, int n, const float* params,
+                         MlpDims md, int hmax, const float* bones16,
+                         const float* frame, int max_steps, float cvg,
+                         float dvg, float eps, float softmax_scale,
+                         float* xout, float* tout, unsigned char* valid,
+                         unsigned char* active, void* stream) {
+  if (n <= 0) return 0;
+  const size_t smem = 2 * (size_t)hmax * CORR_THREADS * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      corr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + CORR_THREADS - 1) / CORR_THREADS;
+  corr_kernel<<<blocks, CORR_THREADS, smem, (cudaStream_t)stream>>>(
+      xbar, x0, t0, mask, n, params, md, hmax, bones16, frame, max_steps,
+      cvg, dvg, eps, softmax_scale, xout, tout, valid, active);
+  return launch_status();
+}

@@ -1,0 +1,173 @@
+"""Build and load the CUDA kernels of `arah_tpu_torch/csrc/`.
+
+At first use, `load()` compiles every `csrc/*.cu` with `nvcc` for
+`sm_90a` (one `nvcc -c` per source, all started together), links them
+into one shared library with a plain C interface, and loads it with
+ctypes. The library lands in `<repo>/.cache/torch_ext/<hash>/`, keyed by
+a hash of the sources and flags, so a later process reuses it. There is
+no fallback: a missing `nvcc`, a failed build or a failed load raises.
+
+`--use_fast_math` is deliberately absent: the SIREN takes sin(30 z) at
+tens of radians, softplus100 and the hierarchical softmax need exact
+expf/log1pf, and the solvers converge at 1e-5.
+
+Each kernel wrapper adds one to `COUNTS[name]` per launch and nowhere
+else, so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'csrc')
+CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), '.cache', 'torch_ext')
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-Xcompiler', '-fPIC']
+
+COUNTS = {'knn': 0, 'corr': 0, 'shade': 0, 'color_fwd': 0}
+BUILD_SECONDS = None     # wall time of this process's build, None if cached
+
+_LIB = None
+
+
+def reset_counts():
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def _sources():
+    return sorted(f for f in os.listdir(CSRC) if f.endswith(('.cu', '.cuh')))
+
+
+def _nvcc() -> str:
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels of '
+                           'arah_tpu_torch build only where the CUDA '
+                           'toolkit is installed')
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha1(repr(NVCC_FLAGS).encode())
+    for f in _sources():
+        with open(os.path.join(CSRC, f), 'rb') as fh:
+            h.update(f.encode() + fh.read())
+    return os.path.join(CACHE, h.hexdigest()[:16], 'libarah_kernels.so')
+
+
+def _build(out: str):
+    global BUILD_SECONDS
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(out))
+    cus = [f for f in _sources() if f.endswith('.cu')]
+    procs = []
+    for f in cus:
+        obj = os.path.join(tmp, f + '.o')
+        procs.append((f, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-c',
+             os.path.join(CSRC, f), '-o', obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = []
+    for f, _, p in procs:
+        log, _ = p.communicate()
+        logs.append(f'== {f}\n{log}')
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {f}:\n{log}')
+    lib_tmp = os.path.join(tmp, 'lib.so')
+    r = subprocess.run([nvcc, *NVCC_FLAGS, '-shared', '-o', lib_tmp,
+                        *[o for _, o, _ in procs]],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f'nvcc link failed:\n{r.stdout}{r.stderr}')
+    with open(os.path.join(os.path.dirname(out), 'build.log'), 'w') as fh:
+        fh.write('\n'.join(logs))
+    os.replace(lib_tmp, out)
+    shutil.rmtree(tmp, ignore_errors=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+class MlpDims(ctypes.Structure):
+    """`struct MlpDims` of csrc/corr.cu."""
+    _fields_ = [('n_layers', _I), ('dims', _I * 9)]
+
+
+class ShadeMeta(ctypes.Structure):
+    """`struct ShadeMeta` of csrc/shade.cu."""
+    _fields_ = [('n_layers', _I), ('din', _I), ('hidden', _I),
+                ('dout', _I), ('film', _I), ('bf16', _I),
+                ('wt_off', ctypes.c_longlong * 8),
+                ('w_off', ctypes.c_longlong * 8),
+                ('b_off', ctypes.c_longlong * 8),
+                ('freq_off', ctypes.c_longlong),
+                ('phase_off', ctypes.c_longlong)]
+
+
+class ColorMeta(ctypes.Structure):
+    """`struct ColorMeta` of csrc/color.cu."""
+    _fields_ = [('n_layers', _I), ('S', _I), ('F', _I), ('P', _I),
+                ('hmax', _I), ('squeeze', _I), ('bf16', _I),
+                ('feats_bf16', _I),
+                ('out', _I * 8), ('n_comp', _I * 8),
+                ('kind', (_I * 4) * 8), ('width', (_I * 4) * 8),
+                ('w_off', (ctypes.c_longlong * 4) * 8),
+                ('b_off', ctypes.c_longlong * 8)]
+
+
+def load():
+    """The kernels' ctypes library, built at first use."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    path = library_path()
+    if not os.path.exists(path):
+        _build(path)
+    lib = ctypes.CDLL(path)
+    lib.arah_knn.argtypes = [_P, _I, _P, _I, _P, _P]
+    lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, MlpDims, _I, _P, _P,
+                              _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
+    lib.arah_shade.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _P, _P]
+    lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, ColorMeta, _P, _P]
+    for fn in (lib.arah_knn, lib.arah_corr, lib.arah_shade,
+               lib.arah_color_fwd):
+        fn.restype = _I
+    _LIB = lib
+    return lib
+
+
+def check(err: int, name: str):
+    """Raise on a non-zero cudaGetLastError() from a launch."""
+    if err != 0:
+        raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')
+
+
+def stream_ptr(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name: str, dtype, shape=None):
+    """Device, dtype, shape and contiguity checks of a kernel operand."""
+    if not t.is_cuda:
+        raise ValueError(f'{name}: expected a CUDA tensor')
+    if t.dtype != dtype:
+        raise ValueError(f'{name}: expected {dtype}, got {t.dtype}')
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: expected shape {tuple(shape)}, '
+                         f'got {tuple(t.shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: expected a contiguous tensor')

@@ -1,0 +1,94 @@
+"""Fused generated-SIREN shading: kernel C and its plain version.
+
+`siren_shade` launches the CUDA kernel (csrc/shade.cu, the port of
+`arah_tpu/ops/pallas/shade_kernel.py:siren_shade_pallas`) for CUDA
+tensors and computes `siren_shade_plain` for CPU tensors. Both return
+the SDF, the penultimate features and d(sdf)/dx from an explicit forward
+pass (keeping the 30 f cos(30 z) factors) and reverse chain, with the
+kernel's bf16 rounding points under `bf16`: every dot operand, including
+g * df before each reverse product, with f32 accumulation.
+"""
+from __future__ import annotations
+
+import torch
+
+from arah_tpu_torch.nn.siren import GeneratedMLP
+from arah_tpu_torch.ops import _build
+
+
+def siren_shade_plain(gen: GeneratedMLP, x: torch.Tensor,
+                      bf16: bool = False):
+    """(N, 3) points -> (sdf (N, out), feats (N, hidden), grad (N, 3));
+    feats are bf16 under `bf16` (the eval path's dtype contract)."""
+    r = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
+    use_film = len(gen.freqs) > 0
+    L = len(gen.weights)
+    h = x
+    dfs = []
+    for i in range(L - 1):
+        z = r(h) @ r(gen.weights[i]).T + gen.biases[i]
+        if use_film:
+            f = gen.freqs[i]
+            z = f * z + gen.phases[i]
+            dfs.append(30.0 * f * torch.cos(30.0 * z))
+        else:
+            dfs.append(30.0 * torch.cos(30.0 * z))
+        h = torch.sin(30.0 * z)
+    out = r(h) @ r(gen.weights[-1]).T + gen.biases[-1]
+    g = gen.weights[-1][0:1, :].expand(x.shape[0], -1)
+    for i in range(L - 2, -1, -1):
+        g = r(g * dfs[i]) @ r(gen.weights[i])
+    return out, (h.bfloat16() if bf16 else h), g
+
+
+def siren_shade(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
+                resid_bf16: bool = False):
+    """Kernel C: (N, 3) points -> (sdf, feats, d(sdf)/dx) as
+    `siren_shade_plain`."""
+    if not x.is_cuda:
+        return siren_shade_plain(gen, x, bf16)
+    if resid_bf16:
+        raise NotImplementedError('shade kernel resid_bf16 (a TPU A/B) is '
+                                  'not ported')
+    n, din = x.shape
+    L = len(gen.weights)
+    H = gen.weights[0].shape[0]
+    dout = gen.weights[-1].shape[0]
+    film = len(gen.freqs) > 0
+    if (L > 8 or din > 4 or H % 4 or H > 256 or dout > 16
+            or any(w.shape[0] != H for w in gen.weights[:-1])):
+        raise ValueError('shade kernel: unsupported SIREN shape '
+                         f'{[tuple(w.shape) for w in gen.weights]}')
+    _build.require(x, 'x', torch.float32, (n, din))
+    blocks, offs = [], []
+    total = 0
+
+    def put(t):
+        nonlocal total
+        t = t.float().reshape(-1)
+        blocks.append(t)
+        offs.append(total)
+        total += t.numel()
+        return offs[-1]
+    wt_off = [put(w.T.contiguous()) for w in gen.weights]
+    w_off = [put(w) for w in gen.weights]
+    b_off = [put(b) for b in gen.biases]
+    f_off = put(torch.stack(gen.freqs)) if film else 0
+    p_off = put(torch.stack(gen.phases)) if film else 0
+    params = torch.cat(blocks).contiguous()
+    pad = [0] * (8 - L)
+    LL = _build.ctypes.c_longlong * 8
+    meta = _build.ShadeMeta(L, din, H, dout, int(film), int(bf16),
+                            LL(*(wt_off + pad)), LL(*(w_off + pad)),
+                            LL(*(b_off + pad)), f_off, p_off)
+    sdf = torch.empty((n, dout), dtype=torch.float32, device=x.device)
+    feat = torch.empty((n, H), dtype=torch.bfloat16 if bf16
+                       else torch.float32, device=x.device)
+    grad = torch.empty((n, din), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    _build.check(lib.arah_shade(x.data_ptr(), n, params.data_ptr(), meta,
+                                sdf.data_ptr(), feat.data_ptr(),
+                                grad.data_ptr(), _build.stream_ptr(x)),
+                 'shade')
+    _build.COUNTS['shade'] += 1
+    return sdf, feat, grad

@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""Chip smoke run of arah_tpu_torch on one NVIDIA GPU (written for H100).
+
+    python3 chip_smoke.py
+
+1. Builds the CUDA kernels from `arah_tpu_torch/csrc/` (first use, into
+   `.cache/torch_ext/`) and prints the build time.
+2. Holds each kernel (A knn, B corr, C shade, D color_fwd) against its
+   plain PyTorch version on the card, at the shapes of the flagship eval
+   (8192 rays x 64 samples = 524,288 points; B also at its phase-2 shape,
+   through the straggler split and its write-back), and times both.
+3. Drives the port's main path: `render(training=False)` of the flagship
+   scene (`scene.build_scene`) for 3 frames of different poses, with the
+   kernel launch
+   counts set to 0 just before and read just after; traces one frame
+   with torch.profiler (device time by kernel, the device's idle share);
+   then renders with the kernels and with the plain versions (splits off
+   on both sides), in turns, and compares the two.
+
+Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line, and as its
+last line `{"ok": true, "device": {...}}`. Any failed check exits
+non-zero before those lines. Without a CUDA device it exits non-zero.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+PEAK_F32 = 67e12        # H100 SXM, f32 outside the tensor cores (flop/s)
+PEAK_BF16 = 989e12      # H100 SXM, dense bf16 tensor cores (flop/s)
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 (B/s)
+RAYS = 8192             # rays per frame: N = 524,288 (ray, sample) points
+FRAMES = 3              # main-path frames, each with its own pose
+REPS = 5                # timed repeats of each kernel and plain version
+
+FAILURES = []
+
+
+def check(ok, msg):
+    """Record a failed check; the run goes on to report the other phases
+    and exits non-zero at the end, before the result lines."""
+    if not ok:
+        FAILURES.append(msg)
+        print(f'FAILED: {msg}', flush=True)
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi reports them."""
+    try:
+        r = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                            '--format=csv,noheader'], capture_output=True,
+                           text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return 'nvidia-smi unavailable'
+    lines = r.stdout.strip().splitlines()
+    return lines[0] if r.returncode == 0 and lines \
+        else 'nvidia-smi unavailable'
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print('no CUDA device: chip_smoke.py runs on the GPU only',
+              file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from arah_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def no_tf32():
+        check(not torch.backends.cuda.matmul.allow_tf32
+              and not torch.backends.cudnn.allow_tf32, 'TF32 got enabled')
+
+    card = card_line()
+    print(f'card: {card}', flush=True)
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+          f'python {sys.version.split()[0]}', flush=True)
+
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    built = _build.BUILD_SECONDS
+    print(f'kernels: load {build_s:.1f} s (nvcc build '
+          f'{"cached" if built is None else f"{built:.1f} s"}) '
+          f'-> {_build.library_path()}', flush=True)
+    log = os.path.join(os.path.dirname(_build.library_path()), 'build.log')
+    if os.path.exists(log):
+        for line in open(log):
+            if 'registers' in line or 'spill' in line or line.startswith('=='):
+                print('  ptxas:', line.strip())
+
+    from arah_tpu_torch.core.embedder import positional_encoding
+    from arah_tpu_torch.nn.layers import wn_weight
+    from arah_tpu_torch.nn.skinning import skinning_dense_params
+    from arah_tpu_torch.ops.color import color_mlp_fused, color_mlp_plain
+    from arah_tpu_torch.ops.corr import (corr_search, corr_search_plain,
+                                         dense_skin_fn)
+    from arah_tpu_torch.ops.knn import nn_idx, nn_idx_plain
+    from arah_tpu_torch.ops.shade import siren_shade, siren_shade_plain
+    from arah_tpu_torch.render.ray_tracing import (_corr_solve_split,
+                                                   corr_init, sample_z_vals,
+                                                   sphere_trace)
+    from arah_tpu_torch.render.renderer import (generate_sdf, make_sdf_fn,
+                                                make_skin_fn)
+    from arah_tpu_torch.scene import (SURFACE_SHIFT, build_scene,
+                                      flagship_config)
+
+    cfg = flagship_config()
+    params, fd, inp = build_scene(cfg, RAYS, seed=0)
+    frame = fd.frame
+    print(f'scene: flagship, {RAYS} rays, seed 0, SIREN output lowered by '
+          f'{SURFACE_SHIFT} m (scene.build_scene)', flush=True)
+    dev = inp.ray_dirs.device
+    gen = generate_sdf(params, cfg, inp.rots, inp.Jtrs, inp.geo_latent)
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / reps
+
+    def bound(nbytes, flops, peak):
+        tb, to = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+        return (tb, 'bytes') if tb >= to else (to, 'operations')
+
+    def q(a, p):
+        return float(torch.quantile(a.float().flatten()[:1 << 24], p))
+
+    records = {}
+
+    # ---- main-path inputs of A and B: the samples of one eval frame
+    with torch.no_grad():
+        cam = inp.cam_loc.expand(inp.ray_dirs.shape)
+        surf = sphere_trace(cfg.tracer, make_sdf_fn(gen),
+                            make_skin_fn(params, cfg), frame, fd.smpl, cam,
+                            inp.ray_dirs, inp.near, inp.far, eval_mode=True)
+        z_vals, smask = sample_z_vals(cfg.tracer, ~surf.unconverged,
+                                      surf.start_dis, inp.near, inp.far)
+        pts = (cam[:, None, :] + z_vals[..., None]
+               * inp.ray_dirs[:, None, :]).reshape(-1, 3).contiguous()
+        flat_mask = smask.reshape(-1).contiguous()
+    n_pts = pts.shape[0]
+    verts = fd.smpl.verts_posed
+    print(f'main-path inputs: {n_pts} points, {verts.shape[0]} verts, '
+          f'{int(flat_mask.sum())} active samples, '
+          f'{int((~surf.unconverged).sum())} surface rays', flush=True)
+
+    # ---- A: knn
+    no_tf32()
+    idx_k = nn_idx(pts, verts).long()
+    idx_p = nn_idx_plain(pts, verts).long()
+    d_k = torch.linalg.norm(pts - verts[idx_k], dim=-1)
+    d_p = torch.linalg.norm(pts - verts[idx_p], dim=-1)
+    err = float((d_k - d_p).abs().max())
+    print(f'A knn: max |d_kernel - d_plain| = {err:.3e} (bound 1e-5), '
+          f'index agreement {float((idx_k == idx_p).float().mean()):.6f}')
+    check(err < 1e-5, 'knn kernel disagrees with its plain version')
+    nv = verts.shape[0]
+    records['knn'] = dict(
+        max_abs_err=err,
+        ms=timed(lambda: nn_idx(pts, verts), REPS),
+        plain_ms=timed(lambda: nn_idx_plain(pts, verts), REPS),
+        bound=bound(n_pts * 16 + nv * 12, n_pts * nv * 8.0, PEAK_F32),
+        src='arah_tpu_torch/csrc/knn.cu',
+        rep='arah_tpu/ops/pallas/knn_kernel.py:106')
+
+    # ---- B: corr. Phase 1 of the main path: every sample at
+    # corr_phase1_steps iterations.
+    no_tf32()
+    with torch.no_grad():
+        x_bar, x0, T0 = corr_init(cfg.tracer, frame, fd.smpl, pts)
+    T0_16 = T0.reshape(n_pts, 16).contiguous()
+    wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
+    skin_fn = dense_skin_fn(wts, bs, cfg.skinning.softmax_scale)
+    bones16 = frame.bone_transforms.reshape(24, 16).contiguous()
+    steps = cfg.tracer.corr_phase1_steps
+    kargs = (x_bar, x0, T0_16, flat_mask, wts, bs, bones16,
+             frame.coord_min, frame.coord_max, frame.center)
+    xk, _, vk, ak = corr_search(*kargs, max_steps=steps)
+    xp, _, vp, ap_ = corr_search_plain(*kargs, max_steps=steps)
+    max_dx = corr_compare(f'B corr phase 1 ({n_pts} points, {steps} steps)',
+                          xk, vk, xp, vp, x_bar, frame, skin_fn)
+    print(f'  active at {steps} steps: kernel {int(ak.sum())} plain '
+          f'{int(ap_.sum())}', flush=True)
+
+    # Phase 2 and its write-back. Phase 1 cut to one iteration leaves
+    # nearly every sample active, so the split re-solves the first
+    # corr_resolve_cap of them at corr_max_steps and writes them back;
+    # the kernel side must launch twice.
+    no_tf32()
+    tr1 = cfg.tracer._replace(corr_phase1_steps=1)
+    c0 = _build.COUNTS['corr']
+    with torch.no_grad():
+        xk2, _, vk2, _ = _corr_solve_split(
+            tr1, skin_fn, frame, (wts, bs, cfg.skinning.softmax_scale),
+            x_bar, x0, T0, flat_mask)
+        n_k = _build.COUNTS['corr'] - c0
+        xp2, _, vp2, _ = _corr_solve_split(
+            tr1._replace(use_pallas_corr=False), skin_fn, frame, None,
+            x_bar, x0, T0, flat_mask)
+    cap, p2_steps = cfg.tracer.corr_resolve_cap, cfg.tracer.corr_max_steps
+    corr_compare(f'B corr split, phase 1 at 1 step, phase 2 on the first '
+                 f'{cap} stragglers at {p2_steps} steps', xk2, vk2, xp2, vp2,
+                 x_bar, frame, skin_fn)
+    check(n_k == 2, f'corr split launched the kernel {n_k} times, not 2')
+    sel = torch.nonzero(flat_mask).flatten()[:cap]
+    kargs2 = (x_bar[sel].contiguous(), x0[sel].contiguous(),
+              T0_16[sel].contiguous(), torch.ones_like(sel, dtype=torch.bool),
+              wts, bs, bones16, frame.coord_min, frame.coord_max,
+              frame.center)
+    ms_k = timed(lambda: corr_search(*kargs2, max_steps=p2_steps), REPS)
+    ms_p = timed(lambda: corr_search_plain(*kargs2, max_steps=p2_steps), 2)
+    print(f'  phase-2 shape ({sel.numel()} points, {p2_steps} steps): kernel '
+          f'{ms_k:.3f} ms, plain {ms_p:.3f} ms [{card}]', flush=True)
+    del xk2, vk2, xp2, vp2
+
+    # data-dependent work: each point's MLP evaluations (the init one plus
+    # one per Broyden iteration it ran, from the plain solve of this run)
+    from arah_tpu_torch.solver.root_find import CanonicalFrame
+    from arah_tpu_torch.solver.root_find import search_canonical_corr
+    res = search_canonical_corr(
+        skin_fn, CanonicalFrame(frame.bone_transforms,
+                                torch.zeros(3, device=dev), frame.coord_min,
+                                frame.coord_max, frame.center),
+        x_bar, x0, T0, max_steps=steps, active_init=flat_mask)
+    evals = float(n_pts + res.iters.sum())
+    macs = sum(w.shape[0] * w.shape[1] for w in wts)
+    flops_eval = 2 * macs + 4 * sum(w.shape[0] for w in wts[:-1]) \
+        + 2 * 24 * 16 + 250
+    records['corr'] = dict(
+        max_abs_err=max_dx,
+        ms=timed(lambda: corr_search(*kargs, max_steps=steps), REPS),
+        plain_ms=timed(lambda: corr_search_plain(*kargs, max_steps=steps),
+                       max(1, REPS // 2)),
+        bound=bound(n_pts * (12 + 12 + 64 + 1 + 12 + 64 + 2)
+                    + 4 * (macs + 600), evals * flops_eval, PEAK_F32),
+        src='arah_tpu_torch/csrc/corr.cu',
+        rep='arah_tpu/ops/pallas/corr_kernel_t.py:291')
+    print(f'  corr work: {evals:.0f} MLP evaluations '
+          f'({float(res.iters.float().mean()):.3f} iterations per point, '
+          f'max {int(res.iters.max())})')
+
+    # ---- C: shade, random-init flagship gen, points uniform in [-1,1]^3
+    g = torch.Generator(device='cpu').manual_seed(1)
+    xs = (torch.rand((n_pts, 3), generator=g) * 2 - 1).to(dev)
+    H = gen.weights[0].shape[0]
+    shade_rec = {}
+    for bf in (False, True):
+        no_tf32()
+        ok_, fk, gk = siren_shade(gen, xs, bf16=bf)
+        op, fp, gp = siren_shade_plain(gen, xs, bf16=bf)
+        ds = (ok_ - op).abs()
+        df = (fk.float() - fp.float()).abs()
+        dg = (gk - gp).abs()
+        print(f'C shade bf16={bf}: median |d| sdf {float(ds.median()):.3e} '
+              f'(bound 3e-3) feats {float(df.median()):.3e} (5e-2) normals '
+              f'{float(dg.median()):.3e} (5e-2); p99 {q(ds, .99):.3e} '
+              f'{q(df, .99):.3e} {q(dg, .99):.3e}; max '
+              f'{float(ds.max()):.3e} {float(df.max()):.3e} '
+              f'{float(dg.max()):.3e}', flush=True)
+        check(float(ds.median()) < 3e-3 and float(df.median()) < 5e-2
+              and float(dg.median()) < 5e-2,
+              f'shade kernel (bf16={bf}) disagrees with its plain version')
+        shade_rec[bf] = (float(ds.max()), fk, gk)
+    L = len(gen.weights)
+    macs_c = 3 * H + (L - 2) * H * H + H
+    flops_c = n_pts * (2 * macs_c + 2 * ((L - 2) * H * H + 3 * H)
+                       + 30 * H * (L - 1))
+    bf = cfg.bf16_shading
+    records['shade'] = dict(
+        max_abs_err=shade_rec[bf][0],
+        ms=timed(lambda: siren_shade(gen, xs, bf16=bf), REPS),
+        plain_ms=timed(lambda: siren_shade_plain(gen, xs, bf16=bf),
+                       REPS),
+        bound=bound(n_pts * (12 + 4 + H * (2 if bf else 4) + 12)
+                    + 8 * sum(w.numel() for w in gen.weights), flops_c,
+                    PEAK_BF16 if bf else PEAK_F32),
+        src='arah_tpu_torch/csrc/shade.cu',
+        rep='arah_tpu/ops/pallas/shade_kernel.py:113')
+
+    # ---- D: color forward, features from C, random view dirs/normals
+    cw = [wn_weight(l) for l in params['color']['layers']]
+    cb = [l['b'] for l in params['color']['layers']]
+    vd = torch.nn.functional.normalize(torch.randn((n_pts, 3), generator=g),
+                                       dim=-1).to(dev)
+    small = torch.cat([xs, positional_encoding(vd, cfg.color.multires_view),
+                       shade_rec[cfg.bf16_shading][2]], dim=-1).contiguous()
+    pose = params['latent'][0][None]
+    skips = tuple(cfg.color.skips)
+    color_rec = {}
+    for bf in (False, True):
+        no_tf32()
+        feats = shade_rec[bf][1]
+        rk_ = color_mlp_fused(cw, cb, small, feats, pose, skips, bf16=bf)
+        rp_ = color_mlp_plain(cw, cb, small, feats, pose, skips, bf16=bf)
+        d = (rk_ - rp_).abs()
+        msg = (f'D color_fwd bf16={bf}: max |d rgb| {float(d.max()):.3e}, '
+               f'median {float(d.median()):.3e}, p99.9 {q(d, .999):.3e}')
+        if bf:
+            print(msg + ' (bounds median 1e-4, p99.9 1e-2)', flush=True)
+            check(float(d.median()) < 1e-4 and q(d, .999) < 1e-2,
+                  'color kernel (bf16) disagrees with its plain version')
+        else:
+            print(msg + ' (bound max 1e-4)', flush=True)
+            check(float(d.max()) < 1e-4,
+                  'color kernel (f32) disagrees with its plain version')
+        color_rec[bf] = float(d.max())
+    bf = cfg.bf16_shading
+    feats = shade_rec[bf][1]
+    macs_d = sum(w.shape[0] * w.shape[1] for w in cw)
+    records['color_fwd'] = dict(
+        max_abs_err=color_rec[bf],
+        ms=timed(lambda: color_mlp_fused(cw, cb, small, feats, pose, skips,
+                                         bf16=bf), REPS),
+        plain_ms=timed(lambda: color_mlp_plain(cw, cb, small, feats, pose,
+                                               skips, bf16=bf), REPS),
+        bound=bound(n_pts * (small.shape[1] * 4 + feats.shape[1]
+                             * feats.element_size() + 12) + 4 * macs_d,
+                    n_pts * 2.0 * macs_d, PEAK_BF16 if bf else PEAK_F32),
+        src='arah_tpu_torch/csrc/color.cu',
+        rep='arah_tpu/ops/pallas/color_kernel.py:214')
+    del xs, small, feats, shade_rec, res
+    torch.cuda.empty_cache()
+
+    launches = run_render(cfg, params, fd, inp, card, gen, no_tf32)
+
+    out = []
+    for name, r in records.items():
+        out.append({'name': name, 'route': 'cuda', 'source': r['src'],
+                    'replaces': r['rep'], 'launches': launches[name],
+                    'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                    'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
+                    'bound_by': r['bound'][1], 'library_ms': None})
+        print(f'{name}: {r["ms"]:.3f} ms kernel, {r["plain_ms"]:.3f} ms '
+              f'plain, bound {r["bound"][0]:.4f} ms ({r["bound"][1]}), '
+              f'launches {launches[name]} [{card}]')
+    if FAILURES:
+        print(f'{len(FAILURES)} check(s) failed: {FAILURES}', flush=True)
+        sys.exit(1)
+    print('library_ms: null for all four: no single PyTorch call computes '
+          'a nearest-vertex argmin, a Broyden solve, a SIREN with its input '
+          'gradient or a split-input MLP')
+    print(json.dumps({'kernels': out}))
+    print(card)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+def corr_compare(tag, xk, vk, xp, vp, x_bar, frame, skin_fn):
+    """Hold kernel B's solve (xk, vk) against the plain one (xp, vp):
+    valid agreement >= 0.99, median |dx| < 1e-5 on commonly-valid points,
+    and every flip (|dx| > 1e-4) a root on both sides (|fwd_skin(x) -
+    x_bar| < 1e-5). Returns the max |dx| on commonly-valid points."""
+    import torch
+    from arah_tpu_torch.core.body import normalize_canonical_points
+    from arah_tpu_torch.core.body import skinning as lbs
+
+    def resid(x_hat, target):
+        with torch.no_grad():
+            xn = normalize_canonical_points(x_hat, frame.coord_min,
+                                            frame.coord_max, frame.center)
+            xb, _ = lbs(x_hat, skin_fn(xn), frame.bone_transforms)
+        return torch.linalg.norm(xb - target, dim=-1)
+
+    agree = float((vk == vp).float().mean())
+    both = vk & vp
+    dist = torch.linalg.norm(xk - xp, dim=-1)
+    dx = dist[both]
+    med = float(dx.median()) if dx.numel() else 0.0
+    mx = float(dx.max()) if dx.numel() else 0.0
+    p99 = float(torch.quantile(dx[:1 << 24], 0.99)) if dx.numel() else 0.0
+    fi = torch.nonzero(both & (dist > 1e-4)).flatten()
+    rk, rp = resid(xk[fi], x_bar[fi]), resid(xp[fi], x_bar[fi])
+    flip_ok = bool(((rk < 1e-5) & (rp < 1e-5)).all())
+    r_max = float(torch.cat([rk, rp, rk.new_zeros(1)]).max())
+    print(f'{tag}: valid agreement {agree:.6f} (bound >= 0.99), median |dx| '
+          f'{med:.3e} (bound 1e-5), p99 {p99:.3e}, max {mx:.3e} on '
+          f'{int(both.sum())} commonly-valid points; {fi.numel()} flips '
+          f'(>1e-4) with residual max {r_max:.3e} (bound 1e-5 both sides); '
+          f'valid kernel {int(vk.sum())} plain {int(vp.sum())}', flush=True)
+    check(agree >= 0.99 and med < 1e-5 and flip_ok,
+          f'{tag}: corr kernel disagrees with its plain version')
+    return mx
+
+
+def run_render(cfg, params, fd, inp, card, gen, no_tf32):
+    """The main path (counted) and the kernels-vs-plain render."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.data.synthetic import synthetic_smpl
+    from arah_tpu_torch.nn.siren import siren_apply
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.render.renderer import render
+    from arah_tpu_torch.scene import N_VERTS, scene_frame, scene_inputs
+
+    dev = inp.ray_dirs.device
+    model = synthetic_smpl(n_verts=N_VERTS)
+    rng = np.random.RandomState(100)
+    frames = [inp] + [scene_inputs(params, scene_frame(model, rng, dev),
+                                   RAYS, rng, dev)
+                      for _ in range(FRAMES - 1)]
+    render(params, cfg, frames[0])              # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    outs = [render(params, cfg, f) for f in frames]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, o in enumerate(outs):
+        rgb = o['rgb_values']
+        check(bool(torch.isfinite(rgb).all())
+              and bool(torch.isfinite(o['weights_sum']).all()),
+              f'frame {i}: non-finite output')
+        check(bool(((rgb >= 0) & (rgb <= 1)).all()), f'frame {i}: rgb '
+              'outside [0, 1]')
+        check(tuple(rgb.shape) == (RAYS, 3), f'frame {i}: rgb shape')
+        nb = int(o['network_body_mask'].sum())
+        check(nb > 0, f'frame {i}: empty network_body_mask')
+        check(float(o['weights_sum'].max()) > 0.5, f'frame {i}: black frame')
+        print(f'frame {i}: body rays {nb}, surface-converged '
+              f'{int(o["surface_converged"].sum())}, valid samples '
+              f'{int(o["n_samples_valid"])}, mean rgb '
+              f'{float(rgb.mean()):.4f}, mean weights_sum '
+              f'{float(o["weights_sum"].mean()):.4f}')
+    check(all(v > 0 for v in launches.values()),
+          f'a kernel was not launched on the main path: {launches}')
+    ms = wall / len(frames) * 1e3
+    print(f'main path: {len(frames)} frames x {RAYS} rays: '
+          f'{ms:.1f} ms/frame, {RAYS / (ms / 1e3):.0f} rays/s, peak '
+          f'memory {peak:.2f} GiB, launches {launches} [{card}]',
+          flush=True)
+
+    profile_frame(render, params, cfg, frames[0], ms, card)
+
+    # kernels vs plain, splits off on both sides, rendered in turns (the
+    # host's clock varies by ~100 ms between repeats of one frame)
+    nosplit = dict(corr_phase1_steps=0, march_phase1_steps=0,
+                   iso_phase1_steps=0)
+    cfg_k = cfg._replace(tracer=cfg.tracer._replace(**nosplit))
+    cfg_p = cfg_k._replace(
+        use_pallas_shade=False, color=cfg_k.color._replace(use_pallas=False),
+        tracer=cfg_k.tracer._replace(use_pallas_knn=False,
+                                     use_pallas_corr=False))
+    res, t = {}, {'k': [], 'p': []}
+    for tag in ('p', 'k', 'k', 'p') * 2:
+        no_tf32()
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        res[tag] = render(params, cfg_k if tag == 'k' else cfg_p, inp)
+        torch.cuda.synchronize()
+        t[tag].append((time.perf_counter() - s) * 1e3)
+    ok_, op = res['k'], res['p']
+    m_a, m_b = ok_['network_body_mask'], op['network_body_mask']
+    both = m_a & m_b
+    agree = float((m_a == m_b).float().mean())
+    d_rgb = (ok_['rgb_values'] - op['rgb_values']).abs()[both].flatten()
+    d_dep = (ok_['surface_depth'] - op['surface_depth']).abs()[both]
+    rgb_med = float(d_rgb.median()) if d_rgb.numel() else 0.0
+    dep_med = float(d_dep.median()) if d_dep.numel() else 0.0
+    flipped = (m_a != m_b) | (both & ((ok_['surface_depth']
+                                       - op['surface_depth']).abs() > 1e-3))
+    fracs = []
+    for o in (ok_, op):
+        sel = flipped & o['surface_converged'] & o['network_body_mask']
+        if bool(sel.any()):
+            with torch.no_grad():
+                r = siren_apply(gen, o['surface_points_norm'][sel])[:, 0]
+            fracs.append(float((r.abs() < 5e-3).float().mean()))
+    fvf = min(fracs) if fracs else 1.0
+    print(f'render kernels vs plain (splits off): mask agreement {agree:.5f} '
+          f'(bound > 0.98), rgb median {rgb_med:.3e} (< 1e-2), depth median '
+          f'{dep_med:.3e} (< 1e-4), flipped rays {int(flipped.sum())}, '
+          f'flipped_valid_frac {fvf:.4f} (> 0.9); surface rays kernel '
+          f'{int(ok_["surface_converged"].sum())} plain '
+          f'{int(op["surface_converged"].sum())}', flush=True)
+    check(agree > 0.98 and rgb_med < 1e-2 and dep_med < 1e-4 and fvf > 0.9,
+          'kernel render disagrees with the plain render')
+    print(f'render splits off, one frame of {RAYS} rays, in turns '
+          f'(plain, kernels, kernels, plain) x 2: kernels median '
+          f'{float(np.median(t["k"])):.1f} ms {[round(v, 1) for v in t["k"]]}'
+          f', plain median {float(np.median(t["p"])):.1f} ms '
+          f'{[round(v, 1) for v in t["p"]]} [{card}]', flush=True)
+    return launches
+
+
+def profile_frame(render, params, cfg, inp, ms_frame, card):
+    """Device time by kernel over one main-path frame, and the share of
+    the frame the device spent idle: of the traced frame's wall time, and
+    of the untraced frame time `ms_frame` (tracing slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render(params, cfg, inp)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: a CPU op's self device time repeats the
+    # time of the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print('profile of one frame: the trace holds no device-side events '
+              '(device time and idle share not measured)')
+        return
+    busy =sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f'profile of one frame: traced wall {wall_ms:.1f} ms, device '
+          f'busy {busy:.1f} ms in {sum(e.count for e in kernels)} kernel '
+          f'launches, idle share {1 - busy / wall_ms:.3f} of the traced '
+          f'frame, {1 - busy / ms_frame:.3f} of the untraced '
+          f'{ms_frame:.1f} ms [{card}]')
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f'  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  '
+              f'{e.key[:90]}')
+
+
+if __name__ == '__main__':
+    main()
