@@ -25,64 +25,15 @@
 // the same weight, so each load is one broadcast transaction. The bone
 // table (24x16) is staged in shared memory. Plain f32 FMAs throughout,
 // exact expf/log1pf (no fast math).
-#include "common.cuh"
+#include "tile_mlp.cuh"
 
 #define CORR_THREADS 64
 #define MAX_LAYERS 8
-#define N_BONES 24
 
 struct MlpDims {
   int n_layers;          // linear layers
   int dims[MAX_LAYERS + 1];   // widths: dims[0] = 3, dims[n_layers] = 25
 };
-
-__device__ __forceinline__ float softplus100(float x) {
-  const float bx = 100.f * x;
-  return bx > 20.f ? x : log1pf(expf(bx)) / 100.f;
-}
-
-__device__ __forceinline__ float sigm(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// SNARF hierarchical softmax, (25) logits -> (24) probabilities, in the
-// order of corr_kernel_t.py:_hier_softmax_rows.
-__device__ void hier_softmax(const float* c, float* p) {
-  const float m_hip = fmaxf(fmaxf(c[1], c[2]), c[3]);
-  const float e1 = expf(c[1] - m_hip), e2 = expf(c[2] - m_hip),
-              e3 = expf(c[3] - m_hip);
-  const float denom = e1 + e2 + e3;
-  const float root_gate = sigm(c[0]);
-  p[1] = root_gate * e1 / denom;
-  p[2] = root_gate * e2 / denom;
-  p[3] = root_gate * e3 / denom;
-  p[0] = 1.f - root_gate;
-  const int ch1[8] = {4, 5, 6, 7, 8, 9, 10, 11};
-  const int pa1[8] = {1, 2, 3, 4, 5, 6, 7, 8};
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const float s = sigm(c[ch1[t]]);
-    p[ch1[t]] = p[pa1[t]] * s;
-    p[pa1[t]] = p[pa1[t]] * (1.f - s);
-  }
-  const float spine_gate = sigm(c[24]);
-  const float m_sp = fmaxf(fmaxf(c[12], c[13]), c[14]);
-  const float e12 = expf(c[12] - m_sp), e13 = expf(c[13] - m_sp),
-              e14 = expf(c[14] - m_sp);
-  const float denom_s = e12 + e13 + e14;
-  p[12] = p[9] * spine_gate * e12 / denom_s;
-  p[13] = p[9] * spine_gate * e13 / denom_s;
-  p[14] = p[9] * spine_gate * e14 / denom_s;
-  p[9] = p[9] * (1.f - spine_gate);
-  const int ch2[9] = {15, 16, 17, 18, 19, 20, 21, 22, 23};
-  const int pa2[9] = {12, 13, 14, 16, 17, 18, 19, 20, 21};
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    const float s = sigm(c[ch2[t]]);
-    p[ch2[t]] = p[pa2[t]] * s;
-    p[pa2[t]] = p[pa2[t]] * (1.f - s);
-  }
-}
 
 // fwd_skin at x (metric canonical): residual xb - x_bar and the blended
 // transform T16 (row-major 4x4). hA/hB: this thread's activation columns
@@ -143,18 +94,6 @@ __device__ void skin_fwd(const float x[3], const float scale,
   for (int r = 0; r < 3; ++r)
     g[r] = T[4 * r] * x[0] + T[4 * r + 1] * x[1] + T[4 * r + 2] * x[2]
            + T[4 * r + 3] - xbar[r];
-}
-
-__device__ void inv3x3(const float m[9], float o[9]) {
-  const float a = m[0], b = m[1], c = m[2], d = m[3], e = m[4], f = m[5],
-              g = m[6], h = m[7], i = m[8];
-  const float A = e * i - f * h, B = -(d * i - f * g), C = d * h - e * g;
-  const float D = -(b * i - c * h), E = a * i - c * g, F = -(a * h - b * g);
-  const float G = b * f - c * e, H = -(a * f - c * d), I = a * e - b * d;
-  const float inv_det = 1.f / (a * A + b * B + c * C);
-  o[0] = A * inv_det; o[1] = D * inv_det; o[2] = G * inv_det;
-  o[3] = B * inv_det; o[4] = E * inv_det; o[5] = H * inv_det;
-  o[6] = C * inv_det; o[7] = F * inv_det; o[8] = I * inv_det;
 }
 
 __global__ void __launch_bounds__(CORR_THREADS)

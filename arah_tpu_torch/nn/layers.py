@@ -81,6 +81,10 @@ def wn_linear(params, x, bf16: bool = False):
 
 
 def softplus100(x: torch.Tensor) -> torch.Tensor:
-    """Softplus with beta=100 and the linear region above 20/beta."""
+    """Softplus with beta=100 and the linear region above 20/beta. The
+    exponent is clamped at the threshold, which leaves every value as it
+    was and keeps the unused branch's gradient finite (0, not inf * 0)."""
     bx = 100.0 * x
-    return torch.where(bx > 20.0, x, torch.log1p(torch.exp(bx)) / 100.0)
+    return torch.where(bx > 20.0, x,
+                       torch.log1p(torch.exp(torch.clamp(bx, max=20.0)))
+                       / 100.0)

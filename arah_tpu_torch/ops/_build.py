@@ -31,7 +31,8 @@ CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC']
 
-COUNTS = {'knn': 0, 'corr': 0, 'shade': 0, 'color_fwd': 0}
+COUNTS = {'knn': 0, 'corr': 0, 'shade': 0, 'color_fwd': 0, 'march': 0,
+          'iso': 0}
 BUILD_SECONDS = None     # wall time of this process's build, None if cached
 
 _LIB = None
@@ -128,6 +129,19 @@ class ColorMeta(ctypes.Structure):
                 ('b_off', ctypes.c_longlong * 8)]
 
 
+class NetMeta(ctypes.Structure):
+    """`struct NetMeta` of csrc/tile_mlp.cuh."""
+    _fields_ = [('n_layers', _I), ('hidden', _I), ('film', _I),
+                ('wt_off', ctypes.c_longlong * 8),
+                ('wl_off', ctypes.c_longlong),
+                ('b_off', ctypes.c_longlong * 8),
+                ('freq_off', ctypes.c_longlong),
+                ('phase_off', ctypes.c_longlong),
+                ('n_skin', _I), ('skin_dims', _I * 9),
+                ('skin_wt_off', ctypes.c_longlong * 8),
+                ('skin_b_off', ctypes.c_longlong * 8)]
+
+
 def load():
     """The kernels' ctypes library, built at first use."""
     global _LIB
@@ -142,11 +156,33 @@ def load():
                               _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
     lib.arah_shade.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _P, _P]
     lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, ColorMeta, _P, _P]
+    lib.arah_march.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+                               NetMeta, _I, _F, _F, _P, _P, _P, _P, _P, _P]
+    lib.arah_iso.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                             NetMeta, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
     for fn in (lib.arah_knn, lib.arah_corr, lib.arah_shade,
-               lib.arah_color_fwd):
+               lib.arah_color_fwd, lib.arah_march, lib.arah_iso):
         fn.restype = _I
     _LIB = lib
     return lib
+
+
+class ParamPack:
+    """One f32 parameter buffer for a kernel under construction: `put`
+    appends a tensor (flattened) and returns its offset in floats."""
+
+    def __init__(self):
+        self.blocks, self.total = [], 0
+
+    def put(self, t) -> int:
+        t = t.float().reshape(-1)
+        self.blocks.append(t)
+        self.total += t.numel()
+        return self.total - t.numel()
+
+    def tensor(self):
+        import torch
+        return torch.cat(self.blocks).contiguous()
 
 
 def check(err: int, name: str):

@@ -68,8 +68,8 @@ def color_mlp_fused(weights, biases, small, feats, pose, skips: tuple,
     if P:
         pose_t = pose.reshape(P).float().contiguous()
 
-    blocks, total = [], 0
-    n_comp, kind, width, w_off, b_off = [], [], [], [], []
+    pack = _build.ParamPack()
+    n_comp, kind, width, w_off = [], [], [], []
     for l, w in enumerate(weights):
         if l == 0:
             comps = [('small', 0, S), ('feats', S, F)]
@@ -83,20 +83,14 @@ def color_mlp_fused(weights, biases, small, feats, pose, skips: tuple,
         n_comp.append(len(comps))
         kk, ww, oo = [], [], []
         for name, start, wd in comps:
-            blk = w[:, start:start + wd].T.contiguous().float().reshape(-1)
             kk.append(_KIND[name])
             ww.append(wd)
-            oo.append(total)
-            blocks.append(blk)
-            total += blk.numel()
+            oo.append(pack.put(w[:, start:start + wd].T.contiguous()))
         kind.append(kk + [0] * (4 - len(kk)))
         width.append(ww + [0] * (4 - len(ww)))
         w_off.append(oo + [0] * (4 - len(oo)))
-    for b in biases:
-        b_off.append(total)
-        blocks.append(b.float().reshape(-1))
-        total += b.numel()
-    params = torch.cat(blocks).contiguous()
+    b_off = [pack.put(b) for b in biases]
+    params = pack.tensor()
 
     I8, L8 = _build._I * 8, _build.ctypes.c_longlong * 8
     I4x8 = (_build._I * 4) * 8

@@ -1,0 +1,165 @@
+"""Fused sphere-trace march: kernel E and its plain version.
+
+`sphere_march` launches the CUDA kernel (csrc/march.cu, the port of
+`arah_tpu/ops/pallas/march_kernel.py:sphere_march_pallas`) for CUDA
+tensors and computes `sphere_march_plain` for CPU tensors. Both follow
+the Pallas kernel, not `_march_xla`: nearest-vertex ties average their
+skinning weights, the distance is the expanded |v|^2 - 2 v.p (each product
+and sum rounded on its own, in the order of `ops/knn.py`), the blended
+rotation is inverted by its adjugate (`core/linalg.py:inv3x3`), and
+points are normalised in the kernel's `nscale`/`noffset` form.
+"""
+from __future__ import annotations
+
+import torch
+
+from arah_tpu_torch.core.linalg import inv3x3
+from arah_tpu_torch.nn.siren import GeneratedMLP, siren_apply
+from arah_tpu_torch.ops import _build
+from arah_tpu_torch.solver.root_find import CanonicalFrame
+
+
+def kernel_affine(frame: CanonicalFrame):
+    """(nscale, noffset (3,), metric scale) of the Pallas kernels:
+    x_norm = x * nscale + noffset, metric sdf = sdf * metric scale."""
+    ext = frame.coord_max - frame.coord_min
+    nscale = 2.0 / (ext * 1.1)
+    noffset = (-frame.center - frame.coord_min + 0.05 * ext) * nscale - 1.0
+    return nscale, noffset, 0.55 * ext
+
+
+def nn_weights_tied(points: torch.Tensor, verts: torch.Tensor,
+                    skin_weights: torch.Tensor,
+                    chunk: int = 4096) -> torch.Tensor:
+    """(N, 24) skinning weights of each point's nearest vertex; when
+    several vertices tie at the minimum distance, the mean of their rows
+    (`march_kernel.py:100-104`)."""
+    vx, vy, vz = verts[:, 0], verts[:, 1], verts[:, 2]
+    v_sq = vx * vx + vy * vy + vz * vz
+    out = []
+    for s in range(0, points.shape[0], chunk):
+        p = points[s:s + chunk]
+        dot = p[:, 0:1] * vx + p[:, 1:2] * vy + p[:, 2:3] * vz
+        d = v_sq - 2.0 * dot
+        dmin, idx = torch.min(d, dim=-1)
+        tie = d <= dmin[:, None]
+        cnt = tie.sum(-1, keepdim=True)
+        # a tied row's sum of 1.0 * row + 0.0 * others is exact
+        mean = (tie.float() @ skin_weights) / cnt.clamp(min=1)
+        out.append(torch.where(cnt > 1, mean, skin_weights[idx]))
+    if not out:
+        return skin_weights.new_zeros((0, skin_weights.shape[1]))
+    return torch.cat(out)
+
+
+@torch.no_grad()
+def sphere_march_plain(cam, dirs, near, far, verts, skin_weights,
+                       frame: CanonicalFrame, gen: GeneratedMLP,
+                       n_iters: int = 50, thresh: float = 1e-5,
+                       clamp_dist: float = 0.1):
+    """Plain version of kernel E. Returns (t (N,), unfinished (N,),
+    diverged (N,), x_norm (N, 3), T16 (N, 16), iters (N,) int32: the
+    iterations each ray ran)."""
+    n = dirs.shape[0]
+    dev = dirs.device
+    nscale, noffset, mscale = kernel_affine(frame)
+    bones16 = frame.bone_transforms.reshape(24, 16)
+    t = near.clone()
+    unf = near < far
+    div = ~unf
+    x_norm = torch.zeros((n, 3), device=dev)
+    T16 = torch.zeros((n, 16), device=dev)
+    iters = torch.zeros((n,), dtype=torch.int32, device=dev)
+    big = torch.tensor(1e11, device=dev)
+    i = 0
+    while i < n_iters and bool(unf.any()):
+        pts = cam + t[:, None] * dirs
+        T = nn_weights_tied(pts, verts, skin_weights) @ bones16
+        T4 = T.reshape(n, 4, 4)
+        x_hat = torch.einsum('nij,nj->ni', inv3x3(T4[:, :3, :3]),
+                             (pts - frame.trans) - T4[:, :3, 3])
+        xn = x_hat * nscale + noffset
+        sdf = siren_apply(gen, xn)[:, 0] * mscale
+        sdf = torch.where(unf, sdf, big)
+        x_norm = torch.where(unf[:, None], xn, x_norm)
+        T16 = torch.where(unf[:, None], T, T16)
+        sdf_march = torch.clamp(sdf, -clamp_dist, clamp_dist)
+        update = (torch.abs(sdf_march) > thresh) & (torch.abs(sdf) < 1e6)
+        t = torch.where(update, t + sdf_march, t)
+        div = torch.where(update, t >= far, div)
+        remove = (unf & (torch.abs(sdf) <= thresh)) | div
+        iters += unf.int()
+        unf = unf & ~remove
+        i += 1
+    return t, unf, div, x_norm, T16, iters
+
+
+def frame_vec(frame: CanonicalFrame) -> torch.Tensor:
+    """(8,) [coord_min, coord_max, center (3), trans (3)] for the kernels."""
+    return torch.cat([frame.coord_min.reshape(1), frame.coord_max.reshape(1),
+                      frame.center.reshape(3),
+                      frame.trans.reshape(3)]).float().contiguous()
+
+
+def pack_siren(gen: GeneratedMLP, pack: _build.ParamPack) -> dict:
+    """Put a generated SIREN (3 -> hidden ... -> 1) into `pack`; returns
+    the SIREN fields of `NetMeta`. Raises on a shape the kernels do not
+    take."""
+    L = len(gen.weights)
+    H = gen.weights[0].shape[0]
+    if (L < 2 or L > 8 or gen.weights[0].shape[1] != 3
+            or gen.weights[-1].shape[0] != 1 or H % 4 or H > 256
+            or any(tuple(w.shape) != (H, H) for w in gen.weights[1:-1])):
+        raise ValueError('march/iso kernel: unsupported SIREN shape '
+                         f'{[tuple(w.shape) for w in gen.weights]}')
+    film = len(gen.freqs) > 0
+    LL = _build.ctypes.c_longlong * 8
+    return dict(
+        n_layers=L, hidden=H, film=int(film),
+        wt_off=LL(*[pack.put(w.T.contiguous()) for w in gen.weights[:-1]]),
+        wl_off=pack.put(gen.weights[-1]),
+        b_off=LL(*[pack.put(b) for b in gen.biases]),
+        freq_off=pack.put(torch.stack(gen.freqs)) if film else 0,
+        phase_off=pack.put(torch.stack(gen.phases)) if film else 0)
+
+
+def sphere_march(cam, dirs, near, far, verts, skin_weights,
+                 frame: CanonicalFrame, gen: GeneratedMLP,
+                 n_iters: int = 50, thresh: float = 1e-5,
+                 clamp_dist: float = 0.1):
+    """Kernel E. cam/dirs (N, 3) per-ray origins and directions; near/far
+    (N,); verts (V, 3) posed vertices (world); skin_weights (V, 24); the
+    frame's bones, trans and canonical box; the generated SIREN. Returns
+    (t (N,), unfinished (N,) bool, diverged (N,) bool, x_norm (N, 3),
+    T16 (N, 16))."""
+    if not dirs.is_cuda:
+        return sphere_march_plain(cam, dirs, near, far, verts, skin_weights,
+                                  frame, gen, n_iters, thresh,
+                                  clamp_dist)[:5]
+    n, nv = dirs.shape[0], verts.shape[0]
+    for a, name, shape in ((cam, 'cam', (n, 3)), (dirs, 'dirs', (n, 3)),
+                           (near, 'near', (n,)), (far, 'far', (n,)),
+                           (verts, 'verts', (nv, 3)),
+                           (skin_weights, 'skin_weights', (nv, 24))):
+        _build.require(a, name, torch.float32, shape)
+    bones16 = frame.bone_transforms.reshape(24, 16).contiguous()
+    pack = _build.ParamPack()
+    meta = _build.NetMeta(**pack_siren(gen, pack))
+    params = pack.tensor()
+    fvec = frame_vec(frame)
+    dev = dirs.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    unf = torch.empty((n,), dtype=torch.bool, device=dev)
+    div = torch.empty((n,), dtype=torch.bool, device=dev)
+    x_norm = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    T16 = torch.empty((n, 16), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    _build.check(lib.arah_march(
+        cam.data_ptr(), dirs.data_ptr(), near.data_ptr(), far.data_ptr(), n,
+        verts.data_ptr(), nv, skin_weights.data_ptr(), bones16.data_ptr(),
+        fvec.data_ptr(), params.data_ptr(), meta, int(n_iters),
+        float(thresh), float(clamp_dist), t.data_ptr(), unf.data_ptr(),
+        div.data_ptr(), x_norm.data_ptr(), T16.data_ptr(),
+        _build.stream_ptr(dirs)), 'march')
+    _build.COUNTS['march'] += 1
+    return t, unf, div, x_norm, T16

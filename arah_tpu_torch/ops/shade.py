@@ -60,22 +60,13 @@ def siren_shade(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
         raise ValueError('shade kernel: unsupported SIREN shape '
                          f'{[tuple(w.shape) for w in gen.weights]}')
     _build.require(x, 'x', torch.float32, (n, din))
-    blocks, offs = [], []
-    total = 0
-
-    def put(t):
-        nonlocal total
-        t = t.float().reshape(-1)
-        blocks.append(t)
-        offs.append(total)
-        total += t.numel()
-        return offs[-1]
-    wt_off = [put(w.T.contiguous()) for w in gen.weights]
-    w_off = [put(w) for w in gen.weights]
-    b_off = [put(b) for b in gen.biases]
-    f_off = put(torch.stack(gen.freqs)) if film else 0
-    p_off = put(torch.stack(gen.phases)) if film else 0
-    params = torch.cat(blocks).contiguous()
+    pack = _build.ParamPack()
+    wt_off = [pack.put(w.T.contiguous()) for w in gen.weights]
+    w_off = [pack.put(w) for w in gen.weights]
+    b_off = [pack.put(b) for b in gen.biases]
+    f_off = pack.put(torch.stack(gen.freqs)) if film else 0
+    p_off = pack.put(torch.stack(gen.phases)) if film else 0
+    params = pack.tensor()
     pad = [0] * (8 - L)
     LL = _build.ctypes.c_longlong * 8
     meta = _build.ShadeMeta(L, din, H, dout, int(film), int(bf16),

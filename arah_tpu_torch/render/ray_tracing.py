@@ -4,11 +4,16 @@ joint (canonical point, depth) root-finding refinement, near/far-surface
 sampling, and the canonical-correspondence search of every ray sample —
 with dense fixed-shape blocks and convergence masks carried as data.
 
-Kernels on this path (`ops/`): the nearest-vertex query (kernel A) in
-every march iteration and in `canonicalize_samples`, and the corr
-Broyden (kernel B). The sphere-trace march and the iso refinement run
-their plain versions here; their fused kernels (`use_pallas_march`,
-`use_pallas_iso`) are the next slice of the port and raise on CUDA.
+Kernels on this path (`ops/`): the fused march (kernel E, when
+`use_pallas_march` and the renderer hands over the generated SIREN), the
+iso refinement (kernel F, when `use_pallas_iso` with the generated SIREN
+and the collapsed skinning MLP), the nearest-vertex query (kernel A) in
+`canonicalize_samples` and the corr Broyden (kernel B). With a kernel's
+flag off its plain loop runs (`_march_plain`, the counterpart of
+`_march_xla`; `search_iso_surface_depth`); with the flag on, a CUDA
+tensor and no network to hand the kernel, the dispatch raises. The kernels
+take any number of rays, so no tile-divisibility guard (JAX's `n % tile`)
+sends a ragged phase-2 batch to a plain loop.
 
 The straggler-resolve splits write phase 2's results back to exactly the
 rows phase 2 solved (`_split_write_back`). The JAX package pads its index
@@ -27,9 +32,12 @@ from arah_tpu_torch.core.body import (apply_transform,
                                       unnormalize_canonical_points)
 from arah_tpu_torch.core.linalg import inv_affine
 from arah_tpu_torch.ops.corr import corr_search
+from arah_tpu_torch.ops.iso import iso_refine
 from arah_tpu_torch.ops.knn import nn_idx, nn_idx_plain
+from arah_tpu_torch.ops.march import sphere_march
 from arah_tpu_torch.solver.root_find import (CanonicalFrame,
                                              IsoSurfaceResult,
+                                             iso_init_inv_jacobian,
                                              search_canonical_corr,
                                              search_iso_surface_depth)
 
@@ -86,12 +94,6 @@ class SphereTraceResult(NamedTuple):
     unconverged: torch.Tensor   # (N,) bool
     start_dis: torch.Tensor     # (N,) surface depth (or near bound)
     end_dis: torch.Tensor       # (N,) far bound
-
-
-def _next_slice(what: str):
-    return NotImplementedError(
-        f'{what}: its CUDA kernel is the next slice of the port; set '
-        f'RayTracerConfig.{what}=False to run the plain version')
 
 
 def _knn(cfg: RayTracerConfig, points, verts):
@@ -169,44 +171,77 @@ def _march_plain(cfg: RayTracerConfig, sdf_fn: Callable,
 
 
 def _march(cfg: RayTracerConfig, sdf_fn: Callable, frame: CanonicalFrame,
-           smpl: SmplRef, cam_loc, ray_dirs, near, far) -> MarchCarry:
+           smpl: SmplRef, cam_loc, ray_dirs, near, far,
+           sdf_gen=None) -> MarchCarry:
+    """March-loop dispatch: kernel E when `use_pallas_march` and the
+    generated SIREN (sdf_gen) is given, the plain loop otherwise."""
+    if cfg.use_pallas_march and sdf_gen is not None:
+        n = ray_dirs.shape[0]
+        t, unf, div, x_norm, T16 = sphere_march(
+            cam_loc.contiguous(), ray_dirs.contiguous(), near.contiguous(),
+            far.contiguous(), smpl.verts_posed, smpl.skinning_weights,
+            frame, sdf_gen, n_iters=cfg.sphere_tracing_iters,
+            thresh=cfg.root_finding_threshold, clamp_dist=cfg.clamp_dist)
+        return MarchCarry(t, unf, div, x_norm, T16.reshape(n, 4, 4))
     if cfg.use_pallas_march and ray_dirs.is_cuda:
-        raise _next_slice('use_pallas_march')
+        raise ValueError('use_pallas_march: the march kernel needs the '
+                         'generated SIREN (sdf_gen)')
     return _march_plain(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near,
                         far)
 
 
 def _march_split(cfg: RayTracerConfig, sdf_fn: Callable,
                  frame: CanonicalFrame, smpl: SmplRef, cam_loc, ray_dirs,
-                 near, far) -> MarchCarry:
+                 near, far, sdf_gen=None) -> MarchCarry:
     """Straggler-resolve split of the march: phase 1 caps every ray at
     `march_phase1_steps`; the first `march_resolve_cap` still-unfinished
     rays then resume from their depth with the remaining budget."""
     p1 = cfg.march_phase1_steps
     if p1 <= 0 or p1 >= cfg.sphere_tracing_iters:
-        return _march(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near, far)
+        return _march(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near, far,
+                      sdf_gen)
     c1 = _march(cfg._replace(sphere_tracing_iters=p1), sdf_fn, frame, smpl,
-                cam_loc, ray_dirs, near, far)
+                cam_loc, ray_dirs, near, far, sdf_gen)
     idx = _resolve_idx(c1.unfinished, cfg.march_resolve_cap)
     if idx.numel() == 0:
         return c1
     c2 = _march(cfg._replace(sphere_tracing_iters=cfg.sphere_tracing_iters
                              - p1), sdf_fn, frame, smpl, cam_loc[idx],
-                ray_dirs[idx], c1.t[idx], far[idx])
+                ray_dirs[idx], c1.t[idx], far[idx], sdf_gen)
     return MarchCarry(*(_split_write_back(a, idx, b)
                         for a, b in zip(c1, c2)))
 
 
 def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
                  frame: CanonicalFrame, smpl: SmplRef, cam_loc, ray_dirs,
-                 near, far, eval_mode: bool = False) -> SphereTraceResult:
+                 near, far, eval_mode: bool = False, sdf_gen=None,
+                 skin_dense=None) -> SphereTraceResult:
     """KNN-skinning sphere tracing + joint root-finding refinement.
-    cam_loc: (N, 3) per-ray origins; ray_dirs (N, 3); near/far (N,)."""
+    cam_loc: (N, 3) per-ray origins; ray_dirs (N, 3); near/far (N,);
+    sdf_gen: the generated SIREN (kernels E and F); skin_dense: the
+    collapsed skinning MLP (wts, bs, softmax_scale) (kernel F)."""
     thresh = cfg.root_finding_threshold
 
     def _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd, max_steps):
+        if cfg.use_pallas_iso and sdf_gen is not None \
+                and skin_dense is not None:
+            n = ray_dirs.shape[0]
+            J_inv0 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, ray_dirs,
+                                           x_hat)
+            u0 = torch.cat([x_hat, z0[:, None]], dim=-1)
+            wts, bs, softmax_scale = skin_dense
+            u, T16, ok, act = iso_refine(
+                cam_loc.contiguous(), ray_dirs.contiguous(), u0,
+                T_fwd.reshape(n, 16).contiguous(),
+                J_inv0.reshape(n, 16).contiguous(), valid.contiguous(), wts,
+                bs, frame, sdf_gen, max_steps=max_steps, cvg_thresh=thresh,
+                softmax_scale=softmax_scale)
+            return IsoSurfaceResult(u[:, :3], u[:, 3], T16.reshape(n, 4, 4),
+                                    ok, act)
         if cfg.use_pallas_iso and ray_dirs.is_cuda:
-            raise _next_slice('use_pallas_iso')
+            raise ValueError('use_pallas_iso: the iso kernel needs the '
+                             'generated SIREN (sdf_gen) and a collapsible '
+                             'skinning MLP (skin_dense)')
         return search_iso_surface_depth(
             sdf_fn, skin_fn, frame, cam_loc, ray_dirs, valid, x_hat, z0,
             T_fwd, max_steps=max_steps, cvg_thresh=thresh)
@@ -228,7 +263,8 @@ def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
             active=torch.zeros_like(r1.active))
 
     n = ray_dirs.shape[0]
-    c = _march_split(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near, far)
+    c = _march_split(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near, far,
+                     sdf_gen)
     x_hat = unnormalize_canonical_points(
         c.x_norm, frame.coord_min, frame.coord_max, frame.center)
     valid = ~c.diverged if eval_mode \
@@ -379,10 +415,11 @@ class TraceOutput(NamedTuple):
 def trace_and_sample(cfg: RayTracerConfig, sdf_fn: Callable,
                      skin_fn: Callable, frame: CanonicalFrame, smpl: SmplRef,
                      cam_loc, ray_dirs, near, far, eval_mode: bool = True,
-                     skin_dense=None) -> TraceOutput:
+                     skin_dense=None, sdf_gen=None) -> TraceOutput:
     """Sphere trace + sample + canonicalize (no gradients)."""
     surf = sphere_trace(cfg, sdf_fn, skin_fn, frame, smpl, cam_loc,
-                        ray_dirs, near, far, eval_mode=eval_mode)
+                        ray_dirs, near, far, eval_mode=eval_mode,
+                        sdf_gen=sdf_gen, skin_dense=skin_dense)
     z_vals, sample_mask = sample_z_vals(cfg, ~surf.unconverged,
                                         surf.start_dis, near, far, eval_mode)
     pts, tfs, cvg = canonicalize_samples(cfg, skin_fn, frame, smpl, cam_loc,

@@ -3,7 +3,9 @@ skinning network, ray tracer, colour network and VolSDF compositing.
 Port of `arah_tpu/render/renderer.py` (`render(training=False)`).
 
 Kernels on this path: the shading kernel C (SDF, features and normals of
-every sample) and the colour kernel D, plus A and B inside the tracer.
+every sample) and the colour kernel D, plus A, B, E and F inside the
+tracer, which gets the generated SIREN (for E and F) and the collapsed
+skinning MLP (for B and F) as the JAX renderer hands them over.
 Training (`training=True`) is a later slice of the port and raises.
 """
 from __future__ import annotations
@@ -160,14 +162,17 @@ def render(params, cfg: ModelConfig, inp: RenderInputs, key=None,
                                   'of the port')
     gen = generate_sdf(params, cfg, inp.rots, inp.Jtrs, inp.geo_latent)
     skin_dense = None
-    if cfg.tracer.use_pallas_corr:
+    if cfg.tracer.use_pallas_corr or cfg.tracer.use_pallas_iso:
         sd = skinning_dense_params(params['skinning'], cfg.skinning)
         if sd is not None:
             skin_dense = (sd[0], sd[1], cfg.skinning.softmax_scale)
+    sdf_gen = gen if (cfg.tracer.use_pallas_march
+                      or cfg.tracer.use_pallas_iso) else None
     trace = trace_and_sample(
         cfg.tracer, make_sdf_fn(gen), make_skin_fn(params, cfg), inp.frame,
         inp.smpl, inp.cam_loc.expand(inp.ray_dirs.shape), inp.ray_dirs,
-        inp.near, inp.far, eval_mode=True, skin_dense=skin_dense)
+        inp.near, inp.far, eval_mode=True, skin_dense=skin_dense,
+        sdf_gen=sdf_gen)
     samples = trace.samples
 
     pose_cond = dict(inp.pose_cond_extra)

@@ -5,17 +5,23 @@
 
 1. Builds the CUDA kernels from `arah_tpu_torch/csrc/` (first use, into
    `.cache/torch_ext/`) and prints the build time.
-2. Holds each kernel (A knn, B corr, C shade, D color_fwd) against its
-   plain PyTorch version on the card, at the shapes of the flagship eval
-   (8192 rays x 64 samples = 524,288 points; B also at its phase-2 shape,
-   through the straggler split and its write-back), and times both.
-3. Drives the port's main path: `render(training=False)` of the flagship
-   scene (`scene.build_scene`) for 3 frames of different poses, with the
-   kernel launch
-   counts set to 0 just before and read just after; traces one frame
-   with torch.profiler (device time by kernel, the device's idle share);
-   then renders with the kernels and with the plain versions (splits off
-   on both sides), in turns, and compares the two.
+2. Builds the flagship bench scene (`scene.build_scene(pretrain=True)`:
+   SIREN and skinning net fitted to the capsule body) and prints the
+   fit's time and its loss at a fresh batch against the random init's.
+3. Holds each kernel against its plain PyTorch version on the card, at
+   the shapes of the flagship eval (8192 rays; 8192 x 64 = 524,288
+   points), and times both: E march and F iso at their phase-1 shapes
+   (8192 rays, 16 iterations) and phase-2 shapes (the stragglers: E
+   resumed for 34 iterations, F from scratch at 50 steps); A knn, B corr
+   (also through the straggler split at its phase-2 shape), C shade, D
+   color_fwd.
+4. Drives the port's main path: `render(training=False)` of the flagship
+   scene for 3 frames of different poses, with the kernel launch counts
+   set to 0 just before and read just after; traces one frame with
+   torch.profiler (device time by kernel, the device's idle share);
+   renders with the kernels and with the plain versions (splits off on
+   both sides), in turns, and compares the two; and renders with the
+   kernels with the splits on and off, in turns (the split A/B).
 
 Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line, and as its
 last line `{"ok": true, "device": {...}}`. Any failed check exits
@@ -43,6 +49,42 @@ def check(ok, msg):
     if not ok:
         FAILURES.append(msg)
         print(f'FAILED: {msg}', flush=True)
+
+
+def timed(fn, reps):
+    """Device ms per call of fn (CUDA events around `reps` calls, after
+    one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def bound(nbytes, flops, peak):
+    """(least ms, 'bytes' or 'operations') of work on the H100."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+    return (tb, 'bytes') if tb >= to else (to, 'operations')
+
+
+def q(a, p):
+    import torch
+    return float(torch.quantile(a.float().flatten()[:1 << 24], p))
+
+
+def tile_max(iters, tile=16):
+    """Iterations the kernels execute: each 16-ray tile runs until its
+    slowest ray stops, so sum over tiles of (tile max x 16)."""
+    import torch
+    pad = (-iters.numel()) % tile
+    it = torch.cat([iters.int(), iters.new_zeros(pad, dtype=torch.int32)])
+    return int(it.reshape(-1, tile).max(dim=1)[0].sum()) * tile
 
 
 def card_line():
@@ -105,44 +147,33 @@ def main():
                                                    sphere_trace)
     from arah_tpu_torch.render.renderer import (generate_sdf, make_sdf_fn,
                                                 make_skin_fn)
-    from arah_tpu_torch.scene import (SURFACE_SHIFT, build_scene,
-                                      flagship_config)
+    from arah_tpu_torch.scene import build_scene, flagship_config
 
     cfg = flagship_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     params, fd, inp = build_scene(cfg, RAYS, seed=0)
+    torch.cuda.synchronize()
+    fit_report(cfg, params, fd, time.perf_counter() - t0)
     frame = fd.frame
-    print(f'scene: flagship, {RAYS} rays, seed 0, SIREN output lowered by '
-          f'{SURFACE_SHIFT} m (scene.build_scene)', flush=True)
     dev = inp.ray_dirs.device
     gen = generate_sdf(params, cfg, inp.rots, inp.Jtrs, inp.geo_latent)
-
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / reps
-
-    def bound(nbytes, flops, peak):
-        tb, to = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
-        return (tb, 'bytes') if tb >= to else (to, 'operations')
-
-    def q(a, p):
-        return float(torch.quantile(a.float().flatten()[:1 << 24], p))
+    wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
+    skin_dense = (wts, bs, cfg.skinning.softmax_scale)
 
     records = {}
+    no_tf32()
+    records['march'] = check_march(cfg, fd, inp, gen, card)
+    no_tf32()
+    records['iso'] = check_iso(cfg, params, fd, inp, gen, card)
 
     # ---- main-path inputs of A and B: the samples of one eval frame
     with torch.no_grad():
         cam = inp.cam_loc.expand(inp.ray_dirs.shape)
         surf = sphere_trace(cfg.tracer, make_sdf_fn(gen),
                             make_skin_fn(params, cfg), frame, fd.smpl, cam,
-                            inp.ray_dirs, inp.near, inp.far, eval_mode=True)
+                            inp.ray_dirs, inp.near, inp.far, eval_mode=True,
+                            sdf_gen=gen, skin_dense=skin_dense)
         z_vals, smask = sample_z_vals(cfg.tracer, ~surf.unconverged,
                                       surf.start_dis, inp.near, inp.far)
         pts = (cam[:, None, :] + z_vals[..., None]
@@ -179,7 +210,6 @@ def main():
     with torch.no_grad():
         x_bar, x0, T0 = corr_init(cfg.tracer, frame, fd.smpl, pts)
     T0_16 = T0.reshape(n_pts, 16).contiguous()
-    wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
     skin_fn = dense_skin_fn(wts, bs, cfg.skinning.softmax_scale)
     bones16 = frame.bone_transforms.reshape(24, 16).contiguous()
     steps = cfg.tracer.corr_phase1_steps
@@ -346,14 +376,260 @@ def main():
     if FAILURES:
         print(f'{len(FAILURES)} check(s) failed: {FAILURES}', flush=True)
         sys.exit(1)
-    print('library_ms: null for all four: no single PyTorch call computes '
+    print('library_ms: null for all six: no single PyTorch call computes '
           'a nearest-vertex argmin, a Broyden solve, a SIREN with its input '
-          'gradient or a split-input MLP')
+          'gradient, a split-input MLP or a sphere-trace loop')
     print(json.dumps({'kernels': out}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
+
+
+def fit_report(cfg, params, fd, build_s):
+    """The fit's time, and its loss at a fresh batch of 8,192 points
+    against the random init's (the fit must have lowered it)."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.data.synthetic import synthetic_smpl
+    from arah_tpu_torch.model import init_model_params
+    from arah_tpu_torch.scene import N_VERTS, scene_frame
+    from arah_tpu_torch.utils.bench_scene import (capsule_segments_02v,
+                                                  sample_points, scene_loss)
+    dev = fd.verts_cano.device
+    model = synthetic_smpl(n_verts=N_VERTS)
+    betas = scene_frame(model, np.random.RandomState(0), dev)[1]
+    seg = capsule_segments_02v(model, torch.as_tensor(betas, device=dev))
+    x = sample_points(fd, 8192, torch.Generator(device=dev).manual_seed(7))
+    init = init_model_params(torch.Generator().manual_seed(0), cfg,
+                             n_latent_frames=4, device=dev)
+    with torch.enable_grad():
+        l_fit = float(scene_loss(params, cfg, fd, *seg, x).detach())
+        l_init = float(scene_loss(init, cfg, fd, *seg, x).detach())
+    print(f'scene: flagship, {RAYS} rays, seed 0; build_scene(pretrain=True) '
+          f'{build_s:.1f} s with the fit (800 Adam steps of 8192 points); '
+          f'loss at a fresh 8192-point batch: fitted {l_fit:.5f}, random '
+          f'init {l_init:.5f}', flush=True)
+    check(np.isfinite(l_fit) and l_fit < l_init,
+          'the bench-scene fit did not lower the loss')
+
+
+def march_compare(tag, out_k, out_p, gen, mscale, thresh):
+    """Hold kernel E's march (out_k) against the plain one (out_p):
+    unfinished and diverged agreement >= 0.99, median |dt| < 1e-5 on rays
+    both sides finished on a surface, and >= 0.9 of the rays that differ
+    (a flag, or |dt| > 1e-4) and that the kernel finished on a surface
+    hold it: plain |sdf| at the kernel's x_norm < 2 x thresh. Returns the
+    max |dt| on commonly finished rays."""
+    import torch
+    from arah_tpu_torch.nn.siren import siren_apply
+    t_k, unf_k, div_k, xn_k = out_k[:4]
+    t_p, unf_p, div_p, xn_p = out_p[:4]
+    a_unf = float((unf_k == unf_p).float().mean())
+    a_div = float((div_k == div_p).float().mean())
+    fin = ~unf_k & ~div_k & ~unf_p & ~div_p
+    dt_all = (t_k - t_p).abs()
+    dt = dt_all[fin]
+    dx = torch.linalg.norm(xn_k - xn_p, dim=-1)[fin]
+    med_t = float(dt.median()) if dt.numel() else 0.0
+    max_t = float(dt.max()) if dt.numel() else 0.0
+    med_x = float(dx.median()) if dx.numel() else 0.0
+    max_x = float(dx.max()) if dx.numel() else 0.0
+    differ = (unf_k != unf_p) | (div_k != div_p) | (fin & (dt_all > 1e-4))
+    sel = differ & ~unf_k & ~div_k
+    share = 1.0
+    if bool(sel.any()):
+        with torch.no_grad():
+            sdf = siren_apply(gen, xn_k[sel])[:, 0] * mscale
+        share = float((sdf.abs() < 2 * thresh).float().mean())
+    print(f'{tag}: unfinished agreement {a_unf:.6f}, diverged agreement '
+          f'{a_div:.6f} (bounds >= 0.99); on {int(fin.sum())} rays both '
+          f'finished: |dt| median {med_t:.3e} (bound 1e-5) max {max_t:.3e}, '
+          f'|dx_norm| median {med_x:.3e} max {max_x:.3e}; {int(differ.sum())}'
+          f' rays differ, {int(sel.sum())} of them kernel-finished, share '
+          f'on the surface {share:.4f} (bound >= 0.9); unfinished kernel '
+          f'{int(unf_k.sum())} plain {int(unf_p.sum())}', flush=True)
+    check(a_unf >= 0.99 and a_div >= 0.99 and med_t < 1e-5 and share >= 0.9,
+          f'{tag}: march kernel disagrees with its plain version')
+    return max_t
+
+
+def check_march(cfg, fd, inp, gen, card):
+    """Kernel E against `sphere_march_plain` at the main path's two
+    shapes; its record (phase-1 times, bound from the plain run's
+    per-ray iterations)."""
+    import torch
+    from arah_tpu_torch.ops.march import (kernel_affine, sphere_march,
+                                          sphere_march_plain)
+    tr = cfg.tracer
+    frame, smpl = fd.frame, fd.smpl
+    cam = inp.cam_loc.expand(inp.ray_dirs.shape).contiguous()
+    p1, cap = tr.march_phase1_steps, tr.march_resolve_cap
+    p2 = tr.sphere_tracing_iters - p1
+    mscale = kernel_affine(frame)[2]
+
+    def run(fn, c, d, near, far, iters):
+        return fn(c, d, near, far, smpl.verts_posed, smpl.skinning_weights,
+                  frame, gen, n_iters=iters,
+                  thresh=tr.root_finding_threshold, clamp_dist=tr.clamp_dist)
+
+    a1 = (cam, inp.ray_dirs, inp.near, inp.far, p1)
+    k1, o1 = run(sphere_march, *a1), run(sphere_march_plain, *a1)
+    err = march_compare(f'E march phase 1 ({RAYS} rays, {p1} iterations)',
+                        k1, o1, gen, mscale, tr.root_finding_threshold)
+    ms = timed(lambda: run(sphere_march, *a1), REPS)
+    plain_ms = timed(lambda: run(sphere_march_plain, *a1), 2)
+    # phase 2: the first `cap` stragglers of the plain phase 1, resumed
+    # from their depth with the remaining budget
+    idx = torch.nonzero(o1[1]).flatten()[:cap]
+    if idx.numel():
+        a2 = (cam[idx], inp.ray_dirs[idx], o1[0][idx], inp.far[idx], p2)
+        k2, o2 = run(sphere_march, *a2), run(sphere_march_plain, *a2)
+        march_compare(f'E march phase 2 ({idx.numel()} stragglers of '
+                      f'{int(o1[1].sum())}, {p2} iterations)', k2, o2, gen,
+                      mscale, tr.root_finding_threshold)
+        print(f'  phase-2 shape: kernel '
+              f'{timed(lambda: run(sphere_march, *a2), REPS):.3f} ms, '
+              f'plain {timed(lambda: run(sphere_march_plain, *a2), 2):.3f}'
+              f' ms; ray-iterations {int(o2[5].sum())} (tile max '
+              f'{tile_max(o2[5])}) [{card}]', flush=True)
+    else:
+        print('E march phase 2: no stragglers after phase 1')
+    # least work: each ray-iteration the plain run needed, at the SIREN's
+    # multiply-adds, 8 flops per vertex of the scan and the bone blend
+    nv = smpl.verts_posed.shape[0]
+    macs = sum(w.numel() for w in gen.weights)
+    flops_it = 2 * macs + 8 * nv + 2 * 24 * 16
+    its = int(o1[5].sum())
+    nbytes = RAYS * (12 + 12 + 4 + 4 + 4 + 1 + 1 + 12 + 64) + nv * 108 \
+        + 4 * sum(w.numel() + w.shape[0] for w in gen.weights)
+    b = bound(nbytes, its * float(flops_it), PEAK_F32)
+    print(f'  E work at phase 1: {its} ray-iterations ({its / RAYS:.3f} per '
+          f'ray, max {int(o1[5].max())}); the kernel runs {tile_max(o1[5])} '
+          f'(16-ray tiles to their slowest ray); {flops_it} flops each; '
+          f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} '
+          f'ms [{card}]', flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
+                src='arah_tpu_torch/csrc/march.cu',
+                rep='arah_tpu/ops/pallas/march_kernel.py:175')
+
+
+def iso_compare(tag, out_k, out_p, resid):
+    """Hold kernel F's solve (out_k) against the plain one (out_p): valid
+    agreement >= 0.99, median |dx_hat| < 1e-5 on commonly valid rays, and
+    every kernel-valid ray a root of the plain residual (|g(u)| < 5e-5).
+    resid(sel, u) -> |g(u)| of rays sel. Returns the max |dx_hat| on
+    commonly valid rays."""
+    import torch
+    u_k, _, v_k, a_k = out_k[:4]
+    u_p, _, v_p, a_p = out_p[:4]
+    agree = float((v_k == v_p).float().mean())
+    both = v_k & v_p
+    dx = torch.linalg.norm(u_k[:, :3] - u_p[:, :3], dim=-1)[both]
+    dz = (u_k[:, 3] - u_p[:, 3]).abs()[both]
+    med_x = float(dx.median()) if dx.numel() else 0.0
+    max_x = float(dx.max()) if dx.numel() else 0.0
+    med_z = float(dz.median()) if dz.numel() else 0.0
+    sel = torch.nonzero(v_k).flatten()
+    r_max = float(resid(sel, u_k[sel]).max()) if sel.numel() else 0.0
+    print(f'{tag}: valid agreement {agree:.6f} (bound >= 0.99); on '
+          f'{int(both.sum())} commonly valid rays |dx_hat| median '
+          f'{med_x:.3e} (bound 1e-5) max {max_x:.3e}, |dz| median '
+          f'{med_z:.3e}; max |g(u)| over kernel-valid rays {r_max:.3e} '
+          f'(bound 5e-5); valid kernel {int(v_k.sum())} plain '
+          f'{int(v_p.sum())}, active kernel {int(a_k.sum())} plain '
+          f'{int(a_p.sum())}', flush=True)
+    check(agree >= 0.99 and med_x < 1e-5 and r_max < 5e-5,
+          f'{tag}: iso kernel disagrees with its plain version')
+    return max_x
+
+
+def check_iso(cfg, params, fd, inp, gen, card):
+    """Kernel F against `iso_refine_plain` at the main path's two shapes,
+    from the main path's march (kernel E with its split); its record."""
+    import torch
+    from arah_tpu_torch.core.body import unnormalize_canonical_points
+    from arah_tpu_torch.nn.skinning import skinning_dense_params
+    from arah_tpu_torch.ops.iso import (iso_refine, iso_refine_plain,
+                                        iso_residual)
+    from arah_tpu_torch.render.ray_tracing import _march_split
+    from arah_tpu_torch.render.renderer import make_sdf_fn, make_skin_fn
+    from arah_tpu_torch.solver.root_find import iso_init_inv_jacobian
+    tr = cfg.tracer
+    frame = fd.frame
+    dirs = inp.ray_dirs
+    cam = inp.cam_loc.expand(dirs.shape).contiguous()
+    wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
+    scale = cfg.skinning.softmax_scale
+    sdf_fn, skin_fn = make_sdf_fn(gen), make_skin_fn(params, cfg)
+    with torch.no_grad():
+        c = _march_split(tr, sdf_fn, frame, fd.smpl, cam, dirs, inp.near,
+                         inp.far, gen)
+        x_hat = unnormalize_canonical_points(c.x_norm, frame.coord_min,
+                                             frame.coord_max, frame.center)
+        J0 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, dirs, x_hat)
+    u0 = torch.cat([x_hat, c.t[:, None]], dim=-1).contiguous()
+    T0 = c.T_fwd.reshape(RAYS, 16).contiguous()
+    J0 = J0.reshape(RAYS, 16).contiguous()
+    mask = (~c.diverged).contiguous()
+
+    def run(fn, rays, steps):
+        return fn(*rays, wts, bs, frame, gen, max_steps=steps,
+                  cvg_thresh=tr.root_finding_threshold, softmax_scale=scale)
+
+    def resid_of(rays):
+        def resid(sel, u):
+            g = iso_residual(rays[0][sel], rays[1][sel], wts, bs, frame, gen,
+                             scale)
+            with torch.no_grad():
+                return torch.linalg.norm(g(u)[0], dim=-1)
+        return resid
+
+    p1, cap = tr.iso_phase1_steps, tr.iso_resolve_cap
+    rays1 = (cam, dirs, u0, T0, J0, mask)
+    k1, o1 = run(iso_refine, rays1, p1), run(iso_refine_plain, rays1, p1)
+    err = iso_compare(f'F iso phase 1 ({RAYS} rays, {p1} steps)', k1, o1,
+                      resid_of(rays1))
+    ms = timed(lambda: run(iso_refine, rays1, p1), REPS)
+    plain_ms = timed(lambda: run(iso_refine_plain, rays1, p1), 2)
+    # phase 2: the first `cap` rays still active after the plain phase 1,
+    # re-solved from scratch at iso_max_steps
+    idx = torch.nonzero(o1[3]).flatten()[:cap]
+    if idx.numel():
+        rays2 = tuple(a[idx] for a in rays1[:5]) \
+            + (torch.ones_like(idx, dtype=torch.bool),)
+        steps = tr.iso_max_steps
+        k2, o2 = run(iso_refine, rays2, steps), \
+            run(iso_refine_plain, rays2, steps)
+        iso_compare(f'F iso phase 2 ({idx.numel()} stragglers of '
+                    f'{int(o1[3].sum())}, {steps} steps)', k2, o2,
+                    resid_of(rays2))
+        ms2 = timed(lambda: run(iso_refine, rays2, steps), REPS)
+        plain2 = timed(lambda: run(iso_refine_plain, rays2, steps), 2)
+        print(f'  phase-2 shape: kernel {ms2:.3f} ms, plain {plain2:.3f} ms;'
+              f' ray-iterations {int(o2[4].sum())} (tile max '
+              f'{tile_max(o2[4])}) [{card}]', flush=True)
+    else:
+        print('F iso phase 2: no stragglers after phase 1')
+    # least work: one residual evaluation per ray at init plus one per
+    # Broyden iteration the plain run needed: SIREN and skinning MLP
+    # multiply-adds, ~200 flops of softmax, blend and 4x4 algebra
+    macs = sum(w.numel() for w in gen.weights) + sum(w.numel() for w in wts)
+    flops_ev = 2 * macs + 2 * 24 * 16 + 200
+    evals = RAYS + int(o1[4].sum())
+    nbytes = RAYS * (12 + 12 + 16 + 64 + 64 + 1 + 16 + 64 + 1 + 1) \
+        + 4 * sum(w.numel() + w.shape[0] for w in list(gen.weights)
+                  + list(wts))
+    b = bound(nbytes, evals * float(flops_ev), PEAK_F32)
+    print(f'  F work at phase 1: {evals} residual evaluations '
+          f'({int(o1[4].sum()) / RAYS:.3f} iterations per ray, max '
+          f'{int(o1[4].max())}); the kernel runs {RAYS + tile_max(o1[4])} '
+          f'(16-ray tiles to their slowest ray); {flops_ev} flops each; '
+          f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} '
+          f'ms [{card}]', flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
+                src='arah_tpu_torch/csrc/iso.cu',
+                rep='arah_tpu/ops/pallas/iso_kernel.py:209')
 
 
 def corr_compare(tag, xk, vk, xp, vp, x_bar, frame, skin_fn):
@@ -406,7 +682,7 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
     dev = inp.ray_dirs.device
     model = synthetic_smpl(n_verts=N_VERTS)
     rng = np.random.RandomState(100)
-    frames = [inp] + [scene_inputs(params, scene_frame(model, rng, dev),
+    frames = [inp] + [scene_inputs(params, scene_frame(model, rng, dev)[0],
                                    RAYS, rng, dev)
                       for _ in range(FRAMES - 1)]
     render(params, cfg, frames[0])              # warm-up, not counted
@@ -453,7 +729,9 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
     cfg_p = cfg_k._replace(
         use_pallas_shade=False, color=cfg_k.color._replace(use_pallas=False),
         tracer=cfg_k.tracer._replace(use_pallas_knn=False,
-                                     use_pallas_corr=False))
+                                     use_pallas_corr=False,
+                                     use_pallas_march=False,
+                                     use_pallas_iso=False))
     res, t = {}, {'k': [], 'p': []}
     for tag in ('p', 'k', 'k', 'p') * 2:
         no_tf32()
@@ -493,13 +771,35 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
           f'{float(np.median(t["k"])):.1f} ms {[round(v, 1) for v in t["k"]]}'
           f', plain median {float(np.median(t["p"])):.1f} ms '
           f'{[round(v, 1) for v in t["p"]]} [{card}]', flush=True)
+
+    # the straggler splits, on (the flagship) against off, kernels on both
+    # sides, one frame, in turns
+    t = {'on': [], 'off': []}
+    for tag in ('on', 'off', 'off', 'on') * 2:
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        res[tag] = render(params, cfg if tag == 'on' else cfg_k, inp)
+        torch.cuda.synchronize()
+        t[tag].append((time.perf_counter() - s) * 1e3)
+    same = float((res['on']['surface_converged']
+                  == res['off']['surface_converged']).float().mean())
+    print(f'split A/B, kernel render of one frame of {RAYS} rays, in turns '
+          f'(on, off, off, on) x 2: splits on median '
+          f'{float(np.median(t["on"])):.1f} ms '
+          f'{[round(v, 1) for v in t["on"]]}, splits off median '
+          f'{float(np.median(t["off"])):.1f} ms '
+          f'{[round(v, 1) for v in t["off"]]}; surface agreement {same:.5f}'
+          f' [{card}]', flush=True)
+    profile_frame(render, params, cfg_k, inp, float(np.median(t['off'])),
+                  card, tag='one frame with the splits off')
     return launches
 
 
-def profile_frame(render, params, cfg, inp, ms_frame, card):
-    """Device time by kernel over one main-path frame, and the share of
-    the frame the device spent idle: of the traced frame's wall time, and
-    of the untraced frame time `ms_frame` (tracing slows the host)."""
+def profile_frame(render, params, cfg, inp, ms_frame, card,
+                  tag='one frame'):
+    """Device time by kernel over one frame, and the share of the frame
+    the device spent idle: of the traced frame's wall time, and of the
+    untraced frame time `ms_frame` (tracing slows the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -515,11 +815,11 @@ def profile_frame(render, params, cfg, inp, ms_frame, card):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     if not kernels:
-        print('profile of one frame: the trace holds no device-side events '
+        print(f'profile of {tag}: the trace holds no device-side events '
               '(device time and idle share not measured)')
         return
     busy =sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f'profile of one frame: traced wall {wall_ms:.1f} ms, device '
+    print(f'profile of {tag}: traced wall {wall_ms:.1f} ms, device '
           f'busy {busy:.1f} ms in {sum(e.count for e in kernels)} kernel '
           f'launches, idle share {1 - busy / wall_ms:.3f} of the traced '
           f'frame, {1 - busy / ms_frame:.3f} of the untraced '

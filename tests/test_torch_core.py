@@ -185,12 +185,13 @@ class TestConfigs:
                 assert a == b, f
 
     def test_flagship(self):
+        """The port's flagship is the JAX flagship field for field, with
+        every kernel flag (march and iso included) on."""
         from __graft_entry__ import _flagship_config
         from arah_tpu_torch.scene import flagship_config
-        j = _flagship_config()
-        j = j._replace(tracer=j.tracer._replace(use_pallas_march=False,
-                                                use_pallas_iso=False))
-        assert port_cfg(j) == flagship_config()
+        cfg = flagship_config()
+        assert port_cfg(_flagship_config()) == cfg
+        assert cfg.tracer.use_pallas_march and cfg.tracer.use_pallas_iso
 
 
 class TestPortRules:

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of kernels A-D against their Pallas
+"""The plain PyTorch versions of kernels A-F against their Pallas
 originals run in interpret mode on the CPU. Each wrapper in
 `arah_tpu_torch/ops/` computes its plain version for a CPU tensor, so
 these tests call the wrappers themselves; on the card the same wrappers
@@ -14,7 +14,16 @@ Tolerances:
   * C (shade): the sin(30 x) chain amplifies reassociation ~30x per layer
     at the flagship width 256, so f32 outputs are held at 1e-4 (sdf,
     features) and 1e-3 (normals) absolute; bf16 by median 1e-4 / p99 2e-2;
-  * D (color): a ReLU MLP, f32 at 1e-5; bf16 by median 1e-4 / p99 2e-2.
+  * D (color): a ReLU MLP, f32 at 1e-5; bf16 by median 1e-4 / p99 2e-2;
+  * E (march): a ray near a convergence threshold or a nearest-vertex
+    near-tie can end its march elsewhere, so unfinished/diverged agreement
+    >= 0.98, and t, x_norm and T on rays both sides finished within 1e-4;
+  * F (iso): as B, valid agreement >= 0.98 and median |dx_hat| < 1e-5 on
+    commonly valid rays; every plain-valid ray a root (|g(u)| < 5e-5);
+    masked rays exactly at u0. The solve runs 10 steps: on this
+    random-init SIREN ~5% of the rays are unconverged at 10 steps and
+    wander, and from there on roundoff alone sends a few of them to
+    different roots (valid agreement 0.96-0.99 at 20 steps, 1.0 at 10).
 """
 import numpy as np
 import jax
@@ -167,3 +176,140 @@ class TestColor:
             _robust(out, ref)
         else:
             np.testing.assert_allclose(np_(out), np.asarray(ref), atol=1e-5)
+
+
+def _march_scene(rng, cfg):
+    """The scene of tests/test_pallas.py's march and iso kernel tests: a
+    460-vertex body, its generated SIREN (FiLM on) and 256 rays aimed at
+    posed vertices."""
+    from arah_tpu.core.rays import ray_aabb
+    from arah_tpu.data.synthetic import synthetic_smpl
+    from arah_tpu.model import init_model_params, prepare_frame
+    from arah_tpu.render.renderer import generate_sdf
+    model = synthetic_smpl(n_verts=460)
+    params = init_model_params(jax.random.PRNGKey(0), cfg, n_latent_frames=2)
+    pose = jnp.asarray((rng.randn(72) * 0.2).astype(np.float32))
+    betas = jnp.asarray((rng.randn(10) * 0.3).astype(np.float32))
+    fd = prepare_frame(model, betas, pose,
+                       jnp.asarray([0.1, 0.0, 0.2], jnp.float32))
+    gen = generate_sdf(params, cfg, fd.rots, fd.Jtrs, params['latent'][0])
+    n = 256
+    cam = jnp.asarray([0.0, 0.3, -2.5])
+    dirs = fd.smpl.verts_posed[rng.randint(0, 460, n)] - cam
+    dirs = dirs / jnp.linalg.norm(dirs, axis=-1, keepdims=True)
+    cam_b = jnp.broadcast_to(cam, dirs.shape)
+    near, far, _ = ray_aabb(fd.bounds_min, fd.bounds_max, cam_b, dirs)
+    return params, fd, gen, cam_b, dirs, near, far
+
+
+class TestMarch:
+    def test_plain_vs_pallas(self, rng):
+        from arah_tpu.ops.pallas.march_kernel import sphere_march_pallas
+        from arah_tpu_torch.ops.march import sphere_march, sphere_march_plain
+        from test_renderer import small_config
+        from torch_port_util import port_frame
+        _, fd, gen, cam, dirs, near, far = _march_scene(rng, small_config())
+        ref = sphere_march_pallas(
+            cam, dirs, near, far, fd.smpl.verts_posed,
+            fd.smpl.skinning_weights,
+            fd.frame.bone_transforms.reshape(24, 16), list(gen.weights),
+            list(gen.biases), list(gen.freqs), list(gen.phases),
+            fd.frame.coord_min, fd.frame.coord_max, fd.frame.center,
+            fd.frame.trans, tile=128, n_iters=20, interpret=True)
+        ref = [np.asarray(a) for a in ref]
+        args = (t(cam), t(dirs), t(near), t(far), t(fd.smpl.verts_posed),
+                t(fd.smpl.skinning_weights), port_frame(fd.frame),
+                port_gen(gen))
+        out = sphere_march(*args, n_iters=20)
+        assert len(out) == 5 and out[4].shape == (256, 16)
+        unf, div = out[1].numpy(), out[2].numpy()
+        assert (unf == ref[1]).mean() >= 0.98, (unf == ref[1]).mean()
+        assert (div == ref[2]).mean() >= 0.98, (div == ref[2]).mean()
+        both = ~unf & ~div & ~ref[1] & ~ref[2]
+        assert both.mean() > 0.1, both.mean()
+        for a, b in zip(out[0:1] + out[3:5], ref[0:1] + ref[3:5]):
+            np.testing.assert_allclose(np_(a)[both], b[both], atol=1e-4)
+        # the plain version counts each ray's iterations
+        iters = sphere_march_plain(*args, n_iters=20)[5].numpy()
+        assert iters.max() <= 20 and (iters[unf] == 20).all()
+        assert (iters[np.asarray(near) >= np.asarray(far)] == 0).all()
+        assert iters.sum() > 0
+
+    def test_ties_average_weights(self):
+        """Two vertices at the same distance: the plain version blends
+        their skinning weights half and half (march_kernel.py:21-23), where
+        the first-index rule of kernel A would take one of them."""
+        from arah_tpu_torch.ops.march import nn_weights_tied
+        verts = t([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 3.0, 0.0]])
+        sw = torch.zeros((3, 24))
+        sw[0, 1] = sw[1, 2] = sw[2, 3] = 1.0
+        pts = t([[0.0, 0.0, 0.0], [0.5, 0.0, 0.0]])
+        w = nn_weights_tied(pts, verts, sw).numpy()
+        np.testing.assert_array_equal(w[0, 1:3], [0.5, 0.5])
+        np.testing.assert_array_equal(w[1], sw[0].numpy())
+
+
+class TestIso:
+    def test_plain_vs_pallas(self, rng):
+        from arah_tpu.core.body import (normalize_canonical_points,
+                                        sdf_to_metric,
+                                        unnormalize_canonical_points)
+        from arah_tpu.ops.pallas.corr_kernel_t import skinning_dense_params
+        from arah_tpu.ops.pallas.iso_kernel import iso_refine_pallas
+        from arah_tpu.render.ray_tracing import RayTracerConfig, _march_xla
+        from arah_tpu.render.renderer import make_sdf_fn, make_skin_fn
+        from arah_tpu.solver.root_find import (forward_skinning,
+                                               iso_init_inv_jacobian)
+        from arah_tpu_torch.ops.iso import iso_refine
+        from test_renderer import small_config
+        from torch_port_util import port_frame
+        cfg = small_config()
+        params, fd, gen, cam, dirs, near, far = _march_scene(rng, cfg)
+        sdf_fn, skin_fn = make_sdf_fn(gen), make_skin_fn(params, cfg)
+        c = _march_xla(RayTracerConfig(sphere_tracing_iters=12), sdf_fn,
+                       fd.frame, fd.smpl, cam, dirs, near, far)
+        fr = fd.frame
+        x_hat = unnormalize_canonical_points(c.x_norm, fr.coord_min,
+                                             fr.coord_max, fr.center)
+        valid = np.array(~c.diverged)
+        valid[::7] = False                  # a few more masked rays
+        n = dirs.shape[0]
+        J_inv0 = iso_init_inv_jacobian(sdf_fn, skin_fn, fr, dirs, x_hat)
+        u0 = jnp.concatenate([x_hat, c.t[:, None]], axis=-1)
+        wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
+        scale = cfg.skinning.softmax_scale
+        ref = iso_refine_pallas(
+            cam, dirs, u0, c.T_fwd.reshape(n, 16), J_inv0.reshape(n, 16),
+            jnp.asarray(valid), list(wts), list(bs),
+            fr.bone_transforms.reshape(24, 16), list(gen.weights),
+            list(gen.biases), list(gen.freqs), list(gen.phases),
+            fr.coord_min, fr.coord_max, fr.center, fr.trans, tile=128,
+            max_steps=10, softmax_scale=scale, interpret=True)
+        u, T16, ok, act = iso_refine(
+            t(cam), t(dirs), t(u0), t(c.T_fwd.reshape(n, 16)),
+            t(J_inv0.reshape(n, 16)), torch.as_tensor(valid),
+            [t(w) for w in wts], [t(b) for b in bs], port_frame(fr),
+            port_gen(gen), max_steps=10, softmax_scale=scale)
+        v_ref, v_out = np.asarray(ref[2]), ok.numpy()
+        assert (v_ref == v_out).mean() >= 0.98, (v_ref == v_out).mean()
+        both = v_ref & v_out
+        assert both.mean() > 0.1, both.mean()
+        dx = np.linalg.norm(np_(u)[:, :3] - np.asarray(ref[0])[:, :3], axis=-1)
+        assert np.median(dx[both]) < 1e-5, np.median(dx[both])
+        # every plain-valid ray is a root of the JAX residual
+        x_k, z_k = jnp.asarray(np_(u)[:, :3]), jnp.asarray(np_(u)[:, 3])
+        xb, _ = forward_skinning(skin_fn, fr, x_k)
+        err = xb - (cam + z_k[:, None] * dirs - fr.trans)
+        sdf = sdf_to_metric(sdf_fn(normalize_canonical_points(
+            x_k, fr.coord_min, fr.coord_max, fr.center)), fr.coord_min,
+            fr.coord_max)
+        g = np.linalg.norm(np.concatenate(
+            [np.asarray(sdf)[:, None], np.asarray(err)], axis=-1), axis=-1)
+        assert g[v_out].max() < 5e-5, g[v_out].max()
+        # masked rays stay exactly at u0 and T0, never valid or active
+        off = ~valid
+        assert off.any()
+        np.testing.assert_array_equal(np_(u)[off], np.asarray(u0)[off])
+        np.testing.assert_array_equal(
+            np_(T16)[off], np.asarray(c.T_fwd.reshape(n, 16))[off])
+        assert not (v_out[off].any() or act.numpy()[off].any())

@@ -1,7 +1,9 @@
 """The slice as a whole: the port's eval render (`render(training=False)`)
 against the JAX package's on the CPU, with the straggler splits off and
-with them on (split against split), plus the port's own split-vs-single-
-pass identity and its refusals.
+with them on (split against split), against both the JAX package's XLA
+paths and its Pallas kernels (interpret mode); that the port's render
+goes through kernels E and F when their flags are on; plus the port's own
+split-vs-single-pass identity and its refusals.
 
 Tolerances: the tracer's march and Broyden solves can move a ray that
 sits on a convergence threshold to the other side (or a hard point to
@@ -44,23 +46,8 @@ def _spy_resolve(monkeypatch):
     return sizes
 
 
-@pytest.mark.parametrize('split', [False, True])
-def test_render_vs_jax(rng, monkeypatch, split):
-    from arah_tpu.render.renderer import render as jrender
-    from arah_tpu_torch.render.renderer import render as prender
-    cfg = _split_cfg(small_config()) if split else small_config()
-    _, params, _, inp = jax_scene(cfg, rng, n_rays=48)
-    ref = jax.tree.map(np.asarray, jax.jit(
-        lambda p, i: jrender(p, cfg, i, jax.random.PRNGKey(1),
-                             training=False))(params, inp))
-    resolved = _spy_resolve(monkeypatch)
-    out = prender(port_params(params), port_cfg(cfg), port_inputs(inp))
-    if split:
-        # march, iso and corr each re-solved some stragglers in phase 2
-        assert len(resolved) == 3 and min(resolved) > 0, resolved
-    else:
-        assert resolved == []
-
+def _check_render(out, ref):
+    """The port's render `out` against the JAX render `ref` (numpy)."""
     m_ref = ref['network_body_mask']
     m_out = out['network_body_mask'].numpy()
     assert m_ref.any() and m_out.any()
@@ -83,6 +70,105 @@ def test_render_vs_jax(rng, monkeypatch, split):
         np.testing.assert_allclose(np_(a), b, atol=1e-4)
     assert int(out['n_samples_valid']) == pytest.approx(
         int(ref['n_samples_valid']), rel=0.05)
+
+
+def _jax_render(cfg, params, inp):
+    from arah_tpu.render.renderer import render as jrender
+    return jax.tree.map(np.asarray, jax.jit(
+        lambda p, i: jrender(p, cfg, i, jax.random.PRNGKey(1),
+                             training=False))(params, inp))
+
+
+def _spy_kernels(monkeypatch):
+    """Launch counts of the port's march and iso wrappers as the tracer
+    calls them."""
+    from arah_tpu_torch.render import ray_tracing as prt
+    counts = {'march': 0, 'iso': 0}
+    for name, attr in (('march', 'sphere_march'), ('iso', 'iso_refine')):
+        real = getattr(prt, attr)
+
+        def spy(*a, _real=real, _name=name, **k):
+            counts[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(prt, attr, spy)
+    return counts
+
+
+@pytest.mark.parametrize('split', [False, True])
+def test_render_vs_jax(rng, monkeypatch, split):
+    from arah_tpu_torch.render.renderer import render as prender
+    cfg = _split_cfg(small_config()) if split else small_config()
+    _, params, _, inp = jax_scene(cfg, rng, n_rays=48)
+    ref = _jax_render(cfg, params, inp)
+    resolved = _spy_resolve(monkeypatch)
+    out = prender(port_params(params), port_cfg(cfg), port_inputs(inp))
+    if split:
+        # march, iso and corr each re-solved some stragglers in phase 2
+        assert len(resolved) == 3 and min(resolved) > 0, resolved
+    else:
+        assert resolved == []
+    _check_render(out, ref)
+
+
+@pytest.mark.parametrize('split', [False, True])
+def test_render_vs_jax_kernels(rng, monkeypatch, split):
+    """Every kernel flag on: the port's plain versions of A-F (CPU
+    tensors) against the JAX render with every Pallas kernel in interpret
+    mode (ARAH_FORCE_PALLAS=1). The tiles divide the 48 rays, their 768
+    samples and the phase-2 caps, so that no JAX kernel falls back to
+    XLA; spies check that the JAX march and iso kernels ran."""
+    import arah_tpu.ops.pallas.iso_kernel as jiso
+    import arah_tpu.ops.pallas.march_kernel as jmarch
+    from arah_tpu_torch.render.renderer import render as prender
+    cfg = small_config()
+    cfg = cfg._replace(pallas_shade_tile=256, tracer=cfg.tracer._replace(
+        pallas_march_tile=16, pallas_iso_tile=16, pallas_corr_tile=128,
+        pallas_knn_tile=128))
+    if split:
+        cfg = _split_cfg(cfg)
+    _, params, _, inp = jax_scene(cfg, rng, n_rays=48)
+    jcalls = []
+    for mod, attr in ((jmarch, 'sphere_march_pallas'),
+                      (jiso, 'iso_refine_pallas')):
+        real = getattr(mod, attr)
+
+        def jspy(*a, _real=real, _attr=attr, **k):
+            jcalls.append(_attr)
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, attr, jspy)
+    monkeypatch.setenv('ARAH_FORCE_PALLAS', '1')
+    ref = _jax_render(cfg, params, inp)
+    n_phase = 2 if split else 1
+    assert jcalls.count('sphere_march_pallas') == n_phase, jcalls
+    assert jcalls.count('iso_refine_pallas') == n_phase, jcalls
+    launched = _spy_kernels(monkeypatch)
+    resolved = _spy_resolve(monkeypatch)
+    out = prender(port_params(params), port_cfg(cfg), port_inputs(inp))
+    assert launched == {'march': n_phase, 'iso': n_phase}, launched
+    if split:
+        assert len(resolved) == 3 and min(resolved) > 0, resolved
+    _check_render(out, ref)
+
+
+def test_kernel_flags_dispatch(rng, monkeypatch):
+    """With `use_pallas_march`/`use_pallas_iso` on, the render goes through
+    the wrappers of kernels E and F (the renderer hands the tracer the
+    generated SIREN and the collapsed skinning MLP); with them off, the
+    plain loops run and the wrappers are never called."""
+    from arah_tpu_torch.render.renderer import render
+    cfg = port_cfg(small_config())
+    _, params, _, inp = jax_scene(small_config(), rng, n_rays=16)
+    p, ip = port_params(params), port_inputs(inp)
+    launched = _spy_kernels(monkeypatch)
+    on = render(p, cfg, ip)
+    assert launched == {'march': 1, 'iso': 1}, launched
+    off_cfg = cfg._replace(tracer=cfg.tracer._replace(
+        use_pallas_march=False, use_pallas_iso=False))
+    off = render(p, off_cfg, ip)
+    assert launched == {'march': 1, 'iso': 1}, launched
+    # the two paths agree on this scene
+    assert (on['surface_converged'] == off['surface_converged']).float() \
+        .mean() >= 0.9
 
 
 def test_split_equals_single_pass(rng, monkeypatch):
@@ -114,14 +200,16 @@ def test_split_equals_single_pass(rng, monkeypatch):
 
 
 def test_flagship_scene_has_a_surface():
-    """`build_scene` at the flagship widths (32 rays on the CPU) renders a
-    body with a surface: the random-init SIREN, lowered by SURFACE_SHIFT,
-    has a level set that rays converge on. Without the shift every ray
-    misses and the frame is black, leaving the surface paths untested."""
+    """`build_scene(pretrain=False)` at the flagship widths (32 rays on the
+    CPU, every kernel flag on, so the plain versions) renders a body with
+    a surface: the random-init SIREN, lowered by SURFACE_SHIFT, has a
+    level set that rays converge on. Without the shift every ray misses
+    and the frame is black, leaving the surface paths untested."""
     from arah_tpu_torch.render.renderer import render
     from arah_tpu_torch.scene import build_scene, flagship_config
     cfg = flagship_config()
-    params, _, inp = build_scene(cfg, 32, seed=0, device='cpu')
+    params, _, inp = build_scene(cfg, 32, seed=0, device='cpu',
+                                 pretrain=False)
     with torch.no_grad():
         out = render(params, cfg, inp)
     rgb = out['rgb_values']
