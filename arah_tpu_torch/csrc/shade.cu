@@ -21,26 +21,20 @@
 // activations come from shared memory as float4 broadcasts. Under
 // bf16_shading the operands are rounded with __float2bfloat16_rn at the
 // places _shade_kernel rounds them (every dot operand, including g * df
-// before each reverse product) and accumulated in f32.
-#include "common.cuh"
+// before each reverse product) and accumulated in f32. The features are
+// stored in bf16 under bf16_shading (the eval path's dtype), or in f32
+// when `feat_f32` asks (the training op, ops/shade_grad.py, as the JAX
+// training op returns them).
+#include "shade_meta.cuh"
 
 #define SHADE_THREADS 256
 #define SHADE_TILE 16
-#define MAX_LAYERS 8
-
-struct ShadeMeta {
-  int n_layers, din, hidden, dout, film, bf16;
-  long long wt_off[MAX_LAYERS];   // (in, out) copies for the forward
-  long long w_off[MAX_LAYERS];    // original (out, in) for the reverse
-  long long b_off[MAX_LAYERS];
-  long long freq_off, phase_off;  // (L-1, hidden) each, if film
-};
 
 __global__ void __launch_bounds__(SHADE_THREADS)
 shade_kernel(const float* __restrict__ x_g, int n,
              const float* __restrict__ P, ShadeMeta m,
              float* __restrict__ sdf_out, void* __restrict__ feat_out,
-             float* __restrict__ grad_out) {
+             int feat_f32, float* __restrict__ grad_out) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float xs[SHADE_TILE * 4];
   const int H = m.hidden, L = m.n_layers, din = m.din;
@@ -109,7 +103,7 @@ shade_kernel(const float* __restrict__ x_g, int n,
         hbuf[p * H + j] = rnd_if(s, bf);
         if (i == L - 2 && p0 + p < n) {
           const long long o = (long long)(p0 + p) * H + j;
-          if (bf)
+          if (bf && !feat_f32)
             reinterpret_cast<__nv_bfloat16*>(feat_out)[o] =
                 __float2bfloat16_rn(s);
           else
@@ -184,8 +178,8 @@ shade_kernel(const float* __restrict__ x_g, int n,
 }
 
 extern "C" int arah_shade(const float* x, int n, const float* params,
-                          ShadeMeta m, float* sdf, void* feat, float* grad,
-                          void* stream) {
+                          ShadeMeta m, float* sdf, void* feat, int feat_f32,
+                          float* grad, void* stream) {
   if (n <= 0) return 0;
   const size_t smem = (size_t)SHADE_TILE * m.hidden * m.n_layers
                       * sizeof(float);
@@ -194,6 +188,6 @@ extern "C" int arah_shade(const float* x, int n, const float* params,
   if (e != cudaSuccess) return (int)e;
   const int blocks = (n + SHADE_TILE - 1) / SHADE_TILE;
   shade_kernel<<<blocks, SHADE_THREADS, smem, (cudaStream_t)stream>>>(
-      x, n, params, m, sdf, feat, grad);
+      x, n, params, m, sdf, feat, feat_f32, grad);
   return launch_status();
 }

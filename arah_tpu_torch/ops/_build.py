@@ -32,7 +32,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC']
 
 COUNTS = {'knn': 0, 'corr': 0, 'shade': 0, 'color_fwd': 0, 'march': 0,
-          'iso': 0}
+          'iso': 0, 'skin_jac': 0, 'shade_bwd': 0, 'color_bwd': 0}
 BUILD_SECONDS = None     # wall time of this process's build, None if cached
 
 _LIB = None
@@ -126,7 +126,14 @@ class ColorMeta(ctypes.Structure):
                 ('out', _I * 8), ('n_comp', _I * 8),
                 ('kind', (_I * 4) * 8), ('width', (_I * 4) * 8),
                 ('w_off', (ctypes.c_longlong * 4) * 8),
-                ('b_off', ctypes.c_longlong * 8)]
+                ('b_off', ctypes.c_longlong * 8),
+                ('start', (_I * 4) * 8),
+                ('wo_off', ctypes.c_longlong * 8),
+                ('g_off', ctypes.c_longlong * 8),
+                ('gb_off', ctypes.c_longlong * 8),
+                ('gpose_off', ctypes.c_longlong),
+                ('gs_off', ctypes.c_longlong * 8),
+                ('wd_off', _I * 8), ('wx_off', _I * 8), ('ws_cols', _I)]
 
 
 class NetMeta(ctypes.Structure):
@@ -154,14 +161,27 @@ def load():
     lib.arah_knn.argtypes = [_P, _I, _P, _I, _P, _P]
     lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, MlpDims, _I, _P, _P,
                               _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
-    lib.arah_shade.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _P, _P]
+    lib.arah_shade.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _I, _P, _P]
     lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, ColorMeta, _P, _P]
     lib.arah_march.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                                NetMeta, _I, _F, _F, _P, _P, _P, _P, _P, _P]
     lib.arah_iso.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                              NetMeta, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
+    lib.arah_skin_jac.argtypes = [_P, _I, _P, _P, _P, NetMeta, _F, _P, _P]
+    lib.arah_shade_bwd.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _P, _P,
+                                   _P, _I, ShadeMeta, ctypes.c_longlong, _P,
+                                   _P, _P]
+    lib.arah_shade_bwd_blocks.argtypes = [_I, ShadeMeta]
+    lib.arah_shade_bwd_ws.argtypes = [_I, ShadeMeta]
+    lib.arah_shade_bwd_ws.restype = ctypes.c_longlong
+    lib.arah_color_bwd.argtypes = [_P, _P, _P, _P, _I, _P, ColorMeta, _P, _P,
+                                   _P, _I, ctypes.c_longlong, _P, _P, _P]
+    lib.arah_color_bwd_blocks.argtypes = [_I, ColorMeta]
+    lib.arah_color_bwd_ws.argtypes = [_I, ColorMeta]
+    lib.arah_color_bwd_ws.restype = ctypes.c_longlong
     for fn in (lib.arah_knn, lib.arah_corr, lib.arah_shade,
-               lib.arah_color_fwd, lib.arah_march, lib.arah_iso):
+               lib.arah_color_fwd, lib.arah_march, lib.arah_iso,
+               lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd):
         fn.restype = _I
     _LIB = lib
     return lib

@@ -16,10 +16,42 @@ from arah_tpu_torch.nn.siren import GeneratedMLP
 from arah_tpu_torch.ops import _build
 
 
+def pack_shade(gen: GeneratedMLP, bf16: bool):
+    """(parameter buffer, ShadeMeta) of a generated SIREN for kernels C
+    and H; raises on a shape they do not take."""
+    L = len(gen.weights)
+    din = gen.weights[0].shape[1]
+    H = gen.weights[0].shape[0]
+    dout = gen.weights[-1].shape[0]
+    film = len(gen.freqs) > 0
+    if (L < 2 or L > 8 or din > 4 or H % 4 or H > 256 or dout > 16
+            or any(w.shape[0] != H for w in gen.weights[:-1])):
+        raise ValueError('shade kernels: unsupported SIREN shape '
+                         f'{[tuple(w.shape) for w in gen.weights]}')
+    # under bf16 the hidden layers' weights are stored rounded (every use
+    # is a dot operand; H relies on it); the output layer's row also seeds
+    # the normal chain unrounded, so it is stored as it is
+    ws = [w.detach().bfloat16().float() if bf16 and i < L - 1
+          else w.detach() for i, w in enumerate(gen.weights)]
+    pack = _build.ParamPack()
+    wt_off = [pack.put(w.T.contiguous()) for w in ws]
+    w_off = [pack.put(w) for w in ws]
+    b_off = [pack.put(b.detach()) for b in gen.biases]
+    f_off = pack.put(torch.stack(gen.freqs).detach()) if film else 0
+    p_off = pack.put(torch.stack(gen.phases).detach()) if film else 0
+    pad = [0] * (8 - L)
+    LL = _build.ctypes.c_longlong * 8
+    meta = _build.ShadeMeta(L, din, H, dout, int(film), int(bf16),
+                            LL(*(wt_off + pad)), LL(*(w_off + pad)),
+                            LL(*(b_off + pad)), f_off, p_off)
+    return pack.tensor(), meta
+
+
 def siren_shade_plain(gen: GeneratedMLP, x: torch.Tensor,
-                      bf16: bool = False):
+                      bf16: bool = False, feat_f32: bool = False):
     """(N, 3) points -> (sdf (N, out), feats (N, hidden), grad (N, 3));
-    feats are bf16 under `bf16` (the eval path's dtype contract)."""
+    feats are bf16 under `bf16` (the eval path's dtype contract) unless
+    `feat_f32` (the training op's)."""
     r = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
     use_film = len(gen.freqs) > 0
     L = len(gen.weights)
@@ -38,48 +70,32 @@ def siren_shade_plain(gen: GeneratedMLP, x: torch.Tensor,
     g = gen.weights[-1][0:1, :].expand(x.shape[0], -1)
     for i in range(L - 2, -1, -1):
         g = r(g * dfs[i]) @ r(gen.weights[i])
-    return out, (h.bfloat16() if bf16 else h), g
+    return out, (h.bfloat16() if bf16 and not feat_f32 else h), g
 
 
 def siren_shade(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
-                resid_bf16: bool = False):
+                resid_bf16: bool = False, feat_f32: bool = False):
     """Kernel C: (N, 3) points -> (sdf, feats, d(sdf)/dx) as
     `siren_shade_plain`."""
     if not x.is_cuda:
-        return siren_shade_plain(gen, x, bf16)
+        return siren_shade_plain(gen, x, bf16, feat_f32)
     if resid_bf16:
         raise NotImplementedError('shade kernel resid_bf16 (a TPU A/B) is '
                                   'not ported')
     n, din = x.shape
-    L = len(gen.weights)
     H = gen.weights[0].shape[0]
     dout = gen.weights[-1].shape[0]
-    film = len(gen.freqs) > 0
-    if (L > 8 or din > 4 or H % 4 or H > 256 or dout > 16
-            or any(w.shape[0] != H for w in gen.weights[:-1])):
-        raise ValueError('shade kernel: unsupported SIREN shape '
-                         f'{[tuple(w.shape) for w in gen.weights]}')
     _build.require(x, 'x', torch.float32, (n, din))
-    pack = _build.ParamPack()
-    wt_off = [pack.put(w.T.contiguous()) for w in gen.weights]
-    w_off = [pack.put(w) for w in gen.weights]
-    b_off = [pack.put(b) for b in gen.biases]
-    f_off = pack.put(torch.stack(gen.freqs)) if film else 0
-    p_off = pack.put(torch.stack(gen.phases)) if film else 0
-    params = pack.tensor()
-    pad = [0] * (8 - L)
-    LL = _build.ctypes.c_longlong * 8
-    meta = _build.ShadeMeta(L, din, H, dout, int(film), int(bf16),
-                            LL(*(wt_off + pad)), LL(*(w_off + pad)),
-                            LL(*(b_off + pad)), f_off, p_off)
+    params, meta = pack_shade(gen, bf16)
     sdf = torch.empty((n, dout), dtype=torch.float32, device=x.device)
-    feat = torch.empty((n, H), dtype=torch.bfloat16 if bf16
+    feat = torch.empty((n, H), dtype=torch.bfloat16 if bf16 and not feat_f32
                        else torch.float32, device=x.device)
     grad = torch.empty((n, din), dtype=torch.float32, device=x.device)
     lib = _build.load()
     _build.check(lib.arah_shade(x.data_ptr(), n, params.data_ptr(), meta,
                                 sdf.data_ptr(), feat.data_ptr(),
-                                grad.data_ptr(), _build.stream_ptr(x)),
+                                int(feat_f32), grad.data_ptr(),
+                                _build.stream_ptr(x)),
                  'shade')
     _build.COUNTS['shade'] += 1
     return sdf, feat, grad

@@ -1,4 +1,4 @@
-"""Dense ray tracer for articulated human SDFs, eval path.
+"""Dense ray tracer for articulated human SDFs (eval and training).
 Port of `arah_tpu/render/ray_tracing.py`: KNN-skinning sphere tracing,
 joint (canonical point, depth) root-finding refinement, near/far-surface
 sampling, and the canonical-correspondence search of every ray sample —
@@ -31,6 +31,7 @@ from arah_tpu_torch.core.body import (apply_transform,
                                       sdf_to_metric,
                                       unnormalize_canonical_points)
 from arah_tpu_torch.core.linalg import inv_affine
+from arah_tpu_torch.core.rays import stratified_z_vals
 from arah_tpu_torch.ops.corr import corr_search
 from arah_tpu_torch.ops.iso import iso_refine
 from arah_tpu_torch.ops.knn import nn_idx, nn_idx_plain
@@ -285,30 +286,46 @@ class SamplerResult(NamedTuple):
     converge_mask: torch.Tensor   # (N, S) root-finding convergence
 
 
+def jitter_shapes(cfg: RayTracerConfig, n_rays: int):
+    """Shapes of the three uniform draws of training-mode sampling: the
+    base samples, the near-surface and the far-surface samples."""
+    return ((n_rays, cfg.n_steps),
+            (n_rays, cfg.near_surface_vol_samples + 1),
+            (n_rays, max(cfg.far_surface_vol_samples, 1)))
+
+
 def sample_z_vals(cfg: RayTracerConfig, body_mask, surface_depth, near, far,
-                  eval_mode: bool = True):
-    """Per-ray depth samples + activity mask (eval mode: no jitter): 64
-    evenly spaced samples on rays that missed the body; on body rays
-    16+1 near-surface and 16 far-surface samples (sorted), the remaining
-    slots masked off."""
-    if not eval_mode:
-        raise NotImplementedError('training-mode (stratified) sampling is '
-                                  'not ported yet')
+                  eval_mode: bool = True, jitter=None):
+    """Per-ray depth samples + activity mask: 64 samples on rays that
+    missed the body; on body rays 16+1 near-surface and 16 far-surface
+    samples (sorted), the remaining slots masked off. Training
+    (`eval_mode=False`) jitters each group within its intervals with the
+    given uniform draws `jitter` = (u1, u2, u3) of `jitter_shapes`, the
+    near-surface group's middle sample pinned to the surface."""
+    if not eval_mode and jitter is None:
+        raise ValueError('training-mode sampling takes its uniform draws '
+                         '(jitter)')
     n = body_mask.shape[0]
     dev = surface_depth.device
     S = cfg.n_steps
     ns, fs = cfg.near_surface_vol_samples, cfg.far_surface_vol_samples
     rng_lin = torch.linspace(0.0, 1.0, S, device=dev)
     z0 = surface_depth[:, None] + (far - surface_depth)[:, None] * rng_lin
+    if not eval_mode:
+        z0 = stratified_z_vals(z0, jitter[0])
     mask = torch.ones((n, S), dtype=torch.bool, device=dev)
     if ns > 0 or fs > 0:
         lin_ns = torch.linspace(0.0, 1.0, ns + 1, device=dev)
         z_near = (surface_depth[:, None] - cfg.surface_vol_range
                   + 2.0 * cfg.surface_vol_range * lin_ns)
+        if not eval_mode:
+            z_near = stratified_z_vals(z_near, jitter[1], fix_idx=ns // 2)
         lin_fs = torch.linspace(0.0, 1.0, max(fs, 1), device=dev)
         span = torch.clamp(surface_depth - cfg.surface_vol_range - near,
                            min=1e-5)
         z_far = near[:, None] + span[:, None] * lin_fs
+        if not eval_mode:
+            z_far = stratified_z_vals(z_far, jitter[2])
         surf = torch.sort(torch.cat([z_near, z_far], dim=-1), dim=-1)[0]
         n_surf = ns + 1 + fs
         z_body = torch.cat([surf, z0[:, n_surf:]], dim=-1)
@@ -415,13 +432,17 @@ class TraceOutput(NamedTuple):
 def trace_and_sample(cfg: RayTracerConfig, sdf_fn: Callable,
                      skin_fn: Callable, frame: CanonicalFrame, smpl: SmplRef,
                      cam_loc, ray_dirs, near, far, eval_mode: bool = True,
-                     skin_dense=None, sdf_gen=None) -> TraceOutput:
-    """Sphere trace + sample + canonicalize (no gradients)."""
+                     skin_dense=None, sdf_gen=None,
+                     jitter=None) -> TraceOutput:
+    """Sphere trace + sample + canonicalize (no gradients). Training
+    (`eval_mode=False`) keeps every ray valid at the iso refinement and
+    jitters the samples with `jitter` (see `sample_z_vals`)."""
     surf = sphere_trace(cfg, sdf_fn, skin_fn, frame, smpl, cam_loc,
                         ray_dirs, near, far, eval_mode=eval_mode,
                         sdf_gen=sdf_gen, skin_dense=skin_dense)
     z_vals, sample_mask = sample_z_vals(cfg, ~surf.unconverged,
-                                        surf.start_dis, near, far, eval_mode)
+                                        surf.start_dis, near, far, eval_mode,
+                                        jitter)
     pts, tfs, cvg = canonicalize_samples(cfg, skin_fn, frame, smpl, cam_loc,
                                          ray_dirs, z_vals, sample_mask,
                                          skin_dense=skin_dense)

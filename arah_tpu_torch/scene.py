@@ -1,11 +1,11 @@
-"""The flagship eval scene of the port.
+"""The flagship scene and train step of the port.
 
 `flagship_config()` is the ZJU-MoCap full-size configuration of the JAX
 package, field for field (`__graft_entry__._flagship_config`: 256x5 FiLM
 hypernet SIREN, 128x4 skinning net, 256x5 colour net with a skip at layer
 3, bf16_shading, straggler splits at 16 iterations with resolve caps of
 4,096 corr points and 1,024 march and iso rays, and every kernel on:
-A-D, the fused march E and the iso refinement F).
+A-D, the fused march E, the iso refinement F and, in training, G-I).
 
 `build_scene` makes the bench scene of `__graft_entry__._build_scene` from
 the port's own synthetic body, initialiser and frame preparation: a
@@ -17,20 +17,32 @@ measured) the SIREN and the skinning net are fitted to the capsule body
 `pretrain=False` the random-init SIREN is lowered by `SURFACE_SHIFT`
 instead, so that rays still find a surface (see there) in the CPU tests,
 which cannot afford the fit.
+
+`build_train_setup` makes the flagship train step that the JAX package's
+`bench.py` times: the fitted scene, one block of 8,192 rays with 1,024
+regulariser points, `LossWeights(n_ray_loss=n_rays)` and
+`OptimConfig(train_skinning_net=True)`.
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from arah_tpu_torch.core.rays import ray_aabb
+from arah_tpu_torch.data.batch import synthetic_train_batch
 from arah_tpu_torch.data.synthetic import synthetic_smpl
 from arah_tpu_torch.model import init_model_params, prepare_frame
 from arah_tpu_torch.nn.color import ColorConfig, feature_width
 from arah_tpu_torch.nn.hypernet import HypernetConfig, siren_layer_dims
 from arah_tpu_torch.nn.skinning import SkinningConfig
+from arah_tpu_torch.parallel.train_step import (TrainState, make_train_step,
+                                                trainable)
 from arah_tpu_torch.render.ray_tracing import RayTracerConfig
 from arah_tpu_torch.render.renderer import ModelConfig, RenderInputs
+from arah_tpu_torch.train.loss import LossWeights
+from arah_tpu_torch.train.optim import OptimConfig, make_optimizer
 from arah_tpu_torch.utils.bench_scene import pretrain_scene
 
 N_VERTS = 6890
@@ -129,3 +141,37 @@ def build_scene(cfg: ModelConfig, n_rays: int, seed: int = 0, device=None,
     else:
         lower_sdf(params, cfg, fd.frame, SURFACE_SHIFT)
     return params, fd, scene_inputs(params, fd, n_rays, rng, device)
+
+
+class TrainSetup(NamedTuple):
+    params: Any           # the parameter tree (leaves require grad)
+    optimizer: Any        # train.optim.Optimizer over params
+    state: Any            # parallel.train_step.TrainState
+    batch: Any            # parallel.train_step.TrainBatch
+    loss_w: Any           # train.loss.LossWeights
+    step: Any             # step(state, batch, draws) -> (state, losses)
+
+
+def build_train_setup(cfg: ModelConfig, n_rays: int = 8192,
+                      n_reg: int = 1024, pretrain: bool = True,
+                      seed: int = 0, device=None,
+                      scene=None) -> TrainSetup:
+    """The flagship train step of the JAX bench (`bench.py:99-108`) on
+    the bench scene: one block of `n_rays` rays and `n_reg` regulariser
+    points from seed 1, on the card unless `device` says otherwise.
+    `scene` = (params, frame data) of an earlier `build_scene` call with
+    the same arguments skips the fit; its params are copied, not
+    trained."""
+    if scene is None:
+        params, fd, _ = build_scene(cfg, 16, seed=seed, device=device,
+                                    pretrain=pretrain)
+    else:
+        params, fd = scene
+    params = trainable(params)
+    batch = synthetic_train_batch(np.random.RandomState(1), fd, n_blocks=1,
+                                  n_rays=n_rays, n_reg=n_reg)
+    loss_w = LossWeights(n_ray_loss=n_rays)
+    optimizer, _ = make_optimizer(OptimConfig(train_skinning_net=True),
+                                  params)
+    return TrainSetup(params, optimizer, TrainState(params, optimizer, 0),
+                      batch, loss_w, make_train_step(cfg, loss_w, optimizer))

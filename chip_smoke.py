@@ -22,11 +22,22 @@
    renders with the kernels and with the plain versions (splits off on
    both sides), in turns, and compares the two; and renders with the
    kernels with the splits on and off, in turns (the split A/B).
+5. Drives the train step (`scene.build_train_setup`: the flagship step of
+   the JAX bench, one block of 8192 rays and 1,024 regulariser points).
+   A warm-up step captures the inputs and cotangents the step hands
+   kernels G (skin_jac), H (shade_bwd: the shading at N points in bf16
+   and the eikonal at 1,024 points in f32) and I (color_bwd); each is
+   held against its plain version on them and timed. Then the main path
+   of this phase: one step with the launch counts set to 0 just before
+   and read just after, then timed steps; one profiled step; and one
+   step with every kernel against one with every plain path (splits off
+   on both sides) from the same state, batch and draws.
 
 Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line, and as its
 last line `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero before those lines. Without a CUDA device it exits non-zero.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -39,6 +50,7 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 (B/s)
 RAYS = 8192             # rays per frame: N = 524,288 (ray, sample) points
 FRAMES = 3              # main-path frames, each with its own pose
 REPS = 5                # timed repeats of each kernel and plain version
+STEPS = 4               # timed train steps after the counted one
 
 FAILURES = []
 
@@ -362,6 +374,14 @@ def main():
     torch.cuda.empty_cache()
 
     launches = run_render(cfg, params, fd, inp, card, gen, no_tf32)
+    del inp, gen
+    torch.cuda.empty_cache()
+    # G, H and I count launches per train step (the eval path runs none)
+    train_records, train_launches = run_train(cfg, params, fd, card,
+                                              no_tf32)
+    records.update(train_records)
+    for name in train_records:
+        launches[name] = train_launches[name]
 
     out = []
     for name, r in records.items():
@@ -370,15 +390,17 @@ def main():
                     'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                     'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
                     'bound_by': r['bound'][1], 'library_ms': None})
+        per = 'per train step' if name in train_records else 'over 3 frames'
         print(f'{name}: {r["ms"]:.3f} ms kernel, {r["plain_ms"]:.3f} ms '
               f'plain, bound {r["bound"][0]:.4f} ms ({r["bound"][1]}), '
-              f'launches {launches[name]} [{card}]')
+              f'launches {launches[name]} {per} [{card}]')
     if FAILURES:
         print(f'{len(FAILURES)} check(s) failed: {FAILURES}', flush=True)
         sys.exit(1)
-    print('library_ms: null for all six: no single PyTorch call computes '
+    print('library_ms: null for all nine: no single PyTorch call computes '
           'a nearest-vertex argmin, a Broyden solve, a SIREN with its input '
-          'gradient, a split-input MLP or a sphere-trace loop')
+          'gradient, a split-input MLP, a sphere-trace loop, a skinning '
+          'Jacobian or the backward of a SIREN or of a split-input MLP')
     print(json.dumps({'kernels': out}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
@@ -711,7 +733,8 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
               f'{int(o["n_samples_valid"])}, mean rgb '
               f'{float(rgb.mean()):.4f}, mean weights_sum '
               f'{float(o["weights_sum"].mean()):.4f}')
-    check(all(v > 0 for v in launches.values()),
+    eval_kernels = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso')
+    check(all(launches[k] > 0 for k in eval_kernels),
           f'a kernel was not launched on the main path: {launches}')
     ms = wall / len(frames) * 1e3
     print(f'main path: {len(frames)} frames x {RAYS} rays: '
@@ -719,19 +742,12 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
           f'memory {peak:.2f} GiB, launches {launches} [{card}]',
           flush=True)
 
-    profile_frame(render, params, cfg, frames[0], ms, card)
+    profile_frame(lambda: render(params, cfg, frames[0]), ms, card)
 
     # kernels vs plain, splits off on both sides, rendered in turns (the
     # host's clock varies by ~100 ms between repeats of one frame)
-    nosplit = dict(corr_phase1_steps=0, march_phase1_steps=0,
-                   iso_phase1_steps=0)
-    cfg_k = cfg._replace(tracer=cfg.tracer._replace(**nosplit))
-    cfg_p = cfg_k._replace(
-        use_pallas_shade=False, color=cfg_k.color._replace(use_pallas=False),
-        tracer=cfg_k.tracer._replace(use_pallas_knn=False,
-                                     use_pallas_corr=False,
-                                     use_pallas_march=False,
-                                     use_pallas_iso=False))
+    cfg_k = splits_off(cfg)
+    cfg_p = plain_cfg(cfg_k)
     res, t = {}, {'k': [], 'p': []}
     for tag in ('p', 'k', 'k', 'p') * 2:
         no_tf32()
@@ -790,23 +806,43 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
           f'{float(np.median(t["off"])):.1f} ms '
           f'{[round(v, 1) for v in t["off"]]}; surface agreement {same:.5f}'
           f' [{card}]', flush=True)
-    profile_frame(render, params, cfg_k, inp, float(np.median(t['off'])),
-                  card, tag='one frame with the splits off')
+    profile_frame(lambda: render(params, cfg_k, inp),
+                  float(np.median(t['off'])), card,
+                  tag='one frame with the splits off')
     return launches
 
 
-def profile_frame(render, params, cfg, inp, ms_frame, card,
-                  tag='one frame'):
-    """Device time by kernel over one frame, and the share of the frame
-    the device spent idle: of the traced frame's wall time, and of the
-    untraced frame time `ms_frame` (tracing slows the host)."""
+def splits_off(cfg):
+    """cfg with the straggler splits off (every solve in one pass)."""
+    return cfg._replace(tracer=cfg.tracer._replace(
+        corr_phase1_steps=0, march_phase1_steps=0, iso_phase1_steps=0))
+
+
+def plain_cfg(cfg):
+    """cfg with every kernel flag off: the plain torch paths (autograd
+    for the training gradients, forward-mode tangents for the skinning
+    Jacobian)."""
+    return cfg._replace(
+        use_pallas_shade=False, use_pallas_shade_grad=False,
+        idiff_standalone_jac=False,
+        color=cfg.color._replace(use_pallas=False),
+        tracer=cfg.tracer._replace(use_pallas_knn=False,
+                                   use_pallas_corr=False,
+                                   use_pallas_march=False,
+                                   use_pallas_iso=False))
+
+
+def profile_frame(fn, ms_frame, card, tag='one frame'):
+    """Device time by kernel over one call of fn (a frame or a step), and
+    the share of it the device spent idle: of the traced call's wall
+    time, and of the untraced time `ms_frame` (tracing slows the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render(params, cfg, inp)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: a CPU op's self device time repeats the
@@ -818,15 +854,503 @@ def profile_frame(render, params, cfg, inp, ms_frame, card,
         print(f'profile of {tag}: the trace holds no device-side events '
               '(device time and idle share not measured)')
         return
-    busy =sum(e.self_device_time_total for e in kernels) / 1e3
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f'profile of {tag}: traced wall {wall_ms:.1f} ms, device '
           f'busy {busy:.1f} ms in {sum(e.count for e in kernels)} kernel '
           f'launches, idle share {1 - busy / wall_ms:.3f} of the traced '
-          f'frame, {1 - busy / ms_frame:.3f} of the untraced '
+          f'run, {1 - busy / ms_frame:.3f} of the untraced '
           f'{ms_frame:.1f} ms [{card}]')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f'  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  '
               f'{e.key[:90]}')
+
+
+@contextlib.contextmanager
+def capture_train_kernels():
+    """Record the arguments the train step hands kernels G, H and I (the
+    wrappers still launch): {'skin_jac': [...], 'shade_bwd': [...],
+    'color_bwd': [...]}, one args tuple per call."""
+    from arah_tpu_torch.ops import color as ocolor
+    from arah_tpu_torch.ops import shade_grad as oshade
+    from arah_tpu_torch.render import renderer as rend
+    calls = {'skin_jac': [], 'shade_bwd': [], 'color_bwd': []}
+    patched = [(rend, 'skinning_jac', 'skin_jac'),
+               (oshade, 'shade_bwd', 'shade_bwd'),
+               (ocolor, 'color_bwd', 'color_bwd')]
+    saved = [getattr(mod, attr) for mod, attr, _ in patched]
+    for (mod, attr, name), real in zip(patched, saved):
+        def spy(*args, _real=real, _name=name):
+            calls[_name].append(args)
+            return _real(*args)
+        setattr(mod, attr, spy)
+    try:
+        yield calls
+    finally:
+        for (mod, attr, _), real in zip(patched, saved):
+            setattr(mod, attr, real)
+
+
+def rel_stats(k, p):
+    """(median, p99.9, max) of |k - p| over p's largest magnitude."""
+    import torch
+    d = (k.float() - p.float()).abs().flatten()
+    s = max(float(p.abs().max()), 1e-30)
+    return float(d.median()) / s, q(d, .999) / s, float(d.max()) / s
+
+
+def check_skin_jac(args, card):
+    """Kernel G against `skinning_jac_plain` on the step's own points:
+    per point, |dJ| over the point's largest |J| must stay < 1e-3, and
+    its median < 1e-5 (f32 on both sides, reassociation only)."""
+    import torch
+    from arah_tpu_torch.ops.skin_jac import skinning_jac, skinning_jac_plain
+    x_hat, wts, bs = args[0], args[1], args[2]
+    jk, jp = skinning_jac(*args), skinning_jac_plain(*args)
+    d = (jk - jp).abs().amax(dim=(1, 2))
+    rel = d / jp.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    n = x_hat.shape[0]
+    print(f'G skin_jac ({n} points, f32): per-point |dJ| / max|J| median '
+          f'{float(rel.median()):.3e} (bound 1e-5) p99.9 {q(rel, .999):.3e}'
+          f' max {float(rel.max()):.3e} (bound 1e-3); max |dJ| '
+          f'{float(d.max()):.3e}', flush=True)
+    check(float(rel.median()) < 1e-5 and float(rel.max()) < 1e-3,
+          'skin_jac kernel disagrees with its plain version')
+    macs = sum(w.numel() for w in wts)
+    # the primal and three tangents through the MLP, four bone blends,
+    # ~400 flops of softmax tangents and LBS per point
+    flops = n * (4 * 2.0 * macs + 4 * 2 * 24 * 16 + 400)
+    nbytes = n * (12 + 36) + 4 * (macs + sum(b.numel() for b in bs)
+                                  + 24 * 16 + 8)
+    return dict(
+        max_abs_err=float(d.max()),
+        ms=timed(lambda: skinning_jac(*args), REPS),
+        plain_ms=timed(lambda: skinning_jac_plain(*args), 2),
+        bound=bound(nbytes, flops, PEAK_F32),
+        src='arah_tpu_torch/csrc/skin_jac.cu',
+        rep='arah_tpu/ops/pallas/corr_kernel_t.py:483')
+
+
+def shade_bwd_work(gen, n, bf16):
+    """(bytes, flops, peak) of kernel H at n points: per point the primal
+    and reverse chains, the adjoint sweep and its weight-gradient term,
+    the primal backward's weight-gradient term and hbar product (six
+    hidden-layer products), ~20 flops of chain algebra per unit."""
+    H, din = gen.weights[0].shape
+    dout = gen.weights[-1].shape[0]
+    nl = len(gen.weights) - 1
+    macs = 6 * (nl - 1) * H * H + 5 * din * H + 3 * dout * H
+    flops = n * (2.0 * macs + 20 * H * nl)
+    leaves = sum(a.numel() for part in gen for a in part)
+    nbytes = n * 4 * (din + dout + H + din + din) + 4 * 3 * leaves
+    return nbytes, flops, PEAK_BF16 if bf16 else PEAK_F32
+
+
+def check_shade_bwd(args, card, tol):
+    """Kernel H against `shade_bwd_plain` on the step's own inputs and
+    cotangents (`tol` for every summed leaf, relative to its largest
+    magnitude; per-point dx median < 1e-4 and p99.9 < tol of max |dx|)."""
+    import torch
+    from arah_tpu_torch.ops.shade_grad import shade_bwd, shade_bwd_plain
+    gen, x, bf16 = args[0], args[1], args[5]
+    with torch.no_grad():
+        dxk, gk = shade_bwd(*args)
+        dxp, gp = shade_bwd_plain(*args)
+    med, p999, dmax = rel_stats(dxk, dxp)
+    worst, where, per = 0.0, '', []
+    for part, (lk, lp) in enumerate(zip(gk, gp)):
+        rs = [rel_stats(a, b)[2] for a, b in zip(lk, lp)]
+        per.append(f'{gk._fields[part]} '
+                   + ' '.join(f'{r:.1e}' for r in rs))
+        for i, r in enumerate(rs):
+            if r >= worst:
+                worst, where = r, f'{gk._fields[part]}[{i}]'
+    n = x.shape[0]
+    print(f'H shade_bwd ({n} points, bf16={bf16}): dx |d| / max|dx| median '
+          f'{med:.3e} (bound 1e-4) p99.9 {p999:.3e} (bound {tol:g}) max '
+          f'{dmax:.3e}; summed leaves: worst max |d| / max|leaf| {worst:.3e}'
+          f' at {where} (bound {tol:g}); per leaf: {"; ".join(per)}',
+          flush=True)
+    check(med < 1e-4 and p999 < tol and worst < tol,
+          f'shade_bwd kernel (bf16={bf16}) disagrees with its plain version')
+    with torch.no_grad():
+        ms = timed(lambda: shade_bwd(*args), REPS)
+        plain_ms = timed(lambda: shade_bwd_plain(*args), 2)
+    nbytes, flops, peak = shade_bwd_work(gen, n, bf16)
+    b = bound(nbytes, flops, peak)
+    print(f'  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} '
+          f'ms ({b[1]}) [{card}]', flush=True)
+    return dict(max_abs_err=float((dxk - dxp).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound=b,
+                src='arah_tpu_torch/csrc/shade_bwd.cu',
+                rep='arah_tpu/ops/pallas/shade_grad_kernel.py:175')
+
+
+def check_color_bwd(args, card, tol):
+    """Kernel I against `color_mlp_bwd_plain` on the step's own inputs and
+    cotangent: every summed leaf (dW, db, dpose) within `tol` of its
+    largest magnitude; per point dsmall and dfeats median < 1e-4 and
+    p99.9 < tol of their largest magnitude, then point by point in
+    `color_bwd_points`."""
+    import torch
+    from arah_tpu_torch.ops.color import color_bwd, color_mlp_bwd_plain
+    weights, small, feats, pose, bf16 = args[0], args[2], args[3], args[4], \
+        args[8]
+    with torch.no_grad():
+        k = color_bwd(*args)
+        p = color_mlp_bwd_plain(*args)
+    stats = [rel_stats(a, b) for a, b in zip(k[2:4], p[2:4])]
+    leaves = list(zip(k[0], p[0])) + list(zip(k[1], p[1]))
+    if k[4] is not None:
+        leaves.append((k[4], p[4]))
+    rs = [rel_stats(a, b)[2] for a, b in leaves]
+    worst = max(rs)
+    L = len(weights)
+    per = (f'dW {" ".join(f"{r:.1e}" for r in rs[:L])}; db '
+           f'{" ".join(f"{r:.1e}" for r in rs[L:2 * L])}'
+           + (f'; dpose {rs[-1]:.1e}' if k[4] is not None else ''))
+    n = small.shape[0]
+    print(f'I color_bwd ({n} points, bf16={bf16}): dsmall |d| / max median '
+          f'{stats[0][0]:.3e} p99.9 {stats[0][1]:.3e} max {stats[0][2]:.3e},'
+          f' dfeats median {stats[1][0]:.3e} p99.9 {stats[1][1]:.3e} max '
+          f'{stats[1][2]:.3e} (bounds 1e-4, {tol:g}); summed leaves: worst '
+          f'max |d| / max|leaf| {worst:.3e} (bound {tol:g}); per leaf: '
+          f'{per}', flush=True)
+    check(all(s[0] < 1e-4 and s[1] < tol for s in stats) and worst < tol,
+          f'color_bwd kernel (bf16={bf16}) disagrees with its plain version')
+    with torch.no_grad():
+        color_bwd_points(args, k, p, tol)
+    with torch.no_grad():
+        ms = timed(lambda: color_bwd(*args), REPS)
+        plain_ms = timed(lambda: color_mlp_bwd_plain(*args), 2)
+    # least work: the recomputed forward, delta W and the weight gradient
+    # per point; the pose row's columns once per call
+    S, F = small.shape[1], feats.shape[1]
+    P = 0 if pose is None else pose.shape[-1]
+    macs_pose = sum(w.shape[0] * P for l, w in enumerate(weights)
+                    if l == 0 or l in args[6])
+    macs_pt = sum(w.numel() for w in weights) - macs_pose
+    flops = n * 6.0 * macs_pt + 6.0 * macs_pose
+    nbytes = n * (2 * 4 * S + 2 * feats.element_size() * F + 12) \
+        + 4 * 2 * sum(w.numel() for w in weights)
+    b = bound(nbytes, flops, PEAK_BF16 if bf16 else PEAK_F32)
+    print(f'  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} '
+          f'ms ({b[1]}) [{card}]', flush=True)
+    return dict(max_abs_err=max(float((a - b).abs().max()) for a, b in
+                                leaves + list(zip(k[2:4], p[2:4]))),
+                ms=ms, plain_ms=plain_ms, bound=b,
+                src='arah_tpu_torch/csrc/color.cu',
+                rep='arah_tpu/ops/pallas/color_kernel.py:244')
+
+
+def color_bwd_points(args, k, p, tol):
+    """Kernel I point by point, where `check_color_bwd` bounds only the
+    median and p99.9 of dsmall and dfeats. Per slice of CB_CHUNK points,
+    `color_bwd_rows` gives the kernel's own recomputed activations and
+    deltas, and:
+    1. every layer recomputed in plain torch from the kernel's own rows
+       of the layer before (its x input, or its delta and ReLU mask)
+       matches the kernel's rows to 1e-4 of the layer's largest magnitude
+       beyond one bf16 step (2^-8 |v|, activations under bf16 only), and
+       dsmall and dfeats from its deltas match to 1e-4: the chain of every
+       point, with no difference carried from one layer to the next;
+    2. the slices' dsmall and dfeats equal those of the full call bit for
+       bit (its chunk loop);
+    3. against the plain chain run on its own (`k`, `p` at full N), each
+       point is put in a class by where kernel and plain part: an
+       activation's sign (a ReLU mask), else the bf16 rounding of an
+       activation or delta, else nowhere. The points that part nowhere
+       hold max |d| < 1e-4 of the largest magnitude, the points whose
+       masks agree < `tol`."""
+    import torch
+    from arah_tpu_torch.ops.color import CB_CHUNK, _parts, color_bwd_rows
+    weights, biases, small, feats, pose, g_rgb, skips, squeeze, bf16 = args
+    r = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
+    n, S = small.shape
+    P = 0 if pose is None else pose.shape[-1]
+    parts = _parts(weights, S, feats.shape[1], P, skips)
+    pose_row = None if pose is None else pose.reshape(1, P).float()
+    Wr = [r(w.float()) for w in weights]
+    L = len(weights)
+
+    def layer_z(l, x, src):
+        z = biases[l].float()
+        for name, st, wd in parts[l]:
+            a = x if name == 'x' else (pose_row if name == 'pose'
+                                       else src[name])
+            z = z + r(a) @ Wr[l][:, st:st + wd].T
+        return z
+
+    def delta_last(z, g):
+        if not squeeze:
+            return g
+        s = torch.sigmoid(z)
+        return g * s * (1.0 - s)
+
+    local = {}
+
+    def hold(name, kv, tv, step):
+        ex = ((kv - tv).abs() - step * tv.abs()).clamp(min=0).max()
+        v = float(ex) / max(float(tv.abs().max()), 1e-30)
+        local[name] = max(local.get(name, 0.0), v)
+
+    step = 2.0 ** -8 if bf16 else 0.0
+    mflip = torch.zeros(n, dtype=torch.bool, device=small.device)
+    rflip = torch.zeros_like(mflip)
+    same = True
+    for c0 in range(0, n, CB_CHUNK):
+        sl = slice(c0, min(n, c0 + CB_CHUNK))
+        src = {'small': small[sl].float(), 'feats': feats[sl].float()}
+        g = g_rgb[sl].float()
+        (_, _, dsk, dfk, _), dk, xk = color_bwd_rows(
+            weights, biases, small[sl], feats[sl], pose, g, skips, squeeze,
+            bf16)
+        same = same and torch.equal(dsk, k[2][sl]) \
+            and torch.equal(dfk, k[3][sl])
+        # 1. each layer from the kernel's own rows of the layer before
+        for l in range(L - 1):
+            hold(f'x{l + 1}', xk[l + 1], torch.relu(layer_z(l, xk[l], src)),
+                 step)
+        hold(f'delta{L - 1}', dk[L - 1],
+             delta_last(layer_z(L - 1, xk[L - 1], src), g), 0.0)
+        dsm, dfe = torch.zeros_like(dsk), torch.zeros_like(dfk)
+        for l in range(L - 1, -1, -1):
+            for name, st, wd in parts[l]:
+                if name == 'pose':
+                    continue
+                da = r(dk[l]) @ Wr[l][:, st:st + wd]
+                if name == 'x':
+                    hold(f'delta{l - 1}', dk[l - 1], da * (xk[l] > 0), 0.0)
+                elif name == 'small':
+                    dsm += da
+                else:
+                    dfe += da
+        hold('dsmall', dsk, dsm, 0.0)
+        hold('dfeats', dfk, dfe, 0.0)
+        # 3. where the plain chain run on its own parts from the kernel
+        xp = [None]
+        for l in range(L - 1):
+            xp.append(torch.relu(layer_z(l, xp[l], src)))
+            mflip[sl] |= ((xk[l + 1] > 0) != (xp[l + 1] > 0)).any(dim=1)
+            if bf16:
+                rflip[sl] |= (xk[l + 1] != r(xp[l + 1])).any(dim=1)
+        dp = delta_last(layer_z(L - 1, xp[L - 1], src), g)
+        for l in range(L - 1, -1, -1):
+            if bf16:
+                rflip[sl] |= (r(dk[l]) != r(dp)).any(dim=1)
+            if l > 0:
+                st, wd = next((st, wd) for name, st, wd in parts[l]
+                              if name == 'x')
+                dp = (r(dp) @ Wr[l][:, st:st + wd]) * (xp[l] > 0)
+        del dk, xk, xp
+    err = torch.maximum(
+        (k[2] - p[2]).abs().amax(dim=1) / p[2].abs().max().clamp(min=1e-30),
+        (k[3] - p[3]).abs().amax(dim=1) / p[3].abs().max().clamp(min=1e-30))
+    exact = ~mflip & ~rflip
+    agree = ~mflip
+
+    def top(sel):
+        return float(err[sel].max()) if bool(sel.any()) else 0.0
+    worst = torch.argsort(err, descending=True)[:10]
+    cls = ['mask' if bool(mflip[i]) else ('round' if bool(rflip[i])
+                                          else 'none') for i in worst]
+    print(f'  I per point: each layer from the kernel\'s own rows, worst '
+          f'excess |d| / max {max(local.values()):.3e} (bound 1e-4; '
+          + ', '.join(f'{a} {b:.1e}' for a, b in local.items())
+          + f'); slices bit-equal to the full call: {same}; points whose '
+          f'ReLU masks part {int(mflip.sum())}, whose bf16 roundings only '
+          f'part {int((rflip & ~mflip).sum())}, none {int(exact.sum())} of '
+          f'{n}; max |d| / max over the points that part nowhere '
+          f'{top(exact):.3e} (bound 1e-4), whose masks agree '
+          f'{top(agree):.3e} (bound {tol:g}), whose masks part '
+          f'{top(mflip):.3e}; the 10 worst points part at '
+          f'{cls} with {[f"{float(err[i]):.1e}" for i in worst]}',
+          flush=True)
+    check(max(local.values()) < 1e-4 and same and top(exact) < 1e-4
+          and top(agree) < tol,
+          f'color_bwd kernel (bf16={bf16}): a point disagrees with its '
+          f'plain chain')
+
+
+def run_train(cfg, params, fd, card, no_tf32):
+    """Step 5 of the module docstring. Returns (records of G, H and I,
+    the counted step's launches)."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.data.batch import draw_train_draws
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.parallel.train_step import trainable
+    from arah_tpu_torch.scene import build_train_setup
+
+    dev = fd.verts_cano.device
+    s = build_train_setup(cfg, RAYS, scene=(params, fd))
+    rng = np.random.RandomState(3)
+    draws = [draw_train_draws(rng, cfg, 1, RAYS, dev)
+             for _ in range(2 + STEPS)]
+    n_reg = s.batch.points_uniform.shape[1]
+    print(f'train setup: flagship, 1 block of {RAYS} rays, {n_reg} '
+          f'regulariser points, {cfg.n_eik_points} eikonal points; '
+          f'LossWeights(n_ray_loss={RAYS}), '
+          f'OptimConfig(train_skinning_net=True)', flush=True)
+
+    # ---- the warm-up step; G, H and I against their plain versions on
+    # the inputs and cotangents it handed them
+    no_tf32()
+    with capture_train_kernels() as calls:
+        state, losses = s.step(s.state, s.batch, draws[0])
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(losses['loss'])), 'warm-up step: loss not '
+          'finite')
+    # the kernels-vs-plain step starts here: after one update the
+    # hypernet's zero-initialised last layers pass gradients to its pose
+    # encoder, so every group moves
+    p0 = trainable(s.params)
+    first = {'skin_jac': 0, 'shade_bwd': 1, 'color_bwd': 2}
+    print('  calls in the warm-up step (points): ' + ', '.join(
+        f'{k} {[a[first[k]].shape[0] for a in v]}'
+        for k, v in calls.items()), flush=True)
+    records = {}
+    no_tf32()
+    records['skin_jac'] = check_skin_jac(calls['skin_jac'][0], card)
+    shade_calls = sorted(calls['shade_bwd'], key=lambda a: -a[1].shape[0])
+    no_tf32()
+    records['shade_bwd'] = check_shade_bwd(shade_calls[0], card, 5e-3)
+    for extra in shade_calls[1:]:
+        no_tf32()
+        check_shade_bwd(extra, card, 5e-3 if extra[5] else 1e-4)
+    no_tf32()
+    records['color_bwd'] = check_color_bwd(calls['color_bwd'][0], card,
+                                           5e-3)
+    del calls, shade_calls
+    torch.cuda.empty_cache()
+
+    # ---- the main path: one counted step, then timed steps
+    no_tf32()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(1 + STEPS):
+        if i == 0:
+            _build.reset_counts()
+        t0 = time.perf_counter()
+        state, losses = s.step(state, s.batch, draws[1 + i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = dict(_build.COUNTS)
+        check(bool(torch.isfinite(losses['loss'])),
+              f'train step {i}: loss not finite')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(times))
+    print(f'train main path: {1 + STEPS} steps of 1 block x {RAYS} rays: '
+          f'median {ms:.1f} ms/step {[round(v, 1) for v in times]}, '
+          f'{RAYS / (ms / 1e3):.0f} rays/s, peak memory {peak:.2f} GiB; '
+          f'loss {float(losses["loss"]):.5f}; launches in the counted step '
+          f'{launches} [{card}]', flush=True)
+    check(all(v > 0 for v in launches.values()),
+          f'a kernel was not launched in the train step: {launches}')
+    print(f'  solver launches per step (phase 1 + phase 2 when stragglers '
+          f'exist): corr {launches["corr"]}, march {launches["march"]}, iso '
+          f'{launches["iso"]}; shade_bwd {launches["shade_bwd"]} (shading + '
+          f'eikonal)', flush=True)
+    check(launches['shade_bwd'] == 2 and launches['shade'] == 2,
+          'the step must run C and H twice (shading and eikonal)')
+    profile_frame(lambda: s.step(state, s.batch, draws[1]), ms, card,
+                  tag='one train step')
+    batch, loss_w = s.batch, s.loss_w
+    del state, s
+    torch.cuda.empty_cache()
+    compare_train_steps(cfg, p0, batch, loss_w, draws[0], card, no_tf32)
+    return records, launches
+
+
+def compare_train_steps(cfg, p0, batch, loss_w, draws, card, no_tf32):
+    """One step with every kernel against one with every plain path
+    (splits off on both sides), from the same parameters `p0`, batch and
+    draws. Every loss term within 1e-2 of its magnitude (+1e-6); the
+    median and the least per-leaf gradient cosine >= 0.99 over leaves
+    with a gradient on both sides (the bf16 rounding points differ:
+    autograd of the plain
+    forward rounds elsewhere, and Broyden may move a few samples to
+    another root); the loss finite, every non-frozen group moved and no
+    frozen leaf moved."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.parallel.train_step import (TrainState,
+                                                    make_train_step,
+                                                    trainable)
+    from arah_tpu_torch.train.optim import (OptimConfig, make_optimizer,
+                                            tree_leaves_with_path)
+    res = {}
+    for tag, c in (('kernels', splits_off(cfg)),
+                   ('plain', plain_cfg(splits_off(cfg)))):
+        no_tf32()
+        p = trainable(p0)
+        opt, labels = make_optimizer(OptimConfig(train_skinning_net=True), p)
+        step = make_train_step(c, loss_w, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, losses = step(TrainState(p, opt, 0), batch, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        leaves = dict(tree_leaves_with_path(p))
+        res[tag] = dict(
+            losses={k: float(v) for k, v in losses.items()},
+            grads={k: v.grad for k, v in leaves.items()},
+            moved={k: bool((v.detach() != p0_leaf).any())
+                   for (k, v), p0_leaf in zip(
+                       leaves.items(),
+                       (x for _, x in tree_leaves_with_path(p0)))},
+            labels=labels)
+        print(f'train step with the {tag} (splits off): {ms:.1f} ms, peak '
+              f'memory {peak:.2f} GiB, loss {res[tag]["losses"]["loss"]:.6f} '
+              f'[{card}]', flush=True)
+        del p, opt, step
+        torch.cuda.empty_cache()
+    k, p = res['kernels'], res['plain']
+    worst_term, bad_terms = 0.0, []
+    for term, a in k['losses'].items():
+        b = p['losses'][term]
+        r = abs(a - b) / (max(abs(a), abs(b)) + 1e-30)
+        worst_term = max(worst_term, r if abs(a - b) > 1e-6 else 0.0)
+        if abs(a - b) > 1e-2 * max(abs(a), abs(b)) + 1e-6:
+            bad_terms.append((term, a, b))
+    print('  loss terms kernels / plain: ' + ', '.join(
+        f'{t} {k["losses"][t]:.6g} / {p["losses"][t]:.6g}'
+        for t in k['losses']), flush=True)
+    cos = []
+    for path, gk in k['grads'].items():
+        gp = p['grads'][path]
+        if gk is None or gp is None:
+            continue
+        nk, npl = float(gk.norm()), float(gp.norm())
+        if nk > 0 and npl > 0:
+            cos.append((float((gk * gp).sum()) / (nk * npl), path))
+    med = float(np.median([c for c, _ in cos])) if cos else 0.0
+    lo = min(cos) if cos else (0.0, None)
+    print(f'  gradients: {len(cos)} leaves with a gradient on both sides; '
+          f'cosine median {med:.6f} (bound >= 0.99), min {lo[0]:.6f} '
+          f'(bound >= 0.99) at {lo[1]}; loss terms worst relative |d| '
+          f'{worst_term:.3e} (bound 1e-2)', flush=True)
+    check(not bad_terms and med >= 0.99 and lo[0] >= 0.99,
+          f'train step: kernels disagree with the plain paths {bad_terms}')
+    for tag, r in res.items():
+        check(np.isfinite(r['losses']['loss']),
+              f'train step ({tag}): loss not finite')
+        groups = {}
+        for path, label in r['labels'].items():
+            groups.setdefault(label, []).append(r['moved'][path])
+        still = [g for g, m in groups.items() if g != 'frozen' and not any(m)]
+        moved = sorted(g for g, m in groups.items()
+                       if g != 'frozen' and any(m))
+        frozen_moved = sum(groups.get('frozen', []))
+        print(f'  {tag}: groups moved {moved}, frozen leaves '
+              f'{len(groups.get("frozen", []))} of which moved '
+              f'{frozen_moved}', flush=True)
+        check(not still and frozen_moved == 0,
+              f'train step ({tag}): groups that did not move {still}, '
+              f'frozen leaves that moved {frozen_moved}')
 
 
 if __name__ == '__main__':

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of kernels A-F against their Pallas
+"""The plain PyTorch versions of kernels A-I against their Pallas
 originals run in interpret mode on the CPU. Each wrapper in
 `arah_tpu_torch/ops/` computes its plain version for a CPU tensor, so
 these tests call the wrappers themselves; on the card the same wrappers
@@ -24,6 +24,13 @@ Tolerances:
     random-init SIREN ~5% of the rays are unconverged at 10 steps and
     wander, and from there on roundoff alone sends a few of them to
     different roots (valid agreement 0.96-0.99 at 20 steps, 1.0 at 10).
+  * G (skin_jac): rtol 1e-4, atol 1e-5, as tests/test_pallas.py holds the
+    Pallas kernel against forward_skinning_jac;
+  * H (the C -> H op): in f32 values within 1e-5 and every gradient leaf
+    within 1e-4 of its largest magnitude (reassociation only); under bf16
+    a reassociated product can round an operand to the other bf16
+    neighbour, so 5e-3 of the largest magnitude (measured ~1e-3);
+  * I (the D -> I op): the same two rules, f32 1e-4 and bf16 5e-3.
 """
 import numpy as np
 import jax
@@ -313,3 +320,184 @@ class TestIso:
         np.testing.assert_array_equal(
             np_(T16)[off], np.asarray(c.T_fwd.reshape(n, 16))[off])
         assert not (v_out[off].any() or act.numpy()[off].any())
+
+
+class TestSkinJac:
+    def test_plain_vs_pallas_and_exact(self, rng):
+        """Kernel G's plain version against `skinning_jac_pallas` and
+        `forward_skinning_jac`; 300 points (not a tile multiple)."""
+        from arah_tpu.core.smpl import batch_rodrigues
+        from arah_tpu.nn.skinning import SkinningConfig, init_skinning
+        from arah_tpu.ops.pallas.corr_kernel_t import (skinning_dense_params,
+                                                       skinning_jac_pallas)
+        from arah_tpu.render.ray_tracing import CanonicalFrame
+        from arah_tpu.render.renderer import make_skin_fn
+        from arah_tpu.solver.root_find import forward_skinning_jac
+        from arah_tpu_torch.ops.skin_jac import skinning_jac
+        from torch_port_util import port_frame
+        cfg = SkinningConfig(d_hidden=64, n_layers=3)
+        params = init_skinning(jax.random.PRNGKey(0), cfg)
+        aa = (rng.randn(24, 3) * 0.15).astype(np.float32)
+        tfs = np.tile(np.eye(4, dtype=np.float32), (24, 1, 1))
+        tfs[:, :3, :3] = np.asarray(batch_rodrigues(jnp.asarray(aa)))
+        tfs[:, :3, 3] = (rng.randn(24, 3) * 0.05).astype(np.float32)
+        frame = CanonicalFrame(
+            bone_transforms=jnp.asarray(tfs), trans=jnp.zeros(3),
+            coord_min=jnp.float32(-1.1), coord_max=jnp.float32(1.0),
+            center=jnp.asarray(rng.randn(3).astype(np.float32) * 0.05))
+        x = rng.randn(300, 3).astype(np.float32) * 0.3
+        wts, bs = skinning_dense_params(params, cfg)
+        ref = skinning_jac_pallas(
+            jnp.asarray(x), wts, bs, frame.bone_transforms.reshape(24, 16),
+            frame.coord_min, frame.coord_max, frame.center, tile=128,
+            interpret=True)
+        exact = forward_skinning_jac(
+            make_skin_fn({'skinning': params},
+                         type('C', (), {'skinning': cfg})),
+            frame, jnp.asarray(x))
+        out = skinning_jac(t(x), [t(w) for w in wts], [t(b) for b in bs],
+                           port_frame(frame))
+        assert tuple(out.shape) == (300, 3, 3)
+        for r in (ref, exact):
+            np.testing.assert_allclose(np_(out), np.asarray(r), rtol=1e-4,
+                                       atol=1e-5)
+
+
+def _small_gen(rng, film):
+    from arah_tpu.nn.hypernet import (HypernetConfig, hypernet_cond,
+                                      hypernet_generate, init_hypernet)
+    cfg = HypernetConfig(hidden_features=64, num_hidden_layers=3,
+                         use_film=film)
+    params = init_hypernet(jax.random.PRNGKey(0), cfg)
+    cond = hypernet_cond(
+        params, cfg, jnp.asarray(rng.randn(1, 24, 9).astype(np.float32)),
+        jnp.asarray(rng.randn(1, 24, 3).astype(np.float32)))[0]
+    return hypernet_generate(params, cfg, cond, jnp.asarray(
+        rng.randn(128).astype(np.float32)) if film else None)
+
+
+def _rel(a, b):
+    b = np.asarray(b, np.float32)
+    return float(np.abs(np_(a) - b).max() / max(np.abs(b).max(), 1e-3))
+
+
+class TestShadeGrad:
+    @pytest.mark.parametrize('film', [True, False])
+    @pytest.mark.parametrize('bf16', [False, True])
+    @pytest.mark.parametrize('ref', ['pallas', 'xla'])
+    def test_plain_vs_jax(self, rng, film, bf16, ref):
+        """The C -> H op (plain versions on CPU tensors): values and the
+        gradients of a random-cotangent scalarisation, for every leaf and
+        the points, against `siren_shade_grad` (Pallas interpret, tiles
+        64/32, 200 points: padded rows) and `siren_shade_grad_xla`."""
+        from arah_tpu.ops.pallas.shade_grad_kernel import (
+            siren_shade_grad as jop, siren_shade_grad_xla)
+        from arah_tpu_torch.ops.shade_grad import siren_shade_grad
+        gen = _small_gen(rng, film)
+        fn = (lambda g, p: jop(g, p, tile=64, tile_bwd=32, bf16=bf16,
+                               interpret=True)) if ref == 'pallas' \
+            else (lambda g, p: siren_shade_grad_xla(g, p, bf16=bf16))
+        x = rng.uniform(-1, 1, (200, 3)).astype(np.float32)
+        cts = [rng.randn(200, d).astype(np.float32) for d in (1, 64, 3)]
+
+        def loss(g, p):
+            return sum(jnp.sum(o * c) for o, c in zip(fn(g, p), cts))
+        vals = fn(gen, jnp.asarray(x))
+        gref = jax.grad(loss, argnums=(0, 1))(gen, jnp.asarray(x))
+        pg = port_gen(gen)
+        leaves = [a.requires_grad_() for part in pg for a in part]
+        xt = t(x).requires_grad_()
+        outs = siren_shade_grad(pg, xt, bf16=bf16)
+        assert all(o.dtype == torch.float32 for o in outs)
+        tol_v, tol_g = (5e-3, 5e-3) if bf16 else (1e-5, 1e-4)
+        for a, b in zip(outs, vals):
+            assert _rel(a, b) < tol_v
+        sum(torch.sum(o * t(c)) for o, c in zip(outs, cts)).backward()
+        ref_leaves = jax.tree.leaves(gref[0]) + [gref[1]]
+        assert len(ref_leaves) == len(leaves) + 1
+        for a, b in zip(leaves + [xt], ref_leaves):
+            assert _rel(a.grad, b) < tol_g, (tuple(a.shape), _rel(a.grad, b))
+
+    def test_gradcheck_f64(self):
+        """The plain backward (`shade_bwd_plain`) is the gradient of the
+        plain forward: torch.autograd.gradcheck in f64 at width 8, two
+        outputs, FiLM on."""
+        from arah_tpu_torch.nn.siren import GeneratedMLP
+        from arah_tpu_torch.ops.shade_grad import siren_shade_grad
+        g = torch.Generator().manual_seed(0)
+        dt = torch.float64
+        W = [torch.randn(8, 3, generator=g, dtype=dt) * 0.3] + \
+            [torch.randn(8, 8, generator=g, dtype=dt) * 0.1
+             for _ in range(2)] + [torch.randn(2, 8, generator=g, dtype=dt)]
+        B = [torch.randn(w.shape[0], generator=g, dtype=dt) * 0.1 for w in W]
+        Fq = [1 + 0.1 * torch.randn(8, generator=g, dtype=dt)
+              for _ in range(3)]
+        Ph = [0.1 * torch.randn(8, generator=g, dtype=dt) for _ in range(3)]
+        leaves = [a.requires_grad_() for a in W + B + Fq + Ph]
+        x = torch.randn(5, 3, generator=g, dtype=dt).requires_grad_()
+
+        def f(x, *lv):
+            return siren_shade_grad(GeneratedMLP(
+                tuple(lv[:4]), tuple(lv[4:8]), tuple(lv[8:11]),
+                tuple(lv[11:])), x)
+        assert torch.autograd.gradcheck(f, (x, *leaves))
+
+
+class TestColorGrad:
+    def _net(self, rng):
+        S, F, Pw, H, n = 33, 64, 128, 64, 200
+        d0 = S + F + Pw
+        dims = [(d0, H), (H, H), (H, H // 2), (d0 + H // 2, H), (H, H),
+                (H, 3)]
+        ws = [(rng.randn(o, i) / np.sqrt(i)).astype(np.float32)
+              for i, o in dims]
+        bs = [(rng.randn(o) * 0.1).astype(np.float32) for _, o in dims]
+        ins = (rng.randn(n, S).astype(np.float32),
+               rng.uniform(-1, 1, (n, F)).astype(np.float32),
+               rng.randn(1, Pw).astype(np.float32))
+        return ws, bs, ins, rng.randn(n, 3).astype(np.float32)
+
+    @pytest.mark.parametrize('bf16', [False, True])
+    def test_plain_vs_pallas(self, rng, monkeypatch, bf16):
+        """The D -> I op (plain versions) against `color_mlp_fused` with
+        the Pallas pair in interpret mode (tiles 64/32, 200 points),
+        under ARAH_FORCE_PALLAS=1: rgb, and dW, db, dsmall, dfeats and
+        dpose of a random-cotangent scalarisation; flagship layout (skip
+        at layer 3 and the pose row) at a narrow width."""
+        from arah_tpu.ops.pallas.color_kernel import color_mlp_fused as J
+        from arah_tpu_torch.ops.color import color_mlp_fused as P
+        monkeypatch.setenv('ARAH_FORCE_PALLAS', '1')
+        ws, bs, ins, g = self._net(rng)
+
+        def jloss(w, b, s, f, p):
+            return jnp.sum(J(w, b, s, f, p, skips=(3,), bf16=bf16, tile=64,
+                             tile_bwd=32, interpret=True) * g)
+        args = ([jnp.asarray(a) for a in ws], [jnp.asarray(a) for a in bs],
+                *(jnp.asarray(a) for a in ins))
+        ref_rgb = J(*args, skips=(3,), bf16=bf16, tile=64, interpret=True)
+        gref = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(*args)
+        tw = [t(a).requires_grad_() for a in ws]
+        tb = [t(a).requires_grad_() for a in bs]
+        ti = [t(a).requires_grad_() for a in ins]
+        rgb = P(tw, tb, *ti, skips=(3,), bf16=bf16)
+        tol = 5e-3 if bf16 else 1e-4
+        assert _rel(rgb, ref_rgb) < tol
+        (rgb * t(g)).sum().backward()
+        ref_leaves = list(gref[0]) + list(gref[1]) + list(gref[2:])
+        for a, b in zip(tw + tb + ti, ref_leaves):
+            assert _rel(a.grad, b) < tol, (tuple(a.shape), _rel(a.grad, b))
+
+    def test_f32_equals_autograd_of_plain(self, rng):
+        """In f32 the explicit backward is autograd of `color_mlp_plain`
+        (up to reassociation: 1e-5 of each leaf's largest magnitude)."""
+        from arah_tpu_torch.ops.color import color_mlp_fused, color_mlp_plain
+        ws, bs, ins, g = self._net(rng)
+        res = []
+        for fn in (color_mlp_fused, color_mlp_plain):
+            leaves = [t(a).requires_grad_() for a in ws + bs + list(ins)]
+            out = fn(leaves[:6], leaves[6:12], *leaves[12:], skips=(3,))
+            (out * t(g)).sum().backward()
+            res.append((out.detach(), [a.grad for a in leaves]))
+        assert _rel(res[0][0], np_(res[1][0])) < 1e-6
+        for a, b in zip(res[0][1], res[1][1]):
+            assert _rel(a, np_(b)) < 1e-5

@@ -222,14 +222,40 @@ def test_flagship_scene_has_a_surface():
 
 
 def test_training_is_a_later_slice(rng):
+    """Training renders on the CPU (the train step is ported): with its
+    draws, `render(training=True)` returns the training keys, finite;
+    without them it and training-mode sampling refuse. What is still a
+    later slice of the port raises: the sharded step (`mesh=`) and SMPL
+    refinement (`refine_smpl=`)."""
+    from arah_tpu_torch.data.batch import draw_train_draws
+    from arah_tpu_torch.parallel.train_step import make_train_step, trainable
     from arah_tpu_torch.render.ray_tracing import sample_z_vals
     from arah_tpu_torch.render.renderer import render
-    cfg = small_config()
-    _, params, _, inp = jax_scene(cfg, rng, n_rays=4)
-    with pytest.raises(NotImplementedError):
-        render(port_params(params), port_cfg(cfg), port_inputs(inp),
-               training=True)
+    from arah_tpu_torch.train.loss import LossWeights
+    from arah_tpu_torch.train.optim import OptimConfig, make_optimizer
+    cfg = small_config(train_skinning=True)
+    _, params, _, inp = jax_scene(cfg, rng, n_rays=8)
+    pcfg, pp = port_cfg(cfg), trainable(port_params(params))
+    draws = draw_train_draws(np.random.RandomState(0), pcfg, 1, 8,
+                             device='cpu')
+    pinp = port_inputs(inp)._replace(
+        points_uniform=torch.rand(16, 3) * 2 - 1,
+        points_inside=torch.randn(16, 3) * 0.1,
+        points_skinning=torch.randn(16, 3) * 0.2,
+        points_eik=draws.points_eik[0])
+    out = render(pp, pcfg, pinp, training=True,
+                 jitter=(draws.u1[0], draws.u2[0], draws.u3[0]))
+    for k in ('rgb_values', 'weights_sum', 'grad_theta', 'off_surface_sdf',
+              'inside_sdf', 'pred_weights'):
+        assert bool(torch.isfinite(out[k]).all()), k
+    assert tuple(out['grad_theta'].shape) == (pcfg.n_eik_points, 3)
+    assert out['rgb_values'].requires_grad
+    with pytest.raises(ValueError):
+        render(pp, pcfg, pinp, training=True)
     z = torch.ones(4)
-    with pytest.raises(NotImplementedError):
-        sample_z_vals(port_cfg(cfg).tracer, z > 0, z, z * 0, z * 2,
-                      eval_mode=False)
+    with pytest.raises(ValueError):
+        sample_z_vals(pcfg.tracer, z > 0, z, z * 0, z * 2, eval_mode=False)
+    opt, _ = make_optimizer(OptimConfig(), pp)
+    for kw in ({'mesh': object()}, {'refine_smpl': True}):
+        with pytest.raises(NotImplementedError):
+            make_train_step(pcfg, LossWeights(), opt, **kw)

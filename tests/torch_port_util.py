@@ -96,3 +96,55 @@ def np_(x):
     if torch.is_tensor(x):
         return x.detach().float().numpy()
     return np.asarray(x, dtype=np.float32)
+
+
+def port_frame_data(jfd):
+    """A JAX FrameData -> the port's."""
+    from arah_tpu_torch.model import FrameData
+    from arah_tpu_torch.render.ray_tracing import SmplRef
+    return FrameData(
+        frame=port_frame(jfd.frame),
+        smpl=SmplRef(t(jfd.smpl.verts_posed), t(jfd.smpl.skinning_weights)),
+        **{f: t(getattr(jfd, f)) for f in FrameDataFields})
+
+
+FrameDataFields = ('verts_cano', 'rots', 'rots_full', 'Jtrs', 'Jtrs_posed',
+                   'bounds_min', 'bounds_max')
+
+
+def port_batch(jbatch):
+    """A JAX TrainBatch -> the port's."""
+    from arah_tpu_torch.parallel.train_step import TrainBatch
+    kw = {}
+    for f in jbatch._fields:
+        v = getattr(jbatch, f)
+        if f == 'frame':
+            kw[f] = port_frame_data(v)
+        elif f == 'latent_idx':
+            kw[f] = int(v)
+        else:
+            a = np.asarray(v)
+            kw[f] = torch.as_tensor(a, dtype=torch.int32 if a.dtype.kind
+                                    in 'iu' else torch.float32)
+    return TrainBatch(**kw)
+
+
+def jax_draws(cfg, key, n_blocks, n_rays):
+    """The draws the JAX train step takes from `key` (one split per
+    block, then `render`'s and `sample_z_vals`'s splits), as the port's
+    TrainDraws."""
+    from arah_tpu_torch.parallel.train_step import TrainDraws
+    tr = cfg.tracer
+    u1, u2, u3, eik = [], [], [], []
+    for kb in jax.random.split(key, n_blocks):
+        k_trace, k_eik = jax.random.split(kb)
+        k1, k2, k3 = jax.random.split(k_trace, 3)
+        u1.append(jax.random.uniform(k1, (n_rays, tr.n_steps)))
+        u2.append(jax.random.uniform(
+            k2, (n_rays, tr.near_surface_vol_samples + 1)))
+        u3.append(jax.random.uniform(
+            k3, (n_rays, max(tr.far_surface_vol_samples, 1))))
+        eik.append((jax.random.uniform(k_eik, (cfg.n_eik_points, 3))
+                    - 0.5) * 2.0)
+    return TrainDraws(*(t(np.stack([np.asarray(a) for a in x]))
+                        for x in (u1, u2, u3, eik)))
