@@ -7,7 +7,9 @@
 // LBS; closed-form 3x3 inverse init Jacobian, good-Broyden rank-1
 // updates with +/-eps denominators, best-iterate tracking, convergence at
 // |g| < cvg, divergence freeze at |g| >= dvg, masked points frozen at
-// their init, and the `active` (still iterating at max_steps) output.
+// their init, and the `active` (still iterating at max_steps) output. The
+// init and the per-point step are tile_mlp.cuh's broyden_init and
+// broyden_step, which L runs too.
 //
 // Bound on the H100: operations. Each Broyden iteration of each point
 // evaluates the skinning MLP (3x128 + 3x128x128 + 128x25 multiply-adds
@@ -134,17 +136,9 @@ corr_kernel(const float* __restrict__ xbar_g, const float* __restrict__ x0_g,
   }
   const bool mask0 = mask_g[i] != 0;
 
-  float gx[3], T[16], Ji[9], J0[9], upd[3];
+  float gx[3], T[16], Ji[9], upd[3];
   skin_fwd(x, scale, off, xbar, P, md, hA, hB, bones, softmax_scale, gx, T);
-  J0[0] = T[0]; J0[1] = T[1]; J0[2] = T[2];
-  J0[3] = T[4]; J0[4] = T[5]; J0[5] = T[6];
-  J0[6] = T[8]; J0[7] = T[9]; J0[8] = T[10];
-  inv3x3(J0, Ji);
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-    upd[r] = -(Ji[3 * r] * gx[0] + Ji[3 * r + 1] * gx[1]
-               + Ji[3 * r + 2] * gx[2]);
-  float gn_opt = sqrtf(gx[0] * gx[0] + gx[1] * gx[1] + gx[2] * gx[2]);
+  float gn_opt = broyden_init(T, gx, Ji, upd);
   float x_opt[3] = {x[0], x[1], x[2]};
   float t_opt[16];
 #pragma unroll
@@ -160,45 +154,17 @@ corr_kernel(const float* __restrict__ xbar_g, const float* __restrict__ x0_g,
     }
     skin_fwd(xn, scale, off, xbar, P, md, hA, hB, bones, softmax_scale,
              gn_v, Tn);
-    float dg[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) dg[c] = gn_v[c] - gx[c];
-    const float gn = sqrtf(gn_v[0] * gn_v[0] + gn_v[1] * gn_v[1]
-                           + gn_v[2] * gn_v[2]);
-    if (gn < gn_opt) {
+    bool better;
+    active = broyden_step(Ji, gx, upd, gn_opt, better, dx, gn_v, cvg, dvg,
+                          eps);
+    if (better) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) x_opt[c] = xn[c];
 #pragma unroll
       for (int m = 0; m < 16; ++m) t_opt[m] = Tn[m];
-      gn_opt = gn;
-    }
-    active = (gn_opt > cvg) && (gn < dvg);
-
-    float vT[3], a[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      vT[c] = dx[0] * Ji[c] + dx[1] * Ji[3 + c] + dx[2] * Ji[6 + c];
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      a[r] = dx[r] - (Ji[3 * r] * dg[0] + Ji[3 * r + 1] * dg[1]
-                      + Ji[3 * r + 2] * dg[2]);
-    float bd = vT[0] * dg[0] + vT[1] * dg[1] + vT[2] * dg[2];
-    bd = (bd >= 0.f) ? bd + eps : bd - eps;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const float u = a[r] / bd;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) Ji[3 * r + c] += u * vT[c];
     }
 #pragma unroll
-    for (int r = 0; r < 3; ++r)
-      upd[r] = -(Ji[3 * r] * gn_v[0] + Ji[3 * r + 1] * gn_v[1]
-                 + Ji[3 * r + 2] * gn_v[2]);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      x[c] = xn[c];
-      gx[c] = gn_v[c];
-    }
+    for (int c = 0; c < 3; ++c) x[c] = xn[c];
   }
 
 #pragma unroll

@@ -1,10 +1,12 @@
-// Shared pieces of the solver kernels (B corr, E march, F iso): the
-// skinning MLP's softplus100 and SNARF hierarchical softmax, the adjugate
-// 3x3 inverse, and, for E and F, a ray tile's passes through the generated
-// SIREN and the collapsed skinning MLP.
+// Shared pieces of the solver kernels (B corr, E march, F iso, L
+// corr_rows) and of J (siren): the skinning MLP's softplus100 and SNARF
+// hierarchical softmax, the adjugate 3x3 inverse, the per-point
+// good-Broyden step of the corr solves (B and L), and, for E, F, J and L,
+// a tile's passes through the generated SIREN and the collapsed skinning
+// MLP.
 //
-// Tile layout (E and F): a block of TILE_THREADS threads owns TILE_RAYS
-// rays. A layer's activations for the tile live in shared memory as
+// Tile layout (E, F, J, L): a block of TILE_THREADS threads owns TILE_RAYS
+// rays (points). A layer's activations for the tile live in shared memory as
 // [ray][unit] rows of stride TILE_LD; thread j computes output unit j (or
 // unit j % width for narrow layers, whose rays are split between thread
 // groups), so each weight it loads from L2 (coalesced, from a transposed
@@ -95,6 +97,66 @@ static __device__ void inv3x3(const float m[9], float o[9]) {
   o[0] = A * inv_det; o[1] = D * inv_det; o[2] = G * inv_det;
   o[3] = B * inv_det; o[4] = E * inv_det; o[5] = H * inv_det;
   o[6] = C * inv_det; o[7] = F * inv_det; o[8] = I * inv_det;
+}
+
+// The good-Broyden solve of one point of the corr kernels (B, L), in the
+// order of corr_kernel_t.py's body. broyden_init: from fwd_skin at the init
+// (residual g, blended transform T), the adjugate inverse Ji of T's 3x3 and
+// the first step upd = -Ji g; returns |g|, the first best residual norm.
+__device__ __forceinline__ float broyden_init(const float T[16],
+                                              const float g[3], float Ji[9],
+                                              float upd[3]) {
+  const float J0[9] = {T[0], T[1], T[2], T[4], T[5], T[6],
+                       T[8], T[9], T[10]};
+  inv3x3(J0, Ji);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    upd[r] = -(Ji[3 * r] * g[0] + Ji[3 * r + 1] * g[1] + Ji[3 * r + 2] * g[2]);
+  return sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+}
+
+// broyden_step: one iteration of an active point, after fwd_skin at x + dx
+// gave the residual gn_v. Keeps the best residual norm gn_opt (`better`
+// when this iterate beats it: the caller then keeps x + dx and its
+// transform), applies the good-Broyden rank-1 update to Ji with a +/-eps
+// denominator, and sets g <- gn_v and upd <- -Ji gn_v. Returns whether the
+// point stays active: gn_opt > cvg and |gn_v| < dvg.
+__device__ __forceinline__ bool broyden_step(float Ji[9], float g[3],
+                                             float upd[3], float& gn_opt,
+                                             bool& better, const float dx[3],
+                                             const float gn_v[3], float cvg,
+                                             float dvg, float eps) {
+  float dg[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) dg[c] = gn_v[c] - g[c];
+  const float gn = sqrtf(gn_v[0] * gn_v[0] + gn_v[1] * gn_v[1]
+                         + gn_v[2] * gn_v[2]);
+  better = gn < gn_opt;
+  if (better) gn_opt = gn;
+  const bool active = (gn_opt > cvg) && (gn < dvg);
+  float vT[3], a[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    vT[c] = dx[0] * Ji[c] + dx[1] * Ji[3 + c] + dx[2] * Ji[6 + c];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    a[r] = dx[r] - (Ji[3 * r] * dg[0] + Ji[3 * r + 1] * dg[1]
+                    + Ji[3 * r + 2] * dg[2]);
+  float bd = vT[0] * dg[0] + vT[1] * dg[1] + vT[2] * dg[2];
+  bd = (bd >= 0.f) ? bd + eps : bd - eps;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float u = a[r] / bd;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) Ji[3 * r + c] += u * vT[c];
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    upd[r] = -(Ji[3 * r] * gn_v[0] + Ji[3 * r + 1] * gn_v[1]
+               + Ji[3 * r + 2] * gn_v[2]);
+    g[r] = gn_v[r];
+  }
+  return active;
 }
 
 // The canonical normalisation and SDF scale of the Pallas kernels:
@@ -188,12 +250,13 @@ __device__ __forceinline__ void tile_dense(float* hbuf, int din,
     tile_dense_rp<TILE_RAYS>(hbuf, din, Wt, b, dout, logits, scale);
 }
 
-// The generated SIREN over the tile: hbuf [ray][TILE_LD] holds the
-// normalised inputs (3 columns) and is the activations' scratch. Writes
-// the raw (normalised) SDF of ray p to sdf[p]. The forward is
-// h <- sin(30 (f (h W^T + b) + p)) as siren_apply, with exact sinf.
-static __device__ void tile_siren(float* hbuf, const float* __restrict__ P,
-                                  const NetMeta& m, float* sdf) {
+// The generated SIREN's hidden layers over the tile: hbuf [ray][TILE_LD]
+// holds the normalised inputs (3 columns) and, on return, the last hidden
+// activations. The forward is h <- sin(30 (f (h W^T + b) + p)) as
+// siren_apply, with exact sinf.
+static __device__ void tile_siren_hidden(float* hbuf,
+                                         const float* __restrict__ P,
+                                         const NetMeta& m) {
   const int H = m.hidden, L = m.n_layers, j = threadIdx.x;
   for (int i = 0; i < L - 1; ++i) {
     const float* Wt = P + m.wt_off[i];
@@ -244,15 +307,31 @@ static __device__ void tile_siren(float* hbuf, const float* __restrict__ P,
     }
     __syncthreads();
   }
-  // last layer (one output): 16 lanes per ray, then a shuffle sum
-  static_assert(TILE_RAYS * 16 == TILE_THREADS, "16 lanes per ray");
-  const int p = j >> 4, lane = j & 15;
-  const float* wl = P + m.wl_off;
+}
+
+// One output unit of ray p = threadIdx.x / 16 from its last hidden row:
+// the 16 lanes of the ray take strided units of the weight row wrow (H),
+// then a shuffle sum; every lane returns the sum (bias not added).
+static_assert(TILE_RAYS * 16 == TILE_THREADS, "16 lanes per ray");
+__device__ __forceinline__ float tile_row_dot(const float* hbuf,
+                                              const float* __restrict__ wrow,
+                                              int H) {
+  const int p = threadIdx.x >> 4, lane = threadIdx.x & 15;
   float a = 0.f;
   for (int k = lane; k < H; k += 16)
-    a = fmaf(hbuf[p * TILE_LD + k], __ldg(wl + k), a);
+    a = fmaf(hbuf[p * TILE_LD + k], __ldg(wrow + k), a);
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o, 16);
-  if (lane == 0) sdf[p] = a + __ldg(P + m.b_off[L - 1]);
+  return a;
+}
+
+// The generated SIREN (one output) over the tile: hbuf as for
+// tile_siren_hidden; writes the raw (normalised) SDF of ray p to sdf[p].
+static __device__ void tile_siren(float* hbuf, const float* __restrict__ P,
+                                  const NetMeta& m, float* sdf) {
+  tile_siren_hidden(hbuf, P, m);
+  const float a = tile_row_dot(hbuf, P + m.wl_off, m.hidden);
+  if ((threadIdx.x & 15) == 0)
+    sdf[threadIdx.x >> 4] = a + __ldg(P + m.b_off[m.n_layers - 1]);
   __syncthreads();
 }

@@ -32,7 +32,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC']
 
 COUNTS = {'knn': 0, 'corr': 0, 'shade': 0, 'color_fwd': 0, 'march': 0,
-          'iso': 0, 'skin_jac': 0, 'shade_bwd': 0, 'color_bwd': 0}
+          'iso': 0, 'skin_jac': 0, 'shade_bwd': 0, 'color_bwd': 0,
+          'siren': 0, 'knn_rows': 0, 'corr_rows': 0}
 BUILD_SECONDS = None     # wall time of this process's build, None if cached
 
 _LIB = None
@@ -159,6 +160,10 @@ def load():
         _build(path)
     lib = ctypes.CDLL(path)
     lib.arah_knn.argtypes = [_P, _I, _P, _I, _P, _P]
+    lib.arah_knn_rows.argtypes = [_P, _I, _P, _I, _P, _P]
+    lib.arah_siren.argtypes = [_P, _I, _P, NetMeta, _I, _P, _P]
+    lib.arah_corr_rows.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, NetMeta,
+                                   _I, _F, _F, _F, _F, _P, _P, _P, _P]
     lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, MlpDims, _I, _P, _P,
                               _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
     lib.arah_shade.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _I, _P, _P]
@@ -181,7 +186,8 @@ def load():
     lib.arah_color_bwd_ws.restype = ctypes.c_longlong
     for fn in (lib.arah_knn, lib.arah_corr, lib.arah_shade,
                lib.arah_color_fwd, lib.arah_march, lib.arah_iso,
-               lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd):
+               lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd,
+               lib.arah_knn_rows, lib.arah_siren, lib.arah_corr_rows):
         fn.restype = _I
     _LIB = lib
     return lib

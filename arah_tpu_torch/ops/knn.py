@@ -1,10 +1,11 @@
-"""Nearest-SMPL-vertex queries: kernel A and its plain version.
+"""Nearest-SMPL-vertex queries: kernels A and K and their plain version.
 
-`nn_idx` launches the CUDA kernel (csrc/knn.cu, the port of
-`arah_tpu/ops/pallas/knn_kernel.py:nn_idx_pallas_t`) for CUDA tensors and
-computes `nn_idx_plain` (the port of `arah_tpu/ops/knn.py:nn_idx`) for
-CPU tensors. Both use the expanded distance |v|^2 - 2 v.x and resolve
-ties to the first vertex.
+`nn_idx` launches kernel A (`arah_knn` in csrc/knn.cu, the port of
+`arah_tpu/ops/pallas/knn_kernel.py:nn_idx_pallas_t`) and `nn_idx_rows`
+kernel K (`arah_knn_rows`, the port of `knn_kernel.py:nn_idx_pallas`) for
+CUDA tensors; both compute `nn_idx_plain` (the port of
+`arah_tpu/ops/knn.py:nn_idx`) for CPU tensors. All use the expanded
+distance |v|^2 - 2 v.x and resolve ties to the first vertex.
 """
 from __future__ import annotations
 
@@ -31,17 +32,31 @@ def nn_idx_plain(points: torch.Tensor, verts: torch.Tensor,
     return torch.cat(out).to(torch.int32)
 
 
-def nn_idx(points: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
-    """Kernel A: (N, 3) x (V, 3) -> (N,) int32 nearest-vertex indices."""
-    if not points.is_cuda:
-        return nn_idx_plain(points, verts)
+def _launch(entry: str, points: torch.Tensor,
+            verts: torch.Tensor) -> torch.Tensor:
     n, v = points.shape[0], verts.shape[0]
     _build.require(points, 'points', torch.float32, (n, 3))
     _build.require(verts, 'verts', torch.float32, (v, 3))
     lib = _build.load()
     out = torch.empty((n,), dtype=torch.int32, device=points.device)
-    _build.check(lib.arah_knn(points.data_ptr(), n, verts.data_ptr(), v,
-                              out.data_ptr(), _build.stream_ptr(points)),
-                 'knn')
-    _build.COUNTS['knn'] += 1
+    _build.check(getattr(lib, 'arah_' + entry)(
+        points.data_ptr(), n, verts.data_ptr(), v, out.data_ptr(),
+        _build.stream_ptr(points)), entry)
+    _build.COUNTS[entry] += 1
     return out
+
+
+def nn_idx(points: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
+    """Kernel A: (N, 3) x (V, 3) -> (N,) int32 nearest-vertex indices."""
+    if not points.is_cuda:
+        return nn_idx_plain(points, verts)
+    return _launch('knn', points, verts)
+
+
+def nn_idx_rows(points: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
+    """Kernel K (`arah_knn_rows` in csrc/knn.cu, the port of
+    `knn_kernel.py:nn_idx_pallas`): the same function as kernel A, the
+    vertex axis reduced across a warp's lanes."""
+    if not points.is_cuda:
+        return nn_idx_plain(points, verts)
+    return _launch('knn_rows', points, verts)

@@ -101,16 +101,19 @@ def frame_vec(frame: CanonicalFrame) -> torch.Tensor:
                       frame.trans.reshape(3)]).float().contiguous()
 
 
-def pack_siren(gen: GeneratedMLP, pack: _build.ParamPack) -> dict:
-    """Put a generated SIREN (3 -> hidden ... -> 1) into `pack`; returns
-    the SIREN fields of `NetMeta`. Raises on a shape the kernels do not
+def pack_siren(gen: GeneratedMLP, pack: _build.ParamPack,
+               name: str = 'march/iso kernel', max_out: int = 1) -> dict:
+    """Put a generated SIREN (3 -> hidden ... -> out, out <= max_out) into
+    `pack`; returns the SIREN fields of `NetMeta` (the output layer's
+    (out, hidden) rows at `wl_off`). Raises on a shape the kernels do not
     take."""
     L = len(gen.weights)
     H = gen.weights[0].shape[0]
     if (L < 2 or L > 8 or gen.weights[0].shape[1] != 3
-            or gen.weights[-1].shape[0] != 1 or H % 4 or H > 256
+            or not 1 <= gen.weights[-1].shape[0] <= max_out or H % 4
+            or H > 256
             or any(tuple(w.shape) != (H, H) for w in gen.weights[1:-1])):
-        raise ValueError('march/iso kernel: unsupported SIREN shape '
+        raise ValueError(f'{name}: unsupported SIREN shape '
                          f'{[tuple(w.shape) for w in gen.weights]}')
     film = len(gen.freqs) > 0
     LL = _build.ctypes.c_longlong * 8

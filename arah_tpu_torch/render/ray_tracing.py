@@ -7,13 +7,17 @@ with dense fixed-shape blocks and convergence masks carried as data.
 Kernels on this path (`ops/`): the fused march (kernel E, when
 `use_pallas_march` and the renderer hands over the generated SIREN), the
 iso refinement (kernel F, when `use_pallas_iso` with the generated SIREN
-and the collapsed skinning MLP), the nearest-vertex query (kernel A) in
-`canonicalize_samples` and the corr Broyden (kernel B). With a kernel's
-flag off its plain loop runs (`_march_plain`, the counterpart of
+and the collapsed skinning MLP), the corr init's nearest-vertex query
+(kernel A, when `use_pallas_knn`) and the corr Broyden (kernel B). With a
+kernel's flag off its plain loop runs (`_march_plain`, the counterpart of
 `_march_xla`; `search_iso_surface_depth`); with the flag on, a CUDA
-tensor and no network to hand the kernel, the dispatch raises. The kernels
-take any number of rays, so no tile-divisibility guard (JAX's `n % tile`)
-sends a ragged phase-2 batch to a plain loop.
+tensor and no network to hand the kernel, the dispatch raises. Every
+other nearest-vertex query (the plain march's, and the corr init's with
+`use_pallas_knn` off) is `ops/fused.py:fused_nn_idx`, and the plain loops
+evaluate the SDF the renderer hands them: under `ARAH_ENABLE_PALLAS=1`
+these are kernels K and J, as in JAX. The kernels take any number of
+rays, so no tile-divisibility guard (JAX's `n % tile`) sends a ragged
+phase-2 batch to a plain loop.
 
 The straggler-resolve splits write phase 2's results back to exactly the
 rows phase 2 solved (`_split_write_back`). The JAX package pads its index
@@ -33,8 +37,9 @@ from arah_tpu_torch.core.body import (apply_transform,
 from arah_tpu_torch.core.linalg import inv_affine
 from arah_tpu_torch.core.rays import stratified_z_vals
 from arah_tpu_torch.ops.corr import corr_search
+from arah_tpu_torch.ops.fused import fused_nn_idx
 from arah_tpu_torch.ops.iso import iso_refine
-from arah_tpu_torch.ops.knn import nn_idx, nn_idx_plain
+from arah_tpu_torch.ops.knn import nn_idx
 from arah_tpu_torch.ops.march import sphere_march
 from arah_tpu_torch.solver.root_find import (CanonicalFrame,
                                              IsoSurfaceResult,
@@ -46,12 +51,13 @@ from arah_tpu_torch.solver.root_find import (CanonicalFrame,
 class RayTracerConfig(NamedTuple):
     """Field for field the JAX `RayTracerConfig`, with its defaults.
 
-    `corr_chunk`, `trace_chunk` and `corr_coarse_stride` are scheduling
-    options of the JAX package (value-identical chunkings, and an A/B
-    warm start); the port keeps the fields and always solves densely.
-    `pallas_*_tile` and `pallas_precision` size and tune the TPU kernels
-    and are not read here, except that the corr kernel takes only
-    precision 'f32'.
+    `corr_chunk` and `trace_chunk` are value-identical chunkings of the
+    JAX package; the port keeps the fields and always solves densely.
+    `corr_coarse_stride` > 1 runs the coarse-to-fine warm start of
+    `canonicalize_samples`, as in JAX (different roots from 0, within
+    solver tolerance). `pallas_*_tile` and `pallas_precision` size and
+    tune the TPU kernels and are not read here, except that the corr
+    kernel takes only precision 'f32'.
     """
     root_finding_threshold: float = 1e-5
     sphere_tracing_iters: int = 50
@@ -98,10 +104,11 @@ class SphereTraceResult(NamedTuple):
 
 
 def _knn(cfg: RayTracerConfig, points, verts):
-    """Nearest posed vertex: kernel A when `use_pallas_knn`."""
+    """The corr init's nearest posed vertex: kernel A when
+    `use_pallas_knn`, else `fused_nn_idx`."""
     if cfg.use_pallas_knn:
         return nn_idx(points, verts)
-    return nn_idx_plain(points, verts)
+    return fused_nn_idx(points, verts)
 
 
 def _split_write_back(base: torch.Tensor, idx: torch.Tensor,
@@ -117,11 +124,10 @@ def _resolve_idx(active: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.nonzero(active).flatten()[:cap]
 
 
-def _nn_backward_map(cfg: RayTracerConfig, points_world, smpl: SmplRef,
-                     frame: CanonicalFrame):
+def _nn_backward_map(points_world, smpl: SmplRef, frame: CanonicalFrame):
     """Nearest-SMPL-vertex backward skinning: world points -> canonical.
     Returns (x_hat_metric, x_hat_norm, T_fwd)."""
-    idx = _knn(cfg, points_world, smpl.verts_posed).long()
+    idx = fused_nn_idx(points_world, smpl.verts_posed).long()
     w = smpl.skinning_weights[idx]
     T_fwd = torch.einsum('nj,jab->nab', w, frame.bone_transforms)
     T_bwd = inv_affine(T_fwd)
@@ -154,7 +160,7 @@ def _march_plain(cfg: RayTracerConfig, sdf_fn: Callable,
     i = 0
     while i < cfg.sphere_tracing_iters and bool(c.unfinished.any()):
         pts = cam_loc + c.t[:, None] * ray_dirs
-        _, x_norm, T_fwd = _nn_backward_map(cfg, pts, smpl, frame)
+        _, x_norm, T_fwd = _nn_backward_map(pts, smpl, frame)
         sdf = sdf_to_metric(sdf_fn(x_norm), frame.coord_min,
                             frame.coord_max)
         sdf = torch.where(c.unfinished, sdf, big)
@@ -394,9 +400,10 @@ def _corr_solve_split(cfg: RayTracerConfig, skin_fn: Callable,
 
 def corr_init(cfg: RayTracerConfig, frame: CanonicalFrame, smpl: SmplRef,
               pts_world):
-    """Nearest-vertex init of the correspondence search (kernel A):
-    (x_bar (N, 3) target without translation, x0 (N, 3) init, T0
-    (N, 4, 4) init transform) of world points (N, 3)."""
+    """Nearest-vertex init of the correspondence search (kernel A under
+    `use_pallas_knn`, else `fused_nn_idx`): (x_bar (N, 3) target without
+    translation, x0 (N, 3) init, T0 (N, 4, 4) init transform) of world
+    points (N, 3)."""
     idx = _knn(cfg, pts_world, smpl.verts_posed).long()
     T0 = torch.einsum('nj,jab->nab', smpl.skinning_weights[idx],
                       frame.bone_transforms)
@@ -405,19 +412,90 @@ def corr_init(cfg: RayTracerConfig, frame: CanonicalFrame, smpl: SmplRef,
     return x_bar.contiguous(), x0.contiguous(), T0
 
 
+def _warm_start_inits(cfg: RayTracerConfig, z_vals, x_hat_c, T_c, valid_c,
+                      x0_f, T0_f):
+    """Fine-sample inits from the bracketing coarse roots (port of the JAX
+    `_warm_start_inits`). z_vals (n, Sc, C); x_hat_c/T_c/valid_c (n, Sc,
+    ...) coarse results; x0_f/T0_f (n, Sc, C-1, ...) nearest-vertex
+    fallbacks. Returns (x_init, T_init) of the fine slots 1..C-1: the
+    depth-linear interpolation of the two coarse roots where both
+    converged and lie within `corr_warm_gate`, the converged side where
+    only one did, the fallback otherwise."""
+    def shifted(a):      # the next block's coarse value, edge-clamped
+        return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+    x_hi, T_hi, valid_hi = shifted(x_hat_c), shifted(T_c), shifted(valid_c)
+    z_lo = z_vals[:, :, 0]
+    z_hi = shifted(z_lo)
+    a = torch.clamp((z_vals[:, :, 1:] - z_lo[..., None])
+                    / torch.clamp(z_hi - z_lo, min=1e-8)[..., None],
+                    0.0, 1.0)                              # (n, Sc, C-1)
+    dist = torch.linalg.norm(x_hi - x_hat_c, dim=-1)
+    both = (valid_c & valid_hi & (dist < cfg.corr_warm_gate))[..., None]
+    lo_only = (valid_c & ~valid_hi)[..., None]
+    hi_only = (valid_hi & ~valid_c)[..., None]
+
+    x_lo_b, x_hi_b = x_hat_c[:, :, None, :], x_hi[:, :, None, :]
+    x_interp = (1.0 - a[..., None]) * x_lo_b + a[..., None] * x_hi_b
+    x_init = torch.where(
+        both[..., None], x_interp,
+        torch.where(lo_only[..., None], x_lo_b.expand(x0_f.shape),
+                    torch.where(hi_only[..., None], x_hi_b.expand(x0_f.shape),
+                                x0_f)))
+    T_lo_b = T_c[:, :, None].expand(T0_f.shape)
+    T_hi_b = T_hi[:, :, None].expand(T0_f.shape)
+    T_near = torch.where((a > 0.5)[..., None, None], T_hi_b, T_lo_b)
+    T_init = torch.where(
+        both[..., None, None], T_near,
+        torch.where(lo_only[..., None, None], T_lo_b,
+                    torch.where(hi_only[..., None, None], T_hi_b, T0_f)))
+    return x_init, T_init
+
+
 def canonicalize_samples(cfg: RayTracerConfig, skin_fn: Callable,
                          frame: CanonicalFrame, smpl: SmplRef, cam_loc,
                          ray_dirs, z_vals, sample_mask, skin_dense=None):
     """Backward-map all ray samples to canonical space: nearest-vertex
-    init (kernel A) then the Broyden correspondence search (kernel B);
-    masked samples are frozen and report converge=False."""
+    init (`corr_init`) then the Broyden correspondence search (kernel B);
+    masked samples are frozen and report converge=False. With
+    `corr_coarse_stride` = C > 1 (and S a multiple of C above C) the
+    search runs coarse to fine: slot 0 of every block of C samples solves
+    from the nearest-vertex init, the other C-1 from
+    `_warm_start_inits`."""
     n, S = z_vals.shape
     pts_world = (cam_loc[:, None, :] + z_vals[..., None]
                  * ray_dirs[:, None, :]).reshape(-1, 3).contiguous()
     flat_mask = sample_mask.reshape(-1).contiguous()
     x_bar, x0, T0 = corr_init(cfg, frame, smpl, pts_world)
-    x_hat, T_fwd, valid, _ = _corr_solve_split(
-        cfg, skin_fn, frame, skin_dense, x_bar, x0, T0, flat_mask)
+    C = cfg.corr_coarse_stride
+    if C > 1 and S % C == 0 and S > C:
+        Sc = S // C
+
+        def blk(a):
+            return a.reshape((n, Sc, C) + a.shape[1:])
+
+        def flat(a):
+            return a.reshape((-1,) + a.shape[3:]).contiguous()
+        xb_b, x0_b, T0_b, m_b = blk(x_bar), blk(x0), blk(T0), blk(flat_mask)
+        xc, Tc, vc, _ = _corr_solve_split(
+            cfg, skin_fn, frame, skin_dense, flat(xb_b[:, :, :1]),
+            flat(x0_b[:, :, :1]), flat(T0_b[:, :, :1]), flat(m_b[:, :, :1]))
+        xc, Tc, vc = xc.reshape(n, Sc, 3), Tc.reshape(n, Sc, 4, 4), \
+            vc.reshape(n, Sc)
+        x_init, T_init = _warm_start_inits(
+            cfg, z_vals.reshape(n, Sc, C), xc, Tc, vc, x0_b[:, :, 1:],
+            T0_b[:, :, 1:])
+        xf, Tf, vf, _ = _corr_solve_split(
+            cfg, skin_fn, frame, skin_dense, flat(xb_b[:, :, 1:]),
+            flat(x_init), flat(T_init), flat(m_b[:, :, 1:]))
+        x_hat = torch.cat([xc[:, :, None], xf.reshape(n, Sc, C - 1, 3)],
+                          dim=2).reshape(-1, 3)
+        T_fwd = torch.cat([Tc[:, :, None], Tf.reshape(n, Sc, C - 1, 4, 4)],
+                          dim=2).reshape(-1, 4, 4)
+        valid = torch.cat([vc[:, :, None], vf.reshape(n, Sc, C - 1)],
+                          dim=2).reshape(-1)
+    else:
+        x_hat, T_fwd, valid, _ = _corr_solve_split(
+            cfg, skin_fn, frame, skin_dense, x_bar, x0, T0, flat_mask)
     x_norm = normalize_canonical_points(
         x_hat, frame.coord_min, frame.coord_max, frame.center)
     return (x_norm.reshape(n, S, 3), T_fwd.reshape(n, S, 4, 4),

@@ -5,7 +5,9 @@ Port of `arah_tpu/render/renderer.py`.
 Kernels on the eval path: the shading kernel C (SDF, features and normals
 of every sample) and the colour kernel D, plus A, B, E and F inside the
 tracer, which gets the generated SIREN (for E and F) and the collapsed
-skinning MLP (for B and F) as the JAX renderer hands them over. Training
+skinning MLP (for B and F) as the JAX renderer hands them over; with the
+march and iso flags off, the tracer's plain loops reach kernels J and K
+under `ARAH_ENABLE_PALLAS=1` (`make_sdf_fn(stop_grad=True)`). Training
 adds the skinning Jacobian G (the implicit-diff correction), and runs the
 shading through the C -> H op (`ops/shade_grad.py`, also for the eikonal
 points) and the colour MLP through the D -> I op (`ops/color.py`). Only
@@ -36,6 +38,7 @@ from arah_tpu_torch.nn.siren import GeneratedMLP, siren_apply
 from arah_tpu_torch.nn.skinning import (SkinningConfig,
                                         skinning_dense_params,
                                         skinning_weights)
+from arah_tpu_torch.ops.fused import make_fused_sdf_fn, pallas_enabled
 from arah_tpu_torch.ops.shade import siren_shade
 from arah_tpu_torch.ops.shade_grad import siren_shade_grad
 from arah_tpu_torch.ops.skin_jac import skinning_jac
@@ -90,8 +93,15 @@ def make_skin_fn(params, cfg: ModelConfig):
     return lambda x: skinning_weights(params['skinning'], cfg.skinning, x)
 
 
-def make_sdf_fn(gen: GeneratedMLP):
-    """Normalized canonical points (N, 3) -> (N,) normalized SDF."""
+def make_sdf_fn(gen: GeneratedMLP, stop_grad: bool = False):
+    """Normalized canonical points (N, 3) -> (N,) normalized SDF: plain
+    `siren_apply`, except that the stop-gradient variant (the tracer's)
+    goes to kernel J under the A/B switch `ARAH_ENABLE_PALLAS=1`
+    (`ops/fused.py`), as in JAX."""
+    if stop_grad:
+        gen = _detached(gen)
+        if pallas_enabled():
+            return make_fused_sdf_fn(gen)
     return lambda x: siren_apply(gen, x)[..., 0]
 
 
@@ -277,7 +287,8 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
         sdf_gen = gen_ng if (cfg.tracer.use_pallas_march
                              or cfg.tracer.use_pallas_iso) else None
         trace = trace_and_sample(
-            cfg.tracer, make_sdf_fn(gen_ng), make_skin_fn(params, cfg),
+            cfg.tracer, make_sdf_fn(gen_ng, stop_grad=True),
+            make_skin_fn(params, cfg),
             inp.frame, inp.smpl, inp.cam_loc.expand(inp.ray_dirs.shape),
             inp.ray_dirs, inp.near, inp.far, eval_mode=not training,
             skin_dense=skin_dense, sdf_gen=sdf_gen, jitter=jitter)

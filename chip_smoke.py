@@ -22,7 +22,18 @@
    renders with the kernels and with the plain versions (splits off on
    both sides), in turns, and compares the two; and renders with the
    kernels with the splits on and off, in turns (the split A/B).
-5. Drives the train step (`scene.build_train_setup`: the flagship step of
+5. The tracer's unfused A/B path: holds J (siren) against its plain
+   version at the 8,192 surface points and the 524,288 sample points of
+   a flagship frame, K (knn_rows) at the world points of both, and L
+   (corr_rows) against its plain version and against B on the frame's
+   corr inputs; renders 3 frames with `ARAH_ENABLE_PALLAS=1` and the
+   march, iso and corr-init kernel flags off (counted, so that J and K
+   and not E, F or A run; one frame traced), compares that render with
+   its switch-off twin (in turns, timed) and with the flagship render;
+   then runs the corr-variant bench (`utils/bench_corr.main`, 262,144
+   points), counted, for L, and holds L and B against the bench's plain
+   solve on the bench's own inputs (L's record comes from those inputs).
+6. Drives the train step (`scene.build_train_setup`: the flagship step of
    the JAX bench, one block of 8192 rays and 1,024 regulariser points).
    A warm-up step captures the inputs and cotangents the step hands
    kernels G (skin_jac), H (shade_bwd: the shading at N points in bf16
@@ -51,8 +62,15 @@ RAYS = 8192             # rays per frame: N = 524,288 (ray, sample) points
 FRAMES = 3              # main-path frames, each with its own pose
 REPS = 5                # timed repeats of each kernel and plain version
 STEPS = 4               # timed train steps after the counted one
+BENCH_POINTS = 262144   # the corr-variant bench (L's path)
 
 FAILURES = []
+# the kernels of the flagship train step (A-I); J, K and L run elsewhere
+TRAIN_KERNELS = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso',
+                 'skin_jac', 'shade_bwd', 'color_bwd')
+# J against its plain version, absolute: the JAX package's bound for the
+# Pallas SIREN (tests/test_pallas.py:28)
+J_TOL = 1e-5
 
 
 def check(ok, msg):
@@ -265,8 +283,9 @@ def main():
           f'{ms_k:.3f} ms, plain {ms_p:.3f} ms [{card}]', flush=True)
     del xk2, vk2, xp2, vp2
 
-    # data-dependent work: each point's MLP evaluations (the init one plus
-    # one per Broyden iteration it ran, from the plain solve of this run)
+    # data-dependent work: each unmasked point's MLP evaluations (the init
+    # one plus one per Broyden iteration it ran, from the plain solve of
+    # this run); a masked point returns its init without any
     from arah_tpu_torch.solver.root_find import CanonicalFrame
     from arah_tpu_torch.solver.root_find import search_canonical_corr
     res = search_canonical_corr(
@@ -274,7 +293,7 @@ def main():
                                 torch.zeros(3, device=dev), frame.coord_min,
                                 frame.coord_max, frame.center),
         x_bar, x0, T0, max_steps=steps, active_init=flat_mask)
-    evals = float(n_pts + res.iters.sum())
+    evals = float(int(flat_mask.sum()) + res.iters.sum())
     macs = sum(w.shape[0] * w.shape[1] for w in wts)
     flops_eval = 2 * macs + 4 * sum(w.shape[0] for w in wts[:-1]) \
         + 2 * 24 * 16 + 250
@@ -373,8 +392,18 @@ def main():
     del xs, small, feats, shade_rec, res
     torch.cuda.empty_cache()
 
-    launches = run_render(cfg, params, fd, inp, card, gen, no_tf32)
-    del inp, gen
+    launches, frames, flagship_out = run_render(cfg, params, fd, inp, card,
+                                                gen, no_tf32)
+    per = {name: 'over 3 frames' for name in launches}
+    torch.cuda.empty_cache()
+    # J and K count launches over the 3 A/B frames, L in the corr bench
+    ab_records, ab_launches = run_ab(cfg, params, fd, frames, flagship_out,
+                                     card, gen, skin_dense, no_tf32)
+    records.update(ab_records)
+    launches.update(ab_launches)
+    per.update(siren='over 3 A/B frames', knn_rows='over 3 A/B frames',
+               corr_rows='in the corr bench')
+    del inp, gen, frames, flagship_out
     torch.cuda.empty_cache()
     # G, H and I count launches per train step (the eval path runs none)
     train_records, train_launches = run_train(cfg, params, fd, card,
@@ -382,6 +411,7 @@ def main():
     records.update(train_records)
     for name in train_records:
         launches[name] = train_launches[name]
+        per[name] = 'per train step'
 
     out = []
     for name, r in records.items():
@@ -390,17 +420,17 @@ def main():
                     'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                     'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
                     'bound_by': r['bound'][1], 'library_ms': None})
-        per = 'per train step' if name in train_records else 'over 3 frames'
         print(f'{name}: {r["ms"]:.3f} ms kernel, {r["plain_ms"]:.3f} ms '
               f'plain, bound {r["bound"][0]:.4f} ms ({r["bound"][1]}), '
-              f'launches {launches[name]} {per} [{card}]')
+              f'launches {launches[name]} {per[name]} [{card}]')
     if FAILURES:
         print(f'{len(FAILURES)} check(s) failed: {FAILURES}', flush=True)
         sys.exit(1)
-    print('library_ms: null for all nine: no single PyTorch call computes '
-          'a nearest-vertex argmin, a Broyden solve, a SIREN with its input '
-          'gradient, a split-input MLP, a sphere-trace loop, a skinning '
-          'Jacobian or the backward of a SIREN or of a split-input MLP')
+    print('library_ms: null for all twelve: no single PyTorch call computes '
+          'a nearest-vertex argmin, a Broyden solve, a SIREN (with or '
+          'without its input gradient), a split-input MLP, a sphere-trace '
+          'loop, a skinning Jacobian or the backward of a SIREN or of a '
+          'split-input MLP')
     print(json.dumps({'kernels': out}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
@@ -655,7 +685,7 @@ def check_iso(cfg, params, fd, inp, gen, card):
 
 
 def corr_compare(tag, xk, vk, xp, vp, x_bar, frame, skin_fn):
-    """Hold kernel B's solve (xk, vk) against the plain one (xp, vp):
+    """Hold a corr kernel's solve (xk, vk) against another (xp, vp):
     valid agreement >= 0.99, median |dx| < 1e-5 on commonly-valid points,
     and every flip (|dx| > 1e-4) a root on both sides (|fwd_skin(x) -
     x_bar| < 1e-5). Returns the max |dx| on commonly-valid points."""
@@ -696,7 +726,6 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
     import numpy as np
     import torch
     from arah_tpu_torch.data.synthetic import synthetic_smpl
-    from arah_tpu_torch.nn.siren import siren_apply
     from arah_tpu_torch.ops import _build
     from arah_tpu_torch.render.renderer import render
     from arah_tpu_torch.scene import N_VERTS, scene_frame, scene_inputs
@@ -756,32 +785,8 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
         res[tag] = render(params, cfg_k if tag == 'k' else cfg_p, inp)
         torch.cuda.synchronize()
         t[tag].append((time.perf_counter() - s) * 1e3)
-    ok_, op = res['k'], res['p']
-    m_a, m_b = ok_['network_body_mask'], op['network_body_mask']
-    both = m_a & m_b
-    agree = float((m_a == m_b).float().mean())
-    d_rgb = (ok_['rgb_values'] - op['rgb_values']).abs()[both].flatten()
-    d_dep = (ok_['surface_depth'] - op['surface_depth']).abs()[both]
-    rgb_med = float(d_rgb.median()) if d_rgb.numel() else 0.0
-    dep_med = float(d_dep.median()) if d_dep.numel() else 0.0
-    flipped = (m_a != m_b) | (both & ((ok_['surface_depth']
-                                       - op['surface_depth']).abs() > 1e-3))
-    fracs = []
-    for o in (ok_, op):
-        sel = flipped & o['surface_converged'] & o['network_body_mask']
-        if bool(sel.any()):
-            with torch.no_grad():
-                r = siren_apply(gen, o['surface_points_norm'][sel])[:, 0]
-            fracs.append(float((r.abs() < 5e-3).float().mean()))
-    fvf = min(fracs) if fracs else 1.0
-    print(f'render kernels vs plain (splits off): mask agreement {agree:.5f} '
-          f'(bound > 0.98), rgb median {rgb_med:.3e} (< 1e-2), depth median '
-          f'{dep_med:.3e} (< 1e-4), flipped rays {int(flipped.sum())}, '
-          f'flipped_valid_frac {fvf:.4f} (> 0.9); surface rays kernel '
-          f'{int(ok_["surface_converged"].sum())} plain '
-          f'{int(op["surface_converged"].sum())}', flush=True)
-    check(agree > 0.98 and rgb_med < 1e-2 and dep_med < 1e-4 and fvf > 0.9,
-          'kernel render disagrees with the plain render')
+    render_gate('render kernels vs plain (splits off)', res['k'], res['p'],
+                gen)
     print(f'render splits off, one frame of {RAYS} rays, in turns '
           f'(plain, kernels, kernels, plain) x 2: kernels median '
           f'{float(np.median(t["k"])):.1f} ms {[round(v, 1) for v in t["k"]]}'
@@ -809,7 +814,41 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
     profile_frame(lambda: render(params, cfg_k, inp),
                   float(np.median(t['off'])), card,
                   tag='one frame with the splits off')
-    return launches
+    return launches, frames, outs[0]
+
+
+def render_gate(tag, ok_, op, gen):
+    """The render gate of PERF.md §2 between two renders of one frame:
+    body-mask agreement > 0.98, rgb median |d| < 1e-2 and depth median
+    |d| < 1e-4 on rays both sides keep, and > 0.9 of the rays that flip
+    (mask, or depth by > 1e-3) on a valid root (|sdf| < 5e-3) on each
+    side that found a surface."""
+    import torch
+    from arah_tpu_torch.nn.siren import siren_apply
+    m_a, m_b = ok_['network_body_mask'], op['network_body_mask']
+    both = m_a & m_b
+    agree = float((m_a == m_b).float().mean())
+    d_rgb = (ok_['rgb_values'] - op['rgb_values']).abs()[both].flatten()
+    d_dep = (ok_['surface_depth'] - op['surface_depth']).abs()[both]
+    rgb_med = float(d_rgb.median()) if d_rgb.numel() else 0.0
+    dep_med = float(d_dep.median()) if d_dep.numel() else 0.0
+    flipped = (m_a != m_b) | (both & ((ok_['surface_depth']
+                                       - op['surface_depth']).abs() > 1e-3))
+    fracs = []
+    for o in (ok_, op):
+        sel = flipped & o['surface_converged'] & o['network_body_mask']
+        if bool(sel.any()):
+            with torch.no_grad():
+                r = siren_apply(gen, o['surface_points_norm'][sel])[:, 0]
+            fracs.append(float((r.abs() < 5e-3).float().mean()))
+    fvf = min(fracs) if fracs else 1.0
+    print(f'{tag}: mask agreement {agree:.5f} (bound > 0.98), rgb median '
+          f'{rgb_med:.3e} (< 1e-2), depth median {dep_med:.3e} (< 1e-4), '
+          f'flipped rays {int(flipped.sum())}, flipped_valid_frac {fvf:.4f} '
+          f'(> 0.9); surface rays {int(ok_["surface_converged"].sum())} '
+          f'against {int(op["surface_converged"].sum())}', flush=True)
+    check(agree > 0.98 and rgb_med < 1e-2 and dep_med < 1e-4 and fvf > 0.9,
+          f'{tag}: the renders disagree')
 
 
 def splits_off(cfg):
@@ -830,6 +869,226 @@ def plain_cfg(cfg):
                                    use_pallas_corr=False,
                                    use_pallas_march=False,
                                    use_pallas_iso=False))
+
+
+def ab_cfg(cfg):
+    """cfg with the march, iso and corr-init kernel flags off: the
+    tracer's unfused loops, which reach J and K under the switch."""
+    return cfg._replace(tracer=cfg.tracer._replace(
+        use_pallas_march=False, use_pallas_iso=False, use_pallas_knn=False))
+
+
+@contextlib.contextmanager
+def pallas_switch(on=True):
+    """`ARAH_ENABLE_PALLAS` set to 1 (or unset) inside, restored after."""
+    old = os.environ.pop('ARAH_ENABLE_PALLAS', None)
+    if on:
+        os.environ['ARAH_ENABLE_PALLAS'] = '1'
+    try:
+        yield
+    finally:
+        os.environ.pop('ARAH_ENABLE_PALLAS', None)
+        if old is not None:
+            os.environ['ARAH_ENABLE_PALLAS'] = old
+
+
+def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
+           no_tf32):
+    """Step 5 of the module docstring. Returns (records of J, K and L,
+    their launches: J and K over the 3 counted A/B frames, L in the
+    counted corr bench)."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.ops.corr import corr_search, dense_skin_fn
+    from arah_tpu_torch.ops.corr_rows import (corr_search_rows,
+                                              corr_search_rows_plain)
+    from arah_tpu_torch.ops.knn import nn_idx_plain, nn_idx_rows
+    from arah_tpu_torch.ops.siren import siren_sdf, siren_sdf_plain
+    from arah_tpu_torch.render.ray_tracing import corr_init, trace_and_sample
+    from arah_tpu_torch.render.renderer import (make_sdf_fn, make_skin_fn,
+                                                render)
+    from arah_tpu_torch.utils import bench_corr
+
+    # ---- the inputs J, K and L meet on frame 0 (flagship kernels)
+    inp, frame, smpl = frames[0], fd.frame, fd.smpl
+    cam = inp.cam_loc.expand(inp.ray_dirs.shape)
+    with torch.no_grad():
+        tr = trace_and_sample(cfg.tracer, make_sdf_fn(gen),
+                              make_skin_fn(params, cfg), frame, smpl, cam,
+                              inp.ray_dirs, inp.near, inp.far,
+                              skin_dense=skin_dense, sdf_gen=gen)
+    s = tr.samples
+    xs = {RAYS: tr.surface.points_norm.contiguous(),
+          s.points_norm.numel() // 3: s.points_norm.reshape(-1, 3)
+          .contiguous()}
+    ws = {RAYS: (cam + tr.surface.start_dis[:, None]
+                 * inp.ray_dirs).contiguous(),
+          s.z_vals.numel(): (cam[:, None, :] + s.z_vals[..., None]
+                             * inp.ray_dirs[:, None, :]).reshape(-1, 3)
+          .contiguous()}
+    verts = smpl.verts_posed
+    nv = verts.shape[0]
+    macs_j = sum(w.numel() for w in gen.weights)
+    recs = {}
+    for n, x in xs.items():
+        no_tf32()
+        d = (siren_sdf(gen, x) - siren_sdf_plain(gen, x)).abs()
+        ms = timed(lambda: siren_sdf(gen, x), REPS)
+        plain_ms = timed(lambda: siren_sdf_plain(gen, x), REPS)
+        b = bound(n * 16 + 4 * sum(w.numel() + w.shape[0]
+                                   for w in gen.weights),
+                  n * 2.0 * macs_j, PEAK_F32)
+        print(f'J siren ({n} normalised points of frame 0): max |d| '
+              f'{float(d.max()):.3e} (bound {J_TOL:g}), median '
+              f'{float(d.median()):.3e}; kernel {ms:.3f} ms, plain '
+              f'{plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}) [{card}]',
+              flush=True)
+        check(float(d.max()) < J_TOL,
+              f'siren kernel disagrees with its plain version at {n}')
+        recs.setdefault('siren', dict(
+            max_abs_err=float(d.max()), ms=ms, plain_ms=plain_ms, bound=b,
+            src='arah_tpu_torch/csrc/siren.cu',
+            rep='arah_tpu/ops/pallas/siren_kernel.py:54'))
+    for n, p in ws.items():
+        ik, ip = nn_idx_rows(p, verts), nn_idx_plain(p, verts)
+        same = bool(torch.equal(ik, ip))
+        ms = timed(lambda: nn_idx_rows(p, verts), REPS)
+        plain_ms = timed(lambda: nn_idx_plain(p, verts), REPS)
+        b = bound(n * 16 + nv * 12, n * nv * 8.0, PEAK_F32)
+        print(f'K knn_rows ({n} world points of frame 0, {nv} verts): '
+              f'indices equal at every point {same} ({int((ik != ip).sum())}'
+              f' differ); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+              f'{b[0]:.4f} ms ({b[1]}) [{card}]', flush=True)
+        check(same, f'knn_rows kernel disagrees with its plain version at '
+              f'{n}')
+        recs.setdefault('knn_rows', dict(
+            max_abs_err=float((ik - ip).abs().max()), ms=ms,
+            plain_ms=plain_ms, bound=b, src='arah_tpu_torch/csrc/knn.cu',
+            rep='arah_tpu/ops/pallas/knn_kernel.py:42'))
+
+    # ---- L on the frame's corr inputs (single pass, corr_max_steps)
+    no_tf32()
+    wts, bs, scale = skin_dense
+    wts_t = [w.t() for w in wts]
+    pts = ws[s.z_vals.numel()]
+    with torch.no_grad():
+        x_bar, x0, T0 = corr_init(cfg.tracer, frame, smpl, pts)
+    flat_mask = s.sample_mask.reshape(-1).contiguous()
+    bones16 = frame.bone_transforms.reshape(24, 16).contiguous()
+    largs = (x_bar, x0, T0.reshape(-1, 16).contiguous(), flat_mask, wts_t,
+             bs, bones16, frame.coord_min, frame.coord_max, frame.center)
+    steps = cfg.tracer.corr_max_steps
+    lk = corr_search_rows(*largs, max_steps=steps, softmax_scale=scale)
+    lp = corr_search_rows_plain(*largs, max_steps=steps, softmax_scale=scale)
+    bk = corr_search(*largs[:4], wts, *largs[5:], max_steps=steps,
+                     softmax_scale=scale)
+    skin_fn = dense_skin_fn(wts, bs, scale)
+    n_pts = pts.shape[0]
+    corr_compare(f'L corr_rows vs plain ({n_pts} points of frame 0, {steps} '
+                 f'steps)', lk[0], lk[2], lp[0], lp[2], x_bar, frame, skin_fn)
+    corr_compare('L corr_rows vs B corr (same inputs)', lk[0], lk[2], bk[0],
+                 bk[2], x_bar, frame, skin_fn)
+    ms_l = timed(lambda: corr_search_rows(*largs, max_steps=steps,
+                                          softmax_scale=scale), REPS)
+    ms_b = timed(lambda: corr_search(*largs[:4], wts, *largs[5:],
+                                     max_steps=steps, softmax_scale=scale),
+                 REPS)
+    print(f'  L on these inputs: kernel {ms_l:.3f} ms, B {ms_b:.3f} ms '
+          f'[{card}]', flush=True)
+    del lk, lp, bk, largs, x_bar, x0, T0, tr, s, xs, ws, pts
+
+    # ---- the A/B render: 3 frames counted, one traced
+    cfg_ab = ab_cfg(cfg)
+    with pallas_switch():
+        no_tf32()
+        render(params, cfg_ab, frames[0])          # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        outs = [render(params, cfg_ab, f) for f in frames]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.COUNTS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = wall / len(frames) * 1e3
+        profile_frame(lambda: render(params, cfg_ab, frames[0]), ms, card,
+                      tag='one A/B frame')
+    for i, o in enumerate(outs):
+        rgb = o['rgb_values']
+        check(bool(torch.isfinite(rgb).all()) and tuple(rgb.shape)
+              == (RAYS, 3) and bool(o['network_body_mask'].any()),
+              f'A/B frame {i}: non-finite, misshapen or empty')
+    print(f'A/B path (ARAH_ENABLE_PALLAS=1; use_pallas_march, _iso, _knn '
+          f'off): {len(frames)} frames x {RAYS} rays: {ms:.1f} ms/frame, '
+          f'{RAYS / (ms / 1e3):.0f} rays/s, peak memory {peak:.2f} GiB, '
+          f'launches {launches} [{card}]', flush=True)
+    check(all(launches[k] > 0 for k in ('siren', 'knn_rows', 'corr',
+                                        'shade', 'color_fwd'))
+          and all(launches[k] == 0 for k in ('march', 'iso', 'knn')),
+          f'the A/B path launched the wrong kernels: {launches}')
+    res, t = {}, {'on': [], 'off': []}
+    for tag in ('on', 'off', 'off', 'on'):
+        with pallas_switch(tag == 'on'):
+            no_tf32()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[tag] = render(params, cfg_ab, frames[0])
+            torch.cuda.synchronize()
+            t[tag].append((time.perf_counter() - t0) * 1e3)
+    print(f'A/B render of one frame, in turns (on, off, off, on): switch on '
+          f'{[round(v, 1) for v in t["on"]]} ms, off '
+          f'{[round(v, 1) for v in t["off"]]} ms [{card}]', flush=True)
+    render_gate('A/B render vs its switch-off twin', res['on'], res['off'],
+                gen)
+    render_gate('A/B render vs the flagship render (E averages tied '
+                'weights, the plain march takes the first vertex)',
+                outs[0], flagship_out, gen)
+    del outs, res
+    torch.cuda.empty_cache()
+
+    # ---- L on its path: the corr-variant bench, counted
+    no_tf32()
+    n_b, dev = BENCH_POINTS, inp.ray_dirs.device
+    _build.reset_counts()
+    bench = bench_corr.main(['--n', str(n_b), '--iters', '3'], device=dev)
+    launches['corr_rows'] = _build.COUNTS['corr_rows']
+    check(sorted(bench) == ['chunked', 'dense', 'pallas', 'pallas_t_f32'],
+          f'bench_corr ran {sorted(bench)}')
+    skin_b, fb, xb, xi, T0b, mb, wb, bb = bench_corr.make_problem(n_b, dev)
+    # L's record, every number of it from the bench's own inputs
+    err_b = corr_compare(f'L corr_rows vs plain (bench, {n_b} points)',
+                         bench['pallas']['x_hat'], bench['pallas']['valid'],
+                         bench['dense']['x_hat'], bench['dense']['valid'],
+                         xb, fb, skin_b)
+    corr_compare('B corr vs plain (bench)', bench['pallas_t_f32']['x_hat'],
+                 bench['pallas_t_f32']['valid'], bench['dense']['x_hat'],
+                 bench['dense']['valid'], xb, fb, skin_b)
+    bargs = (xb, xi, T0b.reshape(n_b, 16).contiguous(), mb,
+             [w.t() for w in wb], bb,
+             fb.bone_transforms.reshape(24, 16).contiguous(), fb.coord_min,
+             fb.coord_max, fb.center)
+    # masked points take no MLP evaluation (they return x0 and T0)
+    evals = float(int(mb.sum()) + bench['dense']['iters'].sum())
+    macs = sum(w.numel() for w in wb)
+    flops_eval = 2 * macs + 4 * sum(w.shape[0] for w in wb[:-1]) \
+        + 2 * 24 * 16 + 250
+    recs['corr_rows'] = dict(
+        max_abs_err=err_b,
+        ms=timed(lambda: corr_search_rows(*bargs), REPS),
+        plain_ms=timed(lambda: corr_search_rows_plain(*bargs), 2),
+        bound=bound(n_b * (12 + 12 + 64 + 1 + 12 + 64 + 1)
+                    + 4 * (macs + 600), evals * flops_eval, PEAK_F32),
+        src='arah_tpu_torch/csrc/corr_rows.cu',
+        rep='arah_tpu/ops/pallas/corr_kernel.py:257')
+    r = recs['corr_rows']
+    print(f'L corr_rows on the bench problem ({n_b} points): kernel '
+          f'{r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} ms, bound '
+          f'{r["bound"][0]:.4f} ms ({r["bound"][1]}); {evals:.0f} MLP '
+          f'evaluations ({float(bench["dense"]["iters"].float().mean()):.3f}'
+          f' iterations per point) [{card}]', flush=True)
+    return recs, {k: launches[k] for k in ('siren', 'knn_rows', 'corr_rows')}
 
 
 def profile_frame(fn, ms_frame, card, tag='one frame'):
@@ -1246,7 +1505,7 @@ def run_train(cfg, params, fd, card, no_tf32):
           f'{RAYS / (ms / 1e3):.0f} rays/s, peak memory {peak:.2f} GiB; '
           f'loss {float(losses["loss"]):.5f}; launches in the counted step '
           f'{launches} [{card}]', flush=True)
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS),
           f'a kernel was not launched in the train step: {launches}')
     print(f'  solver launches per step (phase 1 + phase 2 when stragglers '
           f'exist): corr {launches["corr"]}, march {launches["march"]}, iso '
