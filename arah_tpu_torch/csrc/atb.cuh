@@ -13,7 +13,9 @@
 // Under bf16 the operands are bf16 values, so the tiles run on the tensor
 // cores (nvcuda::wmma, bf16 x bf16 products, f32 accumulators): a 128x128
 // tile per block of 8 warps, each warp 32x64 of it as 2x4 16x16
-// fragments, 32 points at a time staged in shared memory as bf16. In f32
+// fragments, 32 points at a time staged in shared memory as bf16. The rows
+// come as f32 (I's, rounded when staged) or as bf16 (H's, rounded by the
+// tile kernel that wrote them: half the bytes, the same values). In f32
 // each of 256 threads accumulates a 4x4 sub-tile of a 64x64 tile with
 // FMAs, 32 points at a time staged in shared memory.
 #pragma once
@@ -79,12 +81,34 @@ atb_kernel(const float* __restrict__ A, int lda,
 
 #define ATB_LDS (ATB_WTILE + 8)    // bf16 row stride in shared memory
 
-// VEC: rows read as float4 (lda, ldb, M and N multiples of 4, aligned).
-template <bool VEC>
+// Four consecutive operands as two bf16 pairs: f32 rows are rounded to
+// nearest here, bf16 rows (already rounded by their writer) are copied.
+__device__ __forceinline__ void ld4_bf16(const float* s, __nv_bfloat162* d) {
+  const float4 a = *reinterpret_cast<const float4*>(s);
+  d[0] = __floats2bfloat162_rn(a.x, a.y);
+  d[1] = __floats2bfloat162_rn(a.z, a.w);
+}
+__device__ __forceinline__ void ld4_bf16(const __nv_bfloat16* s,
+                                         __nv_bfloat162* d) {
+  const uint2 a = *reinterpret_cast<const uint2*>(s);
+  d[0] = *reinterpret_cast<const __nv_bfloat162*>(&a.x);
+  d[1] = *reinterpret_cast<const __nv_bfloat162*>(&a.y);
+}
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float x) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) {
+  return x;
+}
+
+// T: the rows' type (float, rounded when staged, or __nv_bfloat16). VEC:
+// rows read four operands at a time (lda, ldb, M and N multiples of 4,
+// aligned).
+template <typename T, bool VEC>
 static __global__ void __launch_bounds__(256)
-atb_bf16_kernel(const float* __restrict__ A, int lda,
-                const float* __restrict__ B, int ldb, long long P, int M,
-                int N, int splits, float* __restrict__ part) {
+atb_bf16_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B,
+                int ldb, long long P, int M, int N, int splits,
+                float* __restrict__ part) {
   using namespace nvcuda;
   __shared__ __align__(32) __nv_bfloat16 As[ATB_K][ATB_LDS];
   __shared__ __align__(32) __nv_bfloat16 Bs[ATB_K][ATB_LDS];
@@ -100,33 +124,33 @@ atb_bf16_kernel(const float* __restrict__ A, int lda,
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   for (long long p0 = pb; p0 < pe; p0 += ATB_K) {
     if (VEC) {
       for (int e = threadIdx.x; e < ATB_K * ATB_WTILE / 4;
            e += blockDim.x) {
         const int kk = e / (ATB_WTILE / 4), c = 4 * (e % (ATB_WTILE / 4));
         const long long p = p0 + kk;
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 a = (p < pe && m0 + c < M)
-            ? *reinterpret_cast<const float4*>(A + p * lda + m0 + c) : z;
-        const float4 b = (p < pe && n0 + c < N)
-            ? *reinterpret_cast<const float4*>(B + p * ldb + n0 + c) : z;
         __nv_bfloat162* ad = reinterpret_cast<__nv_bfloat162*>(&As[kk][c]);
         __nv_bfloat162* bd = reinterpret_cast<__nv_bfloat162*>(&Bs[kk][c]);
-        ad[0] = __floats2bfloat162_rn(a.x, a.y);
-        ad[1] = __floats2bfloat162_rn(a.z, a.w);
-        bd[0] = __floats2bfloat162_rn(b.x, b.y);
-        bd[1] = __floats2bfloat162_rn(b.z, b.w);
+        if (p < pe && m0 + c < M) {
+          ld4_bf16(A + p * lda + m0 + c, ad);
+        } else {
+          ad[0] = ad[1] = __halves2bfloat162(zero, zero);
+        }
+        if (p < pe && n0 + c < N) {
+          ld4_bf16(B + p * ldb + n0 + c, bd);
+        } else {
+          bd[0] = bd[1] = __halves2bfloat162(zero, zero);
+        }
       }
     } else {
       for (int e = threadIdx.x; e < ATB_K * ATB_WTILE; e += blockDim.x) {
         const int kk = e / ATB_WTILE, c = e % ATB_WTILE;
         const long long p = p0 + kk;
         const bool in = p < pe;
-        As[kk][c] = __float2bfloat16_rn((in && m0 + c < M)
-                                            ? A[p * lda + m0 + c] : 0.f);
-        Bs[kk][c] = __float2bfloat16_rn((in && n0 + c < N)
-                                            ? B[p * ldb + n0 + c] : 0.f);
+        As[kk][c] = (in && m0 + c < M) ? to_bf16(A[p * lda + m0 + c]) : zero;
+        Bs[kk][c] = (in && n0 + c < N) ? to_bf16(B[p * ldb + n0 + c]) : zero;
       }
     }
     __syncthreads();
@@ -192,12 +216,17 @@ static __global__ void sum_partials(const float* __restrict__ partial,
 }
 
 // C (M x N at leading dimension ldc) += A^T B over P points; `part` holds
-// ATB_MAX_SPLITS * M * N floats. Returns the launch status.
-static inline int atb_accumulate(const float* A, int lda, const float* B,
-                                 int ldb, long long P, int M, int N, bool bf,
+// ATB_MAX_SPLITS * M * N floats. f32 rows take the tensor cores under `bf`
+// (rounded when staged) and the CUDA cores otherwise; bf16 rows always
+// take the tensor cores. Returns the launch status.
+template <typename T>
+static inline int atb_accumulate(const T* A, int lda, const T* B, int ldb,
+                                 long long P, int M, int N, bool bf,
                                  float* part, float* C, int ldc,
                                  cudaStream_t stream) {
   if (P <= 0 || M <= 0 || N <= 0) return 0;
+  constexpr bool rows_bf16 = sizeof(T) == 2;
+  bf = bf || rows_bf16;
   const int t = bf ? ATB_WTILE : ATB_TILE;
   const dim3 tiles((M + t - 1) / t, (N + t - 1) / t);
   int splits = ATB_TARGET_BLOCKS / (int)(tiles.x * tiles.y);
@@ -205,15 +234,16 @@ static inline int atb_accumulate(const float* A, int lda, const float* B,
                                                        : splits);
   const dim3 grid(tiles.x, tiles.y, splits);
   const bool vec = lda % 4 == 0 && ldb % 4 == 0 && M % 4 == 0
-                   && N % 4 == 0 && (reinterpret_cast<size_t>(A) & 15) == 0
-                   && (reinterpret_cast<size_t>(B) & 15) == 0;
+                   && N % 4 == 0
+                   && (reinterpret_cast<size_t>(A) & (4 * sizeof(T) - 1)) == 0
+                   && (reinterpret_cast<size_t>(B) & (4 * sizeof(T) - 1)) == 0;
   if (bf && vec)
-    atb_bf16_kernel<true><<<grid, 256, 0, stream>>>(A, lda, B, ldb, P, M, N,
-                                                    splits, part);
+    atb_bf16_kernel<T, true><<<grid, 256, 0, stream>>>(A, lda, B, ldb, P, M,
+                                                       N, splits, part);
   else if (bf)
-    atb_bf16_kernel<false><<<grid, 256, 0, stream>>>(A, lda, B, ldb, P, M,
-                                                     N, splits, part);
-  else
+    atb_bf16_kernel<T, false><<<grid, 256, 0, stream>>>(A, lda, B, ldb, P,
+                                                        M, N, splits, part);
+  else if constexpr (!rows_bf16)
     atb_kernel<<<grid, 256, 0, stream>>>(A, lda, B, ldb, P, M, N, splits,
                                          part);
   atb_sum<<<(M * N + 255) / 256, 256, 0, stream>>>(part, M, N, splits, C,

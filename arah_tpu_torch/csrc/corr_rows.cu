@@ -1,31 +1,36 @@
-// Kernel L: the canonical-correspondence Broyden search,
-// fwd_skin(x_hat) = x_bar, in the row layout with a per-tile exit.
+// Kernels B and L: the canonical-correspondence Broyden search,
+// fwd_skin(x_hat) = x_bar, one body for both.
 //
-// Replaces the TPU kernel arah_tpu/ops/pallas/corr_kernel.py:
-// corr_search_pallas (body _make_kernel), the (T, k) layout that kernel B
-// superseded: the same solve as B (collapsed skinning MLP with softplus100
-// hidden layers -> hierarchical softmax of the scaled logits -> bone blend
-// -> LBS; adjugate-inverse init Jacobian from the blend at x0; good-Broyden
-// rank-1 updates with +/-eps denominators; best-iterate tracking;
-// convergence at |g| < cvg, divergence freeze at |g| >= dvg), with the
-// weights given pre-transposed (in, out), masked points returning x0 and
-// T0, and no `active` output.
+// Replaces the TPU kernels arah_tpu/ops/pallas/corr_kernel_t.py:
+// corr_search_pallas_t (B, body _make_kernel, on both main paths) and
+// arah_tpu/ops/pallas/corr_kernel.py:corr_search_pallas (L, the (T, k) row
+// layout that B superseded, in the corr bench). Both run the same solve:
+// collapsed skinning MLP with softplus100 hidden layers -> hierarchical
+// softmax of the scaled logits -> bone blend -> LBS; adjugate-inverse init
+// Jacobian from the blend at x0; good-Broyden rank-1 updates with +/-eps
+// denominators; best-iterate tracking; convergence at |g| < cvg, divergence
+// freeze at |g| >= dvg; masked points return x0 and T0, valid = mask &&
+// best |g| < cvg. B also returns `active` (still iterating at max_steps,
+// false for a masked point), which its straggler split reads; L has no
+// such output (active_out is null). The weights come pre-transposed
+// (in, out) for both (ops/corr.py:pack_skin_t).
 //
-// Bound on the H100: operations, as B: per Broyden iteration of a point
-// the skinning MLP's multiply-adds (3x128 + 3x128x128 + 128x25, ~53 k at
-// the flagship) plus ~200 flops of softmax, blend and 3x3 algebra; the
-// bytes are ~100 B per point in and out.
+// Bound on the H100: operations. Per Broyden iteration of a point the
+// skinning MLP's multiply-adds (3x128 + 3x128x128 + 128x25, ~53 k at the
+// flagship) plus ~200 flops of softmax, blend and 3x3 algebra; the bytes
+// are ~100 B per point in and out.
 //
-// Design: the tile of kernel F (csrc/tile_mlp.cuh), where B runs one thread
-// per point. 256 threads own 16 points; each Broyden iteration runs the
-// skinning MLP as tile products through shared memory (tile_dense: the
-// 128-wide layers on all 256 threads, the 25-logit layer on 50), the
-// softmax on one thread per point, the bone blend on 16 threads per point,
-// then one thread per point does the LBS residual, the rank-1 update and
-// the best iterate (tile_mlp.cuh:broyden_init/broyden_step, B's own
-// step). The tile loops while any of its points is active
+// Design: the tile of kernel F (csrc/tile_mlp.cuh). 256 threads own 16
+// points; each Broyden iteration runs the skinning MLP as tile products
+// through shared memory (tile_dense: the 128-wide layers on all 256
+// threads, the 25-logit layer on 50), so each weight loaded from L2 feeds
+// 16 points; the softmax on one thread per point, the bone blend on 16
+// threads per point, then one thread per point does the LBS residual, the
+// rank-1 update and the best iterate (tile_mlp.cuh:broyden_init/
+// broyden_step). The tile loops while any of its points is active
 // (__syncthreads_or, as the TPU's per-tile exit); finished points stay
-// frozen, so each point's values are those of a per-point exit.
+// frozen, so each point's values, `active` included, are those of a
+// per-point exit.
 #include "tile_mlp.cuh"
 
 __global__ void __launch_bounds__(TILE_THREADS)
@@ -38,7 +43,8 @@ corr_rows_kernel(const float* __restrict__ xbar_g,
                  const float* __restrict__ P, NetMeta m, int max_steps,
                  float cvg, float dvg, float eps, float softmax_scale,
                  float* __restrict__ x_out, float* __restrict__ t_out,
-                 unsigned char* __restrict__ valid_out) {
+                 unsigned char* __restrict__ valid_out,
+                 unsigned char* __restrict__ active_out) {
   __shared__ __align__(16) float hbuf[TILE_RAYS * TILE_LD];
   __shared__ float bones[N_BONES * 16];
   __shared__ float s_xbar[TILE_RAYS][3], s_x[TILE_RAYS][3];
@@ -141,22 +147,25 @@ corr_rows_kernel(const float* __restrict__ xbar_g,
     t_out[16 * r + lane] = mk ? s_topt[p][lane] : t0_g[16 * r + lane];
     if (lane < 3) x_out[3 * r + lane] = mk ? s_xopt[p][lane]
                                            : x0_g[3 * r + lane];
-    if (lane == 0) valid_out[r] = (mk && s_gnopt[p] < cvg) ? 1 : 0;
+    if (lane == 0) {
+      valid_out[r] = (mk && s_gnopt[p] < cvg) ? 1 : 0;
+      if (active_out != nullptr) active_out[r] = s_act[p] ? 1 : 0;
+    }
   }
 }
 
-extern "C" int arah_corr_rows(const float* xbar, const float* x0,
-                              const float* t0, const unsigned char* mask,
-                              int n, const float* bones16,
-                              const float* frame, const float* params,
-                              NetMeta m, int max_steps, float cvg, float dvg,
-                              float eps, float softmax_scale, float* x_out,
-                              float* t_out, unsigned char* valid,
-                              void* stream) {
+// B (active != null) and L (active == null).
+extern "C" int arah_corr(const float* xbar, const float* x0, const float* t0,
+                         const unsigned char* mask, int n,
+                         const float* bones16, const float* frame,
+                         const float* params, NetMeta m, int max_steps,
+                         float cvg, float dvg, float eps, float softmax_scale,
+                         float* x_out, float* t_out, unsigned char* valid,
+                         unsigned char* active, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + TILE_RAYS - 1) / TILE_RAYS;
   corr_rows_kernel<<<blocks, TILE_THREADS, 0, (cudaStream_t)stream>>>(
       xbar, x0, t0, mask, n, bones16, frame, params, m, max_steps, cvg, dvg,
-      eps, softmax_scale, x_out, t_out, valid);
+      eps, softmax_scale, x_out, t_out, valid, active);
   return launch_status();
 }

@@ -1,11 +1,10 @@
-// Shared pieces of the solver kernels (B corr, E march, F iso, L
-// corr_rows) and of J (siren): the skinning MLP's softplus100 and SNARF
-// hierarchical softmax, the adjugate 3x3 inverse, the per-point
-// good-Broyden step of the corr solves (B and L), and, for E, F, J and L,
-// a tile's passes through the generated SIREN and the collapsed skinning
-// MLP.
+// Shared pieces of the solver kernels (B and L corr, one body in
+// corr_rows.cu; E march, F iso) and of J (siren): the skinning MLP's
+// softplus100 and SNARF hierarchical softmax, the adjugate 3x3 inverse, the
+// per-point good-Broyden step of the corr solve, and a tile's passes
+// through the generated SIREN and the collapsed skinning MLP.
 //
-// Tile layout (E, F, J, L): a block of TILE_THREADS threads owns TILE_RAYS
+// Tile layout (B/L, E, F, J): a block of TILE_THREADS threads owns TILE_RAYS
 // rays (points). A layer's activations for the tile live in shared memory as
 // [ray][unit] rows of stride TILE_LD; thread j computes output unit j (or
 // unit j % width for narrow layers, whose rays are split between thread
@@ -99,7 +98,7 @@ static __device__ void inv3x3(const float m[9], float o[9]) {
   o[6] = C * inv_det; o[7] = F * inv_det; o[8] = I * inv_det;
 }
 
-// The good-Broyden solve of one point of the corr kernels (B, L), in the
+// The good-Broyden solve of one point of the corr kernel (B/L), in the
 // order of corr_kernel_t.py's body. broyden_init: from fwd_skin at the init
 // (residual g, blended transform T), the adjugate inverse Ji of T's 3x3 and
 // the first step upd = -Ji g; returns |g|, the first best residual norm.

@@ -103,13 +103,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-class MlpDims(ctypes.Structure):
-    """`struct MlpDims` of csrc/corr.cu."""
-    _fields_ = [('n_layers', _I), ('dims', _I * 9)]
-
-
 class ShadeMeta(ctypes.Structure):
-    """`struct ShadeMeta` of csrc/shade.cu."""
+    """`struct ShadeMeta` of csrc/shade_meta.cuh."""
     _fields_ = [('n_layers', _I), ('din', _I), ('hidden', _I),
                 ('dout', _I), ('film', _I), ('bf16', _I),
                 ('wt_off', ctypes.c_longlong * 8),
@@ -162,10 +157,8 @@ def load():
     lib.arah_knn.argtypes = [_P, _I, _P, _I, _P, _P]
     lib.arah_knn_rows.argtypes = [_P, _I, _P, _I, _P, _P]
     lib.arah_siren.argtypes = [_P, _I, _P, NetMeta, _I, _P, _P]
-    lib.arah_corr_rows.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, NetMeta,
-                                   _I, _F, _F, _F, _F, _P, _P, _P, _P]
-    lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, MlpDims, _I, _P, _P,
-                              _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
+    lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, NetMeta, _I,
+                              _F, _F, _F, _F, _P, _P, _P, _P, _P]
     lib.arah_shade.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _I, _P, _P]
     lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, ColorMeta, _P, _P]
     lib.arah_march.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
@@ -173,11 +166,11 @@ def load():
     lib.arah_iso.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                              NetMeta, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
     lib.arah_skin_jac.argtypes = [_P, _I, _P, _P, _P, NetMeta, _F, _P, _P]
-    lib.arah_shade_bwd.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _P, _P,
-                                   _P, _I, ShadeMeta, ctypes.c_longlong, _P,
-                                   _P, _P]
+    lib.arah_shade_bwd.argtypes = [_P, _I, _P, _P, ShadeMeta, _P, _P, _P,
+                                   _P, _P, _I, ShadeMeta, ctypes.c_longlong,
+                                   _P, _P, _P]
     lib.arah_shade_bwd_blocks.argtypes = [_I, ShadeMeta]
-    lib.arah_shade_bwd_ws.argtypes = [_I, ShadeMeta]
+    lib.arah_shade_bwd_ws.argtypes = [_I, _I, ShadeMeta]
     lib.arah_shade_bwd_ws.restype = ctypes.c_longlong
     lib.arah_color_bwd.argtypes = [_P, _P, _P, _P, _I, _P, ColorMeta, _P, _P,
                                    _P, _I, ctypes.c_longlong, _P, _P, _P]
@@ -187,7 +180,8 @@ def load():
     for fn in (lib.arah_knn, lib.arah_corr, lib.arah_shade,
                lib.arah_color_fwd, lib.arah_march, lib.arah_iso,
                lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd,
-               lib.arah_knn_rows, lib.arah_siren, lib.arah_corr_rows):
+               lib.arah_knn_rows, lib.arah_siren, lib.arah_shade_bwd_blocks,
+               lib.arah_color_bwd_blocks):
         fn.restype = _I
     _LIB = lib
     return lib

@@ -47,6 +47,19 @@ def pack_shade(gen: GeneratedMLP, bf16: bool):
     return pack.tensor(), meta
 
 
+def pack_shade_bf16(gen: GeneratedMLP):
+    """Kernel H's tensor-core operands under bf16: the weights of the
+    hidden (H, H) layers 1..L-2 in bf16, each as it is (out, in) and
+    transposed, (L-2, 2, H, H). The values are those `pack_shade(gen,
+    bf16=True)` stores (rounded to bf16, in f32)."""
+    H = gen.weights[0].shape[0]
+    ws = [w.detach().bfloat16() for w in gen.weights[1:-1]]
+    if not ws:
+        return torch.empty((0, 2, H, H), dtype=torch.bfloat16,
+                           device=gen.weights[0].device)
+    return torch.stack([torch.stack([w, w.T]) for w in ws]).contiguous()
+
+
 def siren_shade_plain(gen: GeneratedMLP, x: torch.Tensor,
                       bf16: bool = False, feat_f32: bool = False):
     """(N, 3) points -> (sdf (N, out), feats (N, hidden), grad (N, 3));

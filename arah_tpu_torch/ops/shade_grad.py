@@ -21,7 +21,8 @@ import torch
 
 from arah_tpu_torch.nn.siren import GeneratedMLP
 from arah_tpu_torch.ops import _build
-from arah_tpu_torch.ops.shade import pack_shade, siren_shade
+from arah_tpu_torch.ops.shade import (pack_shade, pack_shade_bf16,
+                                      siren_shade)
 
 
 def _rounder(bf16: bool):
@@ -99,6 +100,10 @@ def shade_bwd(gen: GeneratedMLP, x, g_out, g_feat, g_n, bf16: bool = False):
     dout = gen.weights[-1].shape[0]
     film = len(gen.freqs) > 0
     params, meta = pack_shade(gen, bf16)
+    if bf16 and H % 32:
+        raise ValueError('shade_bwd kernel: its bf16 tensor-core products '
+                         f'take a hidden width divisible by 32, not {H}')
+    wbf = pack_shade_bf16(gen) if bf16 else None
     x = x.detach().contiguous()
     g_out, g_feat, g_n = (g.detach().float().contiguous()
                           for g in (g_out, g_feat, g_n))
@@ -127,10 +132,11 @@ def shade_bwd(gen: GeneratedMLP, x, g_out, g_feat, g_n, bf16: bool = False):
                           device=x.device)
     grads = torch.zeros((size,), dtype=torch.float32, device=x.device)
     dx = torch.empty((n, din), dtype=torch.float32, device=x.device)
-    ws = torch.empty((lib.arah_shade_bwd_ws(n, meta),), dtype=torch.float32,
-                     device=x.device)
+    ws = torch.empty((lib.arah_shade_bwd_ws(n, nblocks, meta),),
+                     dtype=torch.float32, device=x.device)
     _build.check(lib.arah_shade_bwd(
-        x.data_ptr(), n, params.data_ptr(), meta, g_out.data_ptr(),
+        x.data_ptr(), n, params.data_ptr(),
+        None if wbf is None else wbf.data_ptr(), meta, g_out.data_ptr(),
         g_feat.data_ptr(), g_n.data_ptr(), dx.data_ptr(), partial.data_ptr(),
         nblocks, gmeta, size, grads.data_ptr(), ws.data_ptr(),
         _build.stream_ptr(x)), 'shade_bwd')

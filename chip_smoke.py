@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from `arah_tpu_torch/csrc/` (first use, into
-   `.cache/torch_ext/`) and prints the build time.
+   `.cache/torch_ext/`) and prints the build time and each kernel's
+   registers, spills and shared memory as ptxas reports them (B/L, the
+   corr kernel, must not spill).
 2. Builds the flagship bench scene (`scene.build_scene(pretrain=True)`:
    SIREN and skinning net fitted to the capsule body) and prints the
    fit's time and its loss at a fresh batch against the random init's.
@@ -13,8 +15,8 @@
    points), and times both: E march and F iso at their phase-1 shapes
    (8192 rays, 16 iterations) and phase-2 shapes (the stragglers: E
    resumed for 34 iterations, F from scratch at 50 steps); A knn, B corr
-   (also through the straggler split at its phase-2 shape), C shade, D
-   color_fwd.
+   (its `active` set too; also through the straggler split at its phase-2
+   shape), C shade, D color_fwd.
 4. Drives the port's main path: `render(training=False)` of the flagship
    scene for 3 frames of different poses, with the kernel launch counts
    set to 0 just before and read just after; traces one frame with
@@ -38,11 +40,12 @@
    A warm-up step captures the inputs and cotangents the step hands
    kernels G (skin_jac), H (shade_bwd: the shading at N points in bf16
    and the eikonal at 1,024 points in f32) and I (color_bwd); each is
-   held against its plain version on them and timed. Then the main path
-   of this phase: one step with the launch counts set to 0 just before
-   and read just after, then timed steps; one profiled step; and one
-   step with every kernel against one with every plain path (splits off
-   on both sides) from the same state, batch and draws.
+   held against its plain version on them and timed, and H must give the
+   same bits on two calls. Then the main path of this phase: one step
+   with the launch counts set to 0 just before and read just after, then
+   timed steps; one profiled step; and one step with every kernel against
+   one with every plain path (splits off on both sides) from the same
+   state, batch and draws.
 
 Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line, and as its
 last line `{"ok": true, "device": {...}}`. Any failed check exits
@@ -117,6 +120,44 @@ def tile_max(iters, tile=16):
     return int(it.reshape(-1, tile).max(dim=1)[0].sum()) * tile
 
 
+def ptxas_report(log):
+    """{kernel: {'registers', 'spill_stores', 'spill_loads', 'stack',
+    'smem'}} from a build log of `nvcc -Xptxas -v` (names demangled to
+    `name<template args>`)."""
+    import re
+    out, cur = {}, None
+    for line in open(log):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = demangle(m.group(1))
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        for key, pat in (('stack', r'(\d+) bytes stack frame'),
+                         ('spill_stores', r'(\d+) bytes spill stores'),
+                         ('spill_loads', r'(\d+) bytes spill loads'),
+                         ('registers', r'Used (\d+) registers'),
+                         ('smem', r'(\d+) bytes smem')):
+            m = re.search(pat, line)
+            if m:
+                out[cur][key] = int(m.group(1))
+    return out
+
+
+def demangle(sym):
+    """`_Z16shade_bwd_kernelILb1EEv...` -> `shade_bwd_kernel<Lb1>`: the
+    name and the raw template arguments of an Itanium-mangled kernel."""
+    import re
+    m = re.match(r'_Z(\d+)', sym)
+    if not m:
+        return sym
+    i = m.end()
+    name = sym[i:i + int(m.group(1))]
+    t = re.match(r'I(.*?)E', sym[i + int(m.group(1)):])
+    return f'{name}<{t.group(1)}>' if t else name
+
+
 def card_line():
     """The card's name and power limit as nvidia-smi reports them."""
     try:
@@ -160,9 +201,16 @@ def main():
           f'-> {_build.library_path()}', flush=True)
     log = os.path.join(os.path.dirname(_build.library_path()), 'build.log')
     if os.path.exists(log):
-        for line in open(log):
-            if 'registers' in line or 'spill' in line or line.startswith('=='):
-                print('  ptxas:', line.strip())
+        ptx = ptxas_report(log)
+        for name, r in ptx.items():
+            print(f'  ptxas: {name}: {r.get("registers")} registers, spill '
+                  f'stores {r.get("spill_stores")} B, spill loads '
+                  f'{r.get("spill_loads")} B, stack {r.get("stack")} B, '
+                  f'smem {r.get("smem", 0)} B')
+        corr = [r for name, r in ptx.items() if name == 'corr_rows_kernel']
+        check(len(corr) == 1 and corr[0].get('spill_stores') == 0
+              and corr[0].get('spill_loads') == 0,
+              f'the corr kernel (B/L) spills or is missing: {corr}')
 
     from arah_tpu_torch.core.embedder import positional_encoding
     from arah_tpu_torch.nn.layers import wn_weight
@@ -249,8 +297,12 @@ def main():
     xp, _, vp, ap_ = corr_search_plain(*kargs, max_steps=steps)
     max_dx = corr_compare(f'B corr phase 1 ({n_pts} points, {steps} steps)',
                           xk, vk, xp, vp, x_bar, frame, skin_fn)
+    act_agree = float((ak == ap_).float().mean())
     print(f'  active at {steps} steps: kernel {int(ak.sum())} plain '
-          f'{int(ap_.sum())}', flush=True)
+          f'{int(ap_.sum())}, agreement {act_agree:.6f} (bound >= 0.999)',
+          flush=True)
+    check(act_agree >= 0.999, 'B corr phase 1: the active set disagrees '
+          'with the plain solve\'s')
 
     # Phase 2 and its write-back. Phase 1 cut to one iteration leaves
     # nearly every sample active, so the split re-solves the first
@@ -304,7 +356,7 @@ def main():
                        max(1, REPS // 2)),
         bound=bound(n_pts * (12 + 12 + 64 + 1 + 12 + 64 + 2)
                     + 4 * (macs + 600), evals * flops_eval, PEAK_F32),
-        src='arah_tpu_torch/csrc/corr.cu',
+        src='arah_tpu_torch/csrc/corr_rows.cu',
         rep='arah_tpu/ops/pallas/corr_kernel_t.py:291')
     print(f'  corr work: {evals:.0f} MLP evaluations '
           f'({float(res.iters.float().mean()):.3f} iterations per point, '
@@ -1213,7 +1265,11 @@ def check_shade_bwd(args, card, tol):
     gen, x, bf16 = args[0], args[1], args[5]
     with torch.no_grad():
         dxk, gk = shade_bwd(*args)
+        dxk2, gk2 = shade_bwd(*args)
         dxp, gp = shade_bwd_plain(*args)
+    same = torch.equal(dxk, dxk2) and all(
+        torch.equal(a, b) for lk, lk2 in zip(gk, gk2) for a, b in zip(lk, lk2))
+    del dxk2, gk2
     med, p999, dmax = rel_stats(dxk, dxp)
     worst, where, per = 0.0, '', []
     for part, (lk, lp) in enumerate(zip(gk, gp)):
@@ -1229,8 +1285,10 @@ def check_shade_bwd(args, card, tol):
           f'{dmax:.3e}; summed leaves: worst max |d| / max|leaf| {worst:.3e}'
           f' at {where} (bound {tol:g}); per leaf: {"; ".join(per)}',
           flush=True)
+    print(f'  two calls: dx and every leaf bit-equal {same}', flush=True)
     check(med < 1e-4 and p999 < tol and worst < tol,
           f'shade_bwd kernel (bf16={bf16}) disagrees with its plain version')
+    check(same, f'shade_bwd kernel (bf16={bf16}): two calls differ')
     with torch.no_grad():
         ms = timed(lambda: shade_bwd(*args), REPS)
         plain_ms = timed(lambda: shade_bwd_plain(*args), 2)

@@ -443,6 +443,44 @@ class TestShadeGrad:
         assert torch.autograd.gradcheck(f, (x, *leaves))
 
 
+class TestKernelPacks:
+    def test_corr_pack_of_dense_is_rows_pack(self, rng):
+        """Kernel B's pack of dense (out, in) skinning weights (their
+        transposed views, as `corr_search` packs them) is kernel L's pack
+        of their transposes (`pack_skin_t`): the same buffer and the same
+        NetMeta bytes, so the two launch one kernel on the same
+        operands."""
+        from arah_tpu_torch.ops.corr import pack_skin_t
+        dims = (3, 128, 128, 128, 25)
+        dense = [t(rng.randn(o, i).astype(np.float32) / np.sqrt(i))
+                 for i, o in zip(dims[:-1], dims[1:])]
+        biases = [t(rng.randn(o).astype(np.float32) * 0.1) for o in dims[1:]]
+        pb, mb = pack_skin_t([w.t() for w in dense], biases)
+        pl, ml = pack_skin_t([w.T.contiguous() for w in dense], biases)
+        assert torch.equal(pb, pl)
+        assert bytes(mb) == bytes(ml)
+        assert mb.n_skin == 4 and list(mb.skin_dims)[:5] == list(dims)
+
+    @pytest.mark.parametrize('film', [True, False])
+    def test_shade_bf16_pack_round_trips(self, rng, film):
+        """Kernel H's bf16 weight pack holds each hidden layer's W_i and
+        W_i^T; back in f32 they are exactly the blocks `pack_shade(gen,
+        bf16=True)` stores (w_off, wt_off), the weights rounded to bf16."""
+        from arah_tpu_torch.ops.shade import pack_shade, pack_shade_bf16
+        gen = port_gen(_small_gen(rng, film))
+        wb = pack_shade_bf16(gen)
+        params, meta = pack_shade(gen, bf16=True)
+        L, H = len(gen.weights), gen.weights[0].shape[0]
+        assert wb.dtype == torch.bfloat16
+        assert tuple(wb.shape) == (L - 2, 2, H, H)
+        for i in range(1, L - 1):
+            w = params[meta.w_off[i]:meta.w_off[i] + H * H].reshape(H, H)
+            wt = params[meta.wt_off[i]:meta.wt_off[i] + H * H].reshape(H, H)
+            assert torch.equal(wb[i - 1, 0].float(), w)
+            assert torch.equal(wb[i - 1, 1].float(), wt)
+            assert torch.equal(w, gen.weights[i].bfloat16().float())
+
+
 class TestColorGrad:
     def _net(self, rng):
         S, F, Pw, H, n = 33, 64, 128, 64, 200
