@@ -13,9 +13,10 @@
 // Under bf16 the operands are bf16 values, so the tiles run on the tensor
 // cores (nvcuda::wmma, bf16 x bf16 products, f32 accumulators): a 128x128
 // tile per block of 8 warps, each warp 32x64 of it as 2x4 16x16
-// fragments, 32 points at a time staged in shared memory as bf16. The rows
-// come as f32 (I's, rounded when staged) or as bf16 (H's, rounded by the
-// tile kernel that wrote them: half the bytes, the same values). In f32
+// fragments, 32 points at a time staged in shared memory as bf16. Each
+// operand's rows come as f32 (rounded when staged: I's small and feats
+// inputs) or as bf16 (H's and I's workspace rows, rounded by the tile
+// kernel that wrote them: half the bytes, the same values). In f32
 // each of 256 threads accumulates a 4x4 sub-tile of a 64x64 tile with
 // FMAs, 32 points at a time staged in shared memory.
 #pragma once
@@ -23,6 +24,20 @@
 #include <mma.h>
 
 #include "common.cuh"
+
+// The type of the backward kernels' workspace rows: bf16 under bf16 (each
+// row is rounded before it is written, so the value is exact), else f32.
+template <bool BF> struct WsRow { using T = float; };
+template <> struct WsRow<true> { using T = __nv_bfloat16; };
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float get(const float* p) { return *p; }
+__device__ __forceinline__ float get(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
 
 #define ATB_TILE 64            // f32 tile
 #define ATB_WTILE 128          // bf16 (tensor-core) tile
@@ -101,12 +116,12 @@ __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) {
   return x;
 }
 
-// T: the rows' type (float, rounded when staged, or __nv_bfloat16). VEC:
-// rows read four operands at a time (lda, ldb, M and N multiples of 4,
-// aligned).
-template <typename T, bool VEC>
+// TA, TB: the rows' types (float, rounded when staged, or __nv_bfloat16).
+// VEC: rows read four operands at a time (lda, ldb, M and N multiples of
+// 4, aligned).
+template <typename TA, typename TB, bool VEC>
 static __global__ void __launch_bounds__(256)
-atb_bf16_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B,
+atb_bf16_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
                 int ldb, long long P, int M, int N, int splits,
                 float* __restrict__ part) {
   using namespace nvcuda;
@@ -217,15 +232,15 @@ static __global__ void sum_partials(const float* __restrict__ partial,
 
 // C (M x N at leading dimension ldc) += A^T B over P points; `part` holds
 // ATB_MAX_SPLITS * M * N floats. f32 rows take the tensor cores under `bf`
-// (rounded when staged) and the CUDA cores otherwise; bf16 rows always
-// take the tensor cores. Returns the launch status.
-template <typename T>
-static inline int atb_accumulate(const T* A, int lda, const T* B, int ldb,
+// (rounded when staged) and the CUDA cores otherwise; bf16 rows (of either
+// operand) always take the tensor cores. Returns the launch status.
+template <typename TA, typename TB>
+static inline int atb_accumulate(const TA* A, int lda, const TB* B, int ldb,
                                  long long P, int M, int N, bool bf,
                                  float* part, float* C, int ldc,
                                  cudaStream_t stream) {
   if (P <= 0 || M <= 0 || N <= 0) return 0;
-  constexpr bool rows_bf16 = sizeof(T) == 2;
+  constexpr bool rows_bf16 = sizeof(TA) == 2 || sizeof(TB) == 2;
   bf = bf || rows_bf16;
   const int t = bf ? ATB_WTILE : ATB_TILE;
   const dim3 tiles((M + t - 1) / t, (N + t - 1) / t);
@@ -233,16 +248,16 @@ static inline int atb_accumulate(const T* A, int lda, const T* B, int ldb,
   splits = splits < 1 ? 1 : (splits > ATB_MAX_SPLITS ? ATB_MAX_SPLITS
                                                        : splits);
   const dim3 grid(tiles.x, tiles.y, splits);
-  const bool vec = lda % 4 == 0 && ldb % 4 == 0 && M % 4 == 0
-                   && N % 4 == 0
-                   && (reinterpret_cast<size_t>(A) & (4 * sizeof(T) - 1)) == 0
-                   && (reinterpret_cast<size_t>(B) & (4 * sizeof(T) - 1)) == 0;
+  const bool vec =
+      lda % 4 == 0 && ldb % 4 == 0 && M % 4 == 0 && N % 4 == 0
+      && (reinterpret_cast<size_t>(A) & (4 * sizeof(TA) - 1)) == 0
+      && (reinterpret_cast<size_t>(B) & (4 * sizeof(TB) - 1)) == 0;
   if (bf && vec)
-    atb_bf16_kernel<T, true><<<grid, 256, 0, stream>>>(A, lda, B, ldb, P, M,
-                                                       N, splits, part);
+    atb_bf16_kernel<TA, TB, true><<<grid, 256, 0, stream>>>(
+        A, lda, B, ldb, P, M, N, splits, part);
   else if (bf)
-    atb_bf16_kernel<T, false><<<grid, 256, 0, stream>>>(A, lda, B, ldb, P,
-                                                        M, N, splits, part);
+    atb_bf16_kernel<TA, TB, false><<<grid, 256, 0, stream>>>(
+        A, lda, B, ldb, P, M, N, splits, part);
   else if constexpr (!rows_bf16)
     atb_kernel<<<grid, 256, 0, stream>>>(A, lda, B, ldb, P, M, N, splits,
                                          part);

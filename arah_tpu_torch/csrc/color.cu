@@ -23,6 +23,7 @@
 // f32. The last layer (3 outputs) runs one thread per (point, output).
 #include "atb.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 #define COLOR_THREADS 256
 #define COLOR_TILE 32
@@ -50,6 +51,10 @@ struct ColorMeta {
   int wd_off[MAX_LAYERS];                 // workspace columns a point: delta
   int wx_off[MAX_LAYERS];                 // and the x input of each layer
   int ws_cols;                            // workspace columns a point
+  // under bf16, in the bf16 weight copy: each x, small and feats part of
+  // the hidden layers as (out, pad32(width)) and transposed
+  long long wf_off[MAX_LAYERS][MAX_COMP];
+  long long wb_off[MAX_LAYERS][MAX_COMP];
 };
 
 // Partial dot of one component for one output unit `o` over `np` points
@@ -202,72 +207,106 @@ extern "C" int arah_color_fwd(const float* small, const void* feats,
 // times the ReLU mask (0 at 0) is the next delta; the small and feats
 // parts' da sum into dsmall and dfeats, written per point. Under
 // bf16_shading every product's operands are rounded as _dot/_dot_nt round
-// them, with f32 accumulation; colsum is rounded per tile of 16 points
-// (the kernel's tile; the Pallas kernel's is its grid tile).
+// them, with f32 accumulation; colsum is rounded per group of CB_HALF = 16
+// points (ops/color.py:BWD_TILE; the Pallas kernel's group is its grid
+// tile).
 //
 // Bound on the H100: operations. A point costs ~3x D's multiply-adds: the
 // recomputed forward, delta W and the rank-1 weight-gradient term.
 //
-// Design: D's tile at 16 points (256 threads): the tile's small and feats
-// rows, two activation rows (the current layer's input and output),
-// delta, da and the dsmall/dfeats sums stay in shared memory (86 KB at
-// the flagship, so two blocks share an SM); each hidden layer's output,
+// Design: a block of 256 threads (8 warps) owns a tile of CB_TILE = 32
+// points and walks its share of the tiles (a persistent grid). The tile's
+// small and feats rows, two activation rows (the current layer's input
+// and output), delta, da and the dsmall/dfeats sums stay in shared memory
+// (~184 KB at the flagship: one block per SM); each hidden layer's output,
 // the next one's x input, goes to the workspace in the recomputed
 // forward, where the weight-gradient reduction and the backward's ReLU
 // mask read it.
-// The weight gradients (~411 k at the flagship) are summed as kernel H
-// sums its own: the tile kernel writes each point's delta and x-input
-// rows of every layer to a workspace, and atb.cuh reduces delta^T input
-// over the points for each input part (x from the workspace, small and
-// feats from their own buffers) into dW. The pose part needs only
-// S_l = sum over tiles of the rounded tile colsum: dW's pose columns are
-// S_l (x) pose and dpose = sum_l S_l W_l's pose columns (the epilogue).
-// S and db go to per-block partials of a fixed persistent grid, added in
-// block order. Every sum is the same on every run. The points run in
-// chunks of CB_CHUNK.
-#define CB_TILE 16
+// - The products. Under bf16 every operand is a bf16 value (rows rounded
+//   when written, weights from a bf16 copy, ops/color.py:pack_color_bf16),
+//   so the hidden layers' x, small and feats parts of the recomputed
+//   forward and the backward's da = delta W run on the tensor cores
+//   (mma.cuh:prod_mma, f32 sums, as in C and H). Each part's weight block
+//   has its width zero-padded to a multiple of 32 (small: 33 -> 64, its
+//   rows zero-padded alike), which adds exact zeros. The pose part (one
+//   row per tile) and the 3-wide last layer stay on the CUDA cores, as does
+//   every product of the f32 launch (FMA; never TF32). Each partial product
+//   is added to the pre-activation in _recompute_chain's order (x, small,
+//   feats, pose).
+// - The weight gradients (~411 k at the flagship) are summed as kernel H
+//   sums its own: the tile kernel writes each point's delta and x-input
+//   rows of every layer to a workspace, and atb.cuh reduces delta^T input
+//   over the points for each input part (x from the workspace, small and
+//   feats from their own buffers) into dW. Under bf16 the workspace rows
+//   are bf16: the x rows are rounded by the forward, and each delta row is
+//   rounded before it is written (the value every product takes; db and
+//   colsum sum it unrounded). The pose part needs only S_l = the sum of
+//   the rounded 16-point colsums: dW's pose columns are S_l (x) pose and
+//   dpose = sum_l S_l W_l's pose columns (the epilogue). S and db go to
+//   per-block partials of the fixed grid, added in block order. Every sum
+//   is the same on every run. The points run in chunks of CB_CHUNK.
+#define CB_TILE 32
+#define CB_HALF 16                 // points per rounded pose colsum
 #define CB_CHUNK 65536
 
-__global__ void __launch_bounds__(COLOR_THREADS)
+static_assert(CB_TILE % CB_HALF == 0, "whole pose colsums a tile");
+static_assert(CB_TILE % 16 == 0, "prod_mma: whole 16-point fragments");
+
+__host__ __device__ inline int cb_pad32(int k) { return (k + 31) & ~31; }
+// row strides (floats) of the tile's small, feats and hidden rows
+__host__ __device__ inline int cb_sld(const ColorMeta& m) {
+  return cb_pad32(m.S) + 4;
+}
+__host__ __device__ inline int cb_fld(const ColorMeta& m) {
+  return ((m.F + 3) & ~3) + 4;
+}
+__host__ __device__ inline int cb_xld(const ColorMeta& m) {
+  return ((m.hmax + 3) & ~3) + 4;
+}
+
+// BF: the bf16_shading launch (tensor-core products, bf16 workspace rows);
+// otherwise f32 throughout.
+template <bool BF>
+__global__ void __launch_bounds__(COLOR_THREADS, 1)
 color_bwd_kernel(const float* __restrict__ small_g,
                  const float* __restrict__ feats_g,
                  const float* __restrict__ pose_g,
                  const float* __restrict__ g_rgb, int n,
-                 const float* __restrict__ Pw, ColorMeta m,
+                 const float* __restrict__ Pw,
+                 const __nv_bfloat16* __restrict__ Wb, ColorMeta m,
                  float* __restrict__ dsmall_g, float* __restrict__ dfeats_g,
                  float* __restrict__ partial, long long gsize,
-                 float* __restrict__ ws) {
+                 typename WsRow<BF>::T* __restrict__ ws) {
   extern __shared__ __align__(16) float smem[];
-  const int S = m.S, F = m.F, P = m.P, Sp = (m.S + 3) & ~3, Hm = m.hmax;
-  const int L = m.n_layers;
-  const bool bf = m.bf16 != 0;
-  float* ss = smem;                              // [T][Sp]
-  float* fs = ss + CB_TILE * Sp;                 // [T][F]
-  float* xa = fs + CB_TILE * F;                  // [T][Hm] activations,
-  float* xb = xa + CB_TILE * Hm;                 // [T][Hm] ping-pong
-  float* dbuf = xb + CB_TILE * Hm;               // [T][Hm] delta
-  float* xbuf = xa;                              // [T][Hm] da of x
-  float* dsm = dbuf + CB_TILE * Hm;              // [T][Sp]
-  float* dfe = dsm + CB_TILE * Sp;               // [T][F]
-  float* cs = dfe + CB_TILE * F;                 // [Hm] colsum
-  float* ps = cs + Hm;                           // [P]
+  const int S = m.S, F = m.F, P = m.P, L = m.n_layers;
+  const int SLD = cb_sld(m), FLD = cb_fld(m), XLD = cb_xld(m);
+  float* ss = smem;                              // [T][SLD] small, padded
+  float* fs = ss + CB_TILE * SLD;                // [T][FLD]
+  float* xa = fs + CB_TILE * FLD;                // [T][XLD] activations,
+  float* xb = xa + CB_TILE * XLD;                // [T][XLD] ping-pong
+  float* dbuf = xb + CB_TILE * XLD;              // [T][XLD] delta
+  float* xbuf = xa;                              // [T][XLD] da of x
+  float* dsm = dbuf + CB_TILE * XLD;             // [T][SLD]
+  float* dfe = dsm + CB_TILE * SLD;              // [T][FLD]
+  float* ps = dfe + CB_TILE * FLD;               // [P]
   const int tid = threadIdx.x;
   float* part = partial + (long long)blockIdx.x * gsize;
   const int ntiles = (n + CB_TILE - 1) / CB_TILE;
-  for (int t = tid; t < P; t += blockDim.x) ps[t] = rnd_if(pose_g[t], bf);
+  for (int t = tid; t < P; t += blockDim.x) ps[t] = rnd_if(pose_g[t], BF);
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int p0 = tile * CB_TILE;
-    for (int t = tid; t < CB_TILE * Sp; t += blockDim.x) {
-      const int p = t / Sp, k = t % Sp;
+    for (int t = tid; t < CB_TILE * SLD; t += blockDim.x) {
+      const int p = t / SLD, k = t - p * SLD;
       ss[t] = (p0 + p < n && k < S)
-                  ? rnd_if(small_g[(long long)(p0 + p) * S + k], bf) : 0.f;
+                  ? rnd_if(small_g[(long long)(p0 + p) * S + k], BF) : 0.f;
       dsm[t] = 0.f;
     }
     for (int t = tid; t < CB_TILE * F; t += blockDim.x) {
-      const int p = t / F;
-      fs[t] = p0 + p < n ? rnd_if(feats_g[(long long)p0 * F + t], bf) : 0.f;
-      dfe[t] = 0.f;
+      const int p = t / F, k = t - p * F;
+      fs[p * FLD + k] =
+          p0 + p < n ? rnd_if(feats_g[(long long)p0 * F + t], BF) : 0.f;
+      dfe[p * FLD + k] = 0.f;
     }
     __syncthreads();
 
@@ -279,60 +318,100 @@ color_bwd_kernel(const float* __restrict__ small_g,
     for (int l = 0; l < L; ++l) {
       const int out = m.out[l];
       const bool last = (l == L - 1);
-      const int o = last ? tid % out : tid;
-      const int pt = last ? tid / out : 0;
-      const bool on = last ? (tid < CB_TILE * out) : (tid < out);
-      const int in_w = l > 0 ? m.out[l - 1] : 0;
-      float z[CB_TILE];
-      if (on) {
-        const float b = __ldg(Pw + m.b_off[l] + o);
-#pragma unroll
-        for (int p = 0; p < CB_TILE; ++p) z[p] = b;
+      if (BF && !last) {
+        if (tid < out) {
+          const float b = __ldg(Pw + m.b_off[l] + tid);
+          for (int p = 0; p < CB_TILE; ++p) xout[p * XLD + tid] = b;
+        }
+        float s_pose = 0.f;
         for (int c = 0; c < m.n_comp[l]; ++c) {
           const int kind = m.kind[l][c], width = m.width[l][c];
-          const float* Wt = Pw + m.w_off[l][c];
-          float acc[CB_TILE];
-#pragma unroll
-          for (int p = 0; p < CB_TILE; ++p) acc[p] = 0.f;
           if (kind == C_POSE) {
-            float s = 0.f;
-            for (int k = 0; k < width; ++k)
-              s = fmaf(ps[k], rnd_if(__ldg(Wt + (long long)k * out + o), bf),
-                       s);
-#pragma unroll
-            for (int p = 0; p < CB_TILE; ++p) acc[p] = s;
-          } else {
-            const float* a = kind == C_X ? xin : (kind == C_SMALL ? ss : fs);
-            const int stride = kind == C_X ? in_w : (kind == C_SMALL ? Sp : F);
-            if (last)
-              comp_dot<1>(a + pt * stride, stride, width, Wt, out, o, bf, acc);
-            else
-              comp_dot<CB_TILE>(a, stride, width, Wt, out, o, bf, acc);
+            const float* Wt = Pw + m.w_off[l][c];
+            if (tid < out)
+              for (int k = 0; k < width; ++k)
+                s_pose = fmaf(ps[k], __ldg(Wt + (long long)k * out + tid),
+                              s_pose);
+            continue;
           }
-#pragma unroll
-          for (int p = 0; p < CB_TILE; ++p) z[p] = z[p] + acc[p];
+          const float* a = kind == C_X ? xin : (kind == C_SMALL ? ss : fs);
+          const int lda = kind == C_X ? XLD : (kind == C_SMALL ? SLD : FLD);
+          prod_mma<CB_TILE / 16>(a, lda, cb_pad32(width),
+                                 Wb + m.wf_off[l][c], out, xout, XLD, true);
         }
-        if (!last) {
-          float* wx = ws + (long long)n * m.wx_off[l + 1];
-#pragma unroll
+        if (tid < out) {
+          bool has_pose = false;
+          for (int c = 0; c < m.n_comp[l]; ++c)
+            has_pose |= m.kind[l][c] == C_POSE;
+          typename WsRow<BF>::T* wx = ws + (long long)n * m.wx_off[l + 1];
           for (int p = 0; p < CB_TILE; ++p) {
-            const float v = rnd_if(fmaxf(z[p], 0.f), bf);
-            xout[p * out + o] = v;
-            if (p0 + p < n) wx[(long long)(p0 + p) * out + o] = v;
+            float z = xout[p * XLD + tid];
+            if (has_pose) z = z + s_pose;
+            const float v = rnd_if(fmaxf(z, 0.f), BF);
+            xout[p * XLD + tid] = v;
+            if (p0 + p < n) put(wx + (long long)(p0 + p) * out + tid, v);
           }
-        } else {
-          const float v = z[0];
-          float d = 0.f;
-          if (p0 + pt < n) {
-            const float g = g_rgb[(long long)(p0 + pt) * out + o];
-            if (m.squeeze) {
-              const float rgb = 1.f / (1.f + expf(-v));
-              d = g * rgb * (1.f - rgb);
+        }
+      } else {
+        // hidden layers: thread = unit, all TILE points; last layer:
+        // thread = (point, unit)
+        const int o = last ? tid % out : tid;
+        const int pt = last ? tid / out : 0;
+        const bool on = last ? (tid < CB_TILE * out) : (tid < out);
+        float z[CB_TILE];
+        if (on) {
+          const float b = __ldg(Pw + m.b_off[l] + o);
+#pragma unroll
+          for (int p = 0; p < CB_TILE; ++p) z[p] = b;
+          for (int c = 0; c < m.n_comp[l]; ++c) {
+            const int kind = m.kind[l][c], width = m.width[l][c];
+            const float* Wt = Pw + m.w_off[l][c];
+            float acc[CB_TILE];
+#pragma unroll
+            for (int p = 0; p < CB_TILE; ++p) acc[p] = 0.f;
+            if (kind == C_POSE) {
+              float s = 0.f;
+              for (int k = 0; k < width; ++k)
+                s = fmaf(ps[k], rnd_if(__ldg(Wt + (long long)k * out + o),
+                                       BF), s);
+#pragma unroll
+              for (int p = 0; p < CB_TILE; ++p) acc[p] = s;
             } else {
-              d = g;
+              const float* a = kind == C_X ? xin
+                                           : (kind == C_SMALL ? ss : fs);
+              const int stride =
+                  kind == C_X ? XLD : (kind == C_SMALL ? SLD : FLD);
+              if (last)
+                comp_dot<1>(a + pt * stride, stride, width, Wt, out, o, BF,
+                            acc);
+              else
+                comp_dot<CB_TILE>(a, stride, width, Wt, out, o, BF, acc);
             }
+#pragma unroll
+            for (int p = 0; p < CB_TILE; ++p) z[p] = z[p] + acc[p];
           }
-          dbuf[pt * Hm + o] = d;
+          if (!last) {
+            typename WsRow<BF>::T* wx = ws + (long long)n * m.wx_off[l + 1];
+#pragma unroll
+            for (int p = 0; p < CB_TILE; ++p) {
+              const float v = rnd_if(fmaxf(z[p], 0.f), BF);
+              xout[p * XLD + o] = v;
+              if (p0 + p < n) put(wx + (long long)(p0 + p) * out + o, v);
+            }
+          } else {
+            const float v = z[0];
+            float d = 0.f;
+            if (p0 + pt < n) {
+              const float g = g_rgb[(long long)(p0 + pt) * out + o];
+              if (m.squeeze) {
+                const float rgb = 1.f / (1.f + expf(-v));
+                d = g * rgb * (1.f - rgb);
+              } else {
+                d = g;
+              }
+            }
+            dbuf[pt * XLD + o] = d;
+          }
         }
       }
       __syncthreads();
@@ -345,39 +424,54 @@ color_bwd_kernel(const float* __restrict__ small_g,
     for (int l = L - 1; l >= 0; --l) {
       const int out = m.out[l];
       int in_l = 0;
-      for (int c = 0; c < m.n_comp[l]; ++c) in_l += m.width[l][c];
+      bool has_pose = false;
+      for (int c = 0; c < m.n_comp[l]; ++c) {
+        in_l += m.width[l][c];
+        has_pose |= m.kind[l][c] == C_POSE;
+      }
       if (tid < out) {
-        float s = 0.f;
+        // db, and the pose sums of the rounded 16-point colsums
+        float hs[CB_TILE / CB_HALF], db = 0.f;
 #pragma unroll
-        for (int p = 0; p < CB_TILE; ++p) s += dbuf[p * Hm + tid];
-        part[m.gb_off[l] + tid] += s;
-        cs[tid] = s;
-      }
-      // this tile's workspace rows of delta
-      float* wd = ws + (long long)n * m.wd_off[l];
-      for (int e = tid; e < CB_TILE * out; e += blockDim.x) {
-        const int p = e / out, o = e - p * out;
-        if (p0 + p < n) wd[(long long)(p0 + p) * out + o] = dbuf[p * Hm + o];
+        for (int q = 0; q < CB_TILE / CB_HALF; ++q) {
+          float h = 0.f;
+          for (int p = q * CB_HALF; p < (q + 1) * CB_HALF; ++p)
+            h += dbuf[p * XLD + tid];
+          hs[q] = h;
+          db += h;
+        }
+        part[m.gb_off[l] + tid] += db;
+        if (has_pose) {
+#pragma unroll
+          for (int q = 0; q < CB_TILE / CB_HALF; ++q)
+            part[m.gs_off[l] + tid] += rnd_if(hs[q], BF);
+        }
+        // delta as the products take it (rounded under bf16), in place
+        // and to this tile's workspace rows
+        typename WsRow<BF>::T* wd = ws + (long long)n * m.wd_off[l];
+        for (int p = 0; p < CB_TILE; ++p) {
+          const float v = rnd_if(dbuf[p * XLD + tid], BF);
+          dbuf[p * XLD + tid] = v;
+          if (p0 + p < n) put(wd + (long long)(p0 + p) * out + tid, v);
+        }
       }
       __syncthreads();
-      if (bf && tid < out) {             // delta rounded in place
-#pragma unroll
-        for (int p = 0; p < CB_TILE; ++p)
-          dbuf[p * Hm + tid] = bf16r(dbuf[p * Hm + tid]);
-      }
-      __syncthreads();
+      const float* Wo = Pw + m.wo_off[l];        // (out, in_l)
       for (int c = 0; c < m.n_comp[l]; ++c) {
         const int kind = m.kind[l][c], width = m.width[l][c];
         const int st = m.start[l][c];
-        const float* Wo = Pw + m.wo_off[l];     // (out, in_l)
-        if (kind == C_POSE) {
-          for (int o = tid; o < out; o += blockDim.x)
-            part[m.gs_off[l] + o] += rnd_if(cs[o], bf);
+        if (kind == C_POSE) continue;
+        if (BF && l < L - 1) {
+          // da = delta W_part: dst (=) or (+=) on the tensor cores
+          float* dst = kind == C_X ? xbuf : (kind == C_SMALL ? dsm : dfe);
+          const int ldd = kind == C_X ? XLD : (kind == C_SMALL ? SLD : FLD);
+          prod_mma<CB_TILE / 16>(dbuf, XLD, out, Wb + m.wb_off[l][c],
+                                 cb_pad32(width), dst, ldd, kind != C_X);
           continue;
         }
         // da[p][k] = sum_o delta[p][o] W[o][st + k], o in order; delta
         // rows read four units at a time
-        const bool vec = (out & 3) == 0 && (Hm & 3) == 0;
+        const bool vec = (out & 3) == 0;
         for (int k = tid; k < width; k += blockDim.x) {
           float acc[CB_TILE];
 #pragma unroll
@@ -393,7 +487,7 @@ color_bwd_kernel(const float* __restrict__ small_g,
 #pragma unroll
               for (int p = 0; p < CB_TILE; ++p) {
                 const float4 d =
-                    *reinterpret_cast<const float4*>(dbuf + p * Hm + o);
+                    *reinterpret_cast<const float4*>(dbuf + p * XLD + o);
                 float a = acc[p];
                 a = fmaf(d.x, w0, a);
                 a = fmaf(d.y, w1, a);
@@ -407,16 +501,16 @@ color_bwd_kernel(const float* __restrict__ small_g,
             const float w = __ldg(wk + (long long)o * in_l);
 #pragma unroll
             for (int p = 0; p < CB_TILE; ++p)
-              acc[p] = fmaf(dbuf[p * Hm + o], w, acc[p]);
+              acc[p] = fmaf(dbuf[p * XLD + o], w, acc[p]);
           }
 #pragma unroll
           for (int p = 0; p < CB_TILE; ++p) {
             if (kind == C_X)
-              xbuf[p * Hm + k] = acc[p];
+              xbuf[p * XLD + k] = acc[p];
             else if (kind == C_SMALL)
-              dsm[p * Sp + k] += acc[p];
+              dsm[p * SLD + k] += acc[p];
             else
-              dfe[p * F + k] += acc[p];
+              dfe[p * FLD + k] += acc[p];
           }
         }
       }
@@ -424,22 +518,24 @@ color_bwd_kernel(const float* __restrict__ small_g,
       if (l > 0) {
         // next delta: da of x times the ReLU mask of the layer's input
         const int w = m.out[l - 1];
-        const float* wx = ws + (long long)n * m.wx_off[l];
+        const typename WsRow<BF>::T* wx = ws + (long long)n * m.wx_off[l];
         for (int e = tid; e < CB_TILE * w; e += blockDim.x) {
           const int p = e / w, k = e - p * w;
-          const bool on = p0 + p < n && wx[(long long)(p0 + p) * w + k] > 0.f;
-          dbuf[p * Hm + k] = on ? xbuf[p * Hm + k] : 0.f;
+          const bool on =
+              p0 + p < n && get(wx + (long long)(p0 + p) * w + k) > 0.f;
+          dbuf[p * XLD + k] = on ? xbuf[p * XLD + k] : 0.f;
         }
       }
       __syncthreads();
     }
     for (int t = tid; t < CB_TILE * S; t += blockDim.x) {
-      const int p = t / S, k = t % S;
-      if (p0 + p < n) dsmall_g[(long long)(p0 + p) * S + k] = dsm[p * Sp + k];
+      const int p = t / S, k = t - p * S;
+      if (p0 + p < n)
+        dsmall_g[(long long)(p0 + p) * S + k] = dsm[p * SLD + k];
     }
     for (int t = tid; t < CB_TILE * F; t += blockDim.x) {
-      const int p = t / F;
-      if (p0 + p < n) dfeats_g[(long long)p0 * F + t] = dfe[t];
+      const int p = t / F, k = t - p * F;
+      if (p0 + p < n) dfeats_g[(long long)p0 * F + t] = dfe[p * FLD + k];
     }
     __syncthreads();
   }
@@ -475,22 +571,25 @@ __global__ void color_pose_epilogue(const float* __restrict__ Pw,
 }
 
 static size_t color_bwd_smem(const ColorMeta& m) {
-  const int Sp = (m.S + 3) & ~3;
-  return ((size_t)CB_TILE * (2 * Sp + 2 * m.F + 3 * m.hmax) + m.hmax + m.P)
-         * sizeof(float);
+  return ((size_t)CB_TILE * (2 * cb_sld(m) + 2 * cb_fld(m) + 3 * cb_xld(m))
+          + m.P) * sizeof(float);
 }
 
-// The persistent grid for n points: as many blocks as fit on the card at
-// once, at most one per tile of the first chunk.
-extern "C" int arah_color_bwd_blocks(int n, ColorMeta m) {
+// Bytes of dynamic shared memory a block of kernel I's tile kernel takes.
+extern "C" long long arah_color_bwd_smem(ColorMeta m) {
+  return (long long)color_bwd_smem(m);
+}
+
+template <bool BF>
+static int color_bwd_blocks(int n, const ColorMeta& m) {
   const size_t smem = color_bwd_smem(m);
-  if (cudaFuncSetAttribute(color_bwd_kernel,
+  if (cudaFuncSetAttribute(color_bwd_kernel<BF>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
     return 0;
   int per_sm = 0, dev = 0, sms = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, color_bwd_kernel, COLOR_THREADS, smem) != cudaSuccess
+          &per_sm, color_bwd_kernel<BF>, COLOR_THREADS, smem) != cudaSuccess
       || cudaGetDevice(&dev) != cudaSuccess
       || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
              != cudaSuccess)
@@ -499,6 +598,21 @@ extern "C" int arah_color_bwd_blocks(int n, ColorMeta m) {
   const int tiles = (nc + CB_TILE - 1) / CB_TILE;
   const int b = per_sm * sms;
   return b < tiles ? b : tiles;
+}
+
+// The persistent grid for n points: as many blocks as fit on the card at
+// once, at most one per tile of the first chunk.
+extern "C" int arah_color_bwd_blocks(int n, ColorMeta m) {
+  return m.bf16 ? color_bwd_blocks<true>(n, m)
+                : color_bwd_blocks<false>(n, m);
+}
+
+// Floats of a chunk's workspace rows (bf16 under bf16: two to a float),
+// rounded up to 16 bytes.
+static long long color_rows_floats(long long nc, const ColorMeta& m) {
+  const long long e = nc * m.ws_cols;
+  const long long f = m.bf16 ? (e + 1) / 2 : e;
+  return (f + 3) / 4 * 4;
 }
 
 // Floats of the workspace for n points: one chunk's delta and x-input
@@ -511,64 +625,56 @@ extern "C" long long arah_color_bwd_ws(int n, ColorMeta m) {
       const long long v = (long long)m.out[l] * m.width[l][c];
       mn = v > mn ? v : mn;
     }
-  return nc * m.ws_cols + (long long)ATB_MAX_SPLITS * mn;
+  return color_rows_floats(nc, m) + (long long)ATB_MAX_SPLITS * mn;
 }
 
-// Per chunk of CB_CHUNK points: the tile kernel (dsmall, dfeats, the
-// workspace rows, the per-block partials of db and S), then per layer
-// and input part the A^T B reduction into dW of `grads` (zeroed by the
-// caller); last, the partials added into `grads` and the pose epilogue.
-// feats are f32 here. `partial` holds nblocks x gsize zeroed floats, `ws`
-// arah_color_bwd_ws(n, m) floats.
-extern "C" int arah_color_bwd(const float* small, const float* feats,
-                              const float* pose, const float* g_rgb, int n,
-                              const float* params, ColorMeta m,
-                              float* dsmall, float* dfeats, float* partial,
-                              int nblocks, long long gsize, float* grads,
-                              float* ws, void* stream) {
-  if (n <= 0 || nblocks <= 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
+template <bool BF>
+static int color_bwd_run(const float* small, const float* feats,
+                         const float* pose, const float* g_rgb, int n,
+                         const float* params, const __nv_bfloat16* wb,
+                         const ColorMeta& m, float* dsmall, float* dfeats,
+                         float* partial, int nblocks, long long gsize,
+                         float* grads, float* ws, cudaStream_t st) {
+  using T = typename WsRow<BF>::T;
   const size_t smem = color_bwd_smem(m);
   cudaError_t e = cudaFuncSetAttribute(
-      color_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      color_bwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long nmax = n < CB_CHUNK ? n : CB_CHUNK;
-  float* apart = ws + nmax * m.ws_cols;
+  T* rows = reinterpret_cast<T*>(ws);
+  float* apart = ws + color_rows_floats(nmax, m);
   const int outL = m.out[m.n_layers - 1];
   for (int c0 = 0; c0 < n; c0 += CB_CHUNK) {
     const int nc = n - c0 < CB_CHUNK ? n - c0 : CB_CHUNK;
-    color_bwd_kernel<<<nblocks, COLOR_THREADS, smem, st>>>(
+    color_bwd_kernel<BF><<<nblocks, COLOR_THREADS, smem, st>>>(
         small + (long long)c0 * m.S, feats + (long long)c0 * m.F, pose,
-        g_rgb + (long long)c0 * outL, nc, params, m,
+        g_rgb + (long long)c0 * outL, nc, params, wb, m,
         dsmall + (long long)c0 * m.S, dfeats + (long long)c0 * m.F, partial,
-        gsize, ws);
+        gsize, rows);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     for (int l = 0; l < m.n_layers; ++l) {
       const int out = m.out[l];
       int in_l = 0;
       for (int c = 0; c < m.n_comp[l]; ++c) in_l += m.width[l][c];
-      const float* D = ws + (long long)nc * m.wd_off[l];
+      const T* D = rows + (long long)nc * m.wd_off[l];
       for (int c = 0; c < m.n_comp[l]; ++c) {
         const int kind = m.kind[l][c], w = m.width[l][c];
         if (kind == C_POSE) continue;
-        const float* B;
-        int ldb;
+        float* C = grads + m.g_off[l] + m.start[l][c];
+        int r;
         if (kind == C_X) {
-          B = ws + (long long)nc * m.wx_off[l];
-          ldb = w;
-        } else if (kind == C_SMALL) {
-          B = small + (long long)c0 * m.S;
-          ldb = m.S;
+          r = atb_accumulate(D, out, rows + (long long)nc * m.wx_off[l], w,
+                             nc, out, w, BF, apart, C, in_l, st);
         } else {
-          B = feats + (long long)c0 * m.F;
-          ldb = m.F;
+          const bool sm = kind == C_SMALL;
+          r = atb_accumulate(D, out,
+                             sm ? small + (long long)c0 * m.S
+                                : feats + (long long)c0 * m.F,
+                             sm ? m.S : m.F, nc, out, w, BF, apart, C, in_l,
+                             st);
         }
-        const int r = atb_accumulate(D, out, B, ldb, nc, out, w,
-                                     m.bf16 != 0, apart,
-                                     grads + m.g_off[l] + m.start[l][c],
-                                     in_l, st);
         if (r != 0) return r;
       }
     }
@@ -580,4 +686,29 @@ extern "C" int arah_color_bwd(const float* small, const float* feats,
     color_pose_epilogue<<<(m.P + 127) / 128, 128, 0, st>>>(params, m, pose,
                                                            grads);
   return launch_status();
+}
+
+// Per chunk of CB_CHUNK points: the tile kernel (dsmall, dfeats, the
+// workspace rows, the per-block partials of db and S), then per layer
+// and input part the A^T B reduction into dW of `grads` (zeroed by the
+// caller); last, the partials added into `grads` and the pose epilogue.
+// feats are f32 here. `wbf16`: under bf16, the tensor-core weight blocks
+// (ops/color.py:pack_color_bf16, offsets wf_off and wb_off); null in f32.
+// `partial` holds nblocks x gsize zeroed floats, `ws`
+// arah_color_bwd_ws(n, m) floats.
+extern "C" int arah_color_bwd(const float* small, const float* feats,
+                              const float* pose, const float* g_rgb, int n,
+                              const float* params, const void* wbf16,
+                              ColorMeta m, float* dsmall, float* dfeats,
+                              float* partial, int nblocks, long long gsize,
+                              float* grads, float* ws, void* stream) {
+  if (n <= 0 || nblocks <= 0) return 0;
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wbf16);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return m.bf16 ? color_bwd_run<true>(small, feats, pose, g_rgb, n, params,
+                                      wb, m, dsmall, dfeats, partial,
+                                      nblocks, gsize, grads, ws, st)
+                : color_bwd_run<false>(small, feats, pose, g_rgb, n, params,
+                                       wb, m, dsmall, dfeats, partial,
+                                       nblocks, gsize, grads, ws, st);
 }

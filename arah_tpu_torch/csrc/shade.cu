@@ -9,101 +9,109 @@
 //
 // Bound on the H100: operations. A point costs ~2 x 5 x 256^2 multiply-adds
 // (forward and reverse through the hidden layers) against 12 B in and
-// ~1 KB of features out; the ~1.8 MB of generated weights stay in L2.
+// ~0.5 KB of features out; the generated weights stay in L2.
 //
-// Design: a block of 256 threads (one per hidden unit) shades a tile of 16
-// points. The TPU kept six (tile, 256) f32 factor arrays in VMEM; here a
-// 16-point tile's factors (6 x 16 x 256 x 4 B = 96 KB) and its current
-// activations (16 KB) sit in shared memory, so no layer's output goes to
-// device memory. Thread j computes unit j for all 16 points: each weight it
-// loads (coalesced, from the transposed forward copy or the original
-// (out, in) layout for the reverse products) feeds 16 FMAs, and the
-// activations come from shared memory as float4 broadcasts. Under
-// bf16_shading the operands are rounded with __float2bfloat16_rn at the
-// places _shade_kernel rounds them (every dot operand, including g * df
-// before each reverse product) and accumulated in f32. The features are
-// stored in bf16 under bf16_shading (the eval path's dtype), or in f32
-// when `feat_f32` asks (the training op, ops/shade_grad.py, as the JAX
-// training op returns them).
+// Design. A block of 256 threads (8 warps) shades a tile of SHADE_TILE =
+// 16 points; two blocks share an SM (~96 KB of shared memory each at the
+// flagship), so one block's per-unit algebra overlaps the other's
+// products. (A 32-point tile, one ~193 KB block per SM, halves the weight
+// stream from L2 but was slower: PERF.md §6, PR 6.)
+// - The products. Under bf16_shading every product operand is a bf16 value
+//   (the rows are rounded when written, the hidden weights come as a bf16
+//   copy, ops/shade.py:pack_shade_bf16, the one kernel H takes), so each
+//   hidden (H x H) product, z = h W_i^T forward and g = a W_i in reverse,
+//   runs on the tensor cores (mma.cuh:prod_mma, f32 sums): warp w owns
+//   units [32w, 32w + 32) of the tile, and each weight it loads from L2
+//   feeds its 16 points. The f32 launch (the eikonal points in training,
+//   any config with bf16_shading off) runs the same body with FMA products
+//   on the CUDA cores (mma.cuh:prod_fma; never TF32). The din-wide first
+//   layer, the dx product and the dout-wide output layer run on the CUDA
+//   cores in both.
+// - The rows. One f32 [point][unit] tile holds the current product's input;
+//   a product writes its result in place, then thread j does the per-unit
+//   algebra of unit j over the tile's points in f32 (bias, FiLM, sincosf,
+//   30 f cos) and rounds at the plain version's places: r(h), r(g * df).
+// - The residents. The df = 30 f cos(30 u) factors of sine layers 0..L-3
+//   stay in shared memory (16 KB a layer at H = 256, f32: the TPU kernel's
+//   resid_bf16 is off), each in column j, written and read back by thread
+//   j only. The last sine layer's factor meets its reverse seed right away:
+//   a_{L-2} = r(W_{L-1}[0] * df_{L-2}) waits in thread j's registers while
+//   the output layer reads h_{L-1} from the rows.
+// The features are stored in bf16 under bf16_shading (the eval path's
+// dtype), or in f32 when `feat_f32` asks (the training op,
+// ops/shade_grad.py, as the JAX training op returns them).
+#include "mma.cuh"
 #include "shade_meta.cuh"
 
 #define SHADE_THREADS 256
 #define SHADE_TILE 16
+#define SHADE_LD (256 + 4)         // row stride of the tile (floats)
 
-__global__ void __launch_bounds__(SHADE_THREADS)
+static_assert(SHADE_TILE % 16 == 0, "prod_mma: whole 16-point fragments");
+
+// BF: the bf16_shading launch (tensor-core products); otherwise f32.
+template <bool BF>
+__global__ void __launch_bounds__(SHADE_THREADS, 2)   // two blocks an SM
 shade_kernel(const float* __restrict__ x_g, int n,
-             const float* __restrict__ P, ShadeMeta m,
+             const float* __restrict__ P,
+             const __nv_bfloat16* __restrict__ Wb, ShadeMeta m,
              float* __restrict__ sdf_out, void* __restrict__ feat_out,
              int feat_f32, float* __restrict__ grad_out) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ float xs[SHADE_TILE * 4];
-  const int H = m.hidden, L = m.n_layers, din = m.din;
-  const bool bf = m.bf16 != 0;
-  float* hbuf = smem;                          // [TILE][H]
-  float* dfs = smem + SHADE_TILE * H;          // [L-1][TILE][H]
+  const int H = m.hidden, L = m.n_layers, din = m.din, dout = m.dout;
+  const int NL = L - 1;                        // sine layers
+  const bool film = m.film != 0;
+  float* rows = smem;                          // [TILE][LD]
+  float* dfs = smem + SHADE_TILE * SHADE_LD;   // [NL-1][TILE][H]
   const int j = threadIdx.x;
+  const bool act = j < H;
   const int p0 = blockIdx.x * SHADE_TILE;
 
-  for (int t = j; t < SHADE_TILE * din; t += blockDim.x) {
-    const int p = t / din;
-    xs[t] = (p0 + p < n) ? rnd_if(x_g[(long long)p0 * din + t], bf) : 0.f;
+  for (int e = j; e < SHADE_TILE * din; e += blockDim.x) {
+    const int p = e / din, k = e - p * din;
+    rows[p * SHADE_LD + k] =
+        p0 + p < n ? rnd_if(x_g[(long long)(p0 + p) * din + k], BF) : 0.f;
   }
   __syncthreads();
 
   // ---- forward through the sine layers
-  for (int i = 0; i < L - 1; ++i) {
-    const int in = (i == 0) ? din : H;
-    const float* Wt = P + m.wt_off[i];       // (in, H)
-    float acc[SHADE_TILE];
-#pragma unroll
-    for (int p = 0; p < SHADE_TILE; ++p) acc[p] = 0.f;
-    if (j < H) {
-      if (i == 0) {
-        for (int k = 0; k < in; ++k) {
-          const float w = rnd_if(__ldg(Wt + (long long)k * H + j), bf);
-#pragma unroll
-          for (int p = 0; p < SHADE_TILE; ++p)
-            acc[p] = fmaf(xs[p * din + k], w, acc[p]);
-        }
-      } else {
-        for (int k = 0; k < in; k += 4) {
-          const float w0 = rnd_if(__ldg(Wt + (long long)k * H + j), bf);
-          const float w1 = rnd_if(__ldg(Wt + (long long)(k + 1) * H + j), bf);
-          const float w2 = rnd_if(__ldg(Wt + (long long)(k + 2) * H + j), bf);
-          const float w3 = rnd_if(__ldg(Wt + (long long)(k + 3) * H + j), bf);
-#pragma unroll
-          for (int p = 0; p < SHADE_TILE; ++p) {
-            const float4 h4 =
-                *reinterpret_cast<const float4*>(hbuf + p * H + k);
-            float a = acc[p];
-            a = fmaf(h4.x, w0, a);
-            a = fmaf(h4.y, w1, a);
-            a = fmaf(h4.z, w2, a);
-            a = fmaf(h4.w, w3, a);
-            acc[p] = a;
-          }
-        }
-      }
+  float al[SHADE_TILE];                        // a_{L-2} of unit j
+  for (int i = 0; i < NL; ++i) {
+    if (i == 0) {
+      prod_fma<SHADE_TILE>(rows, SHADE_LD, din, P + m.wt_off[0], H, H);
+    } else {
+      if constexpr (BF)
+        prod_mma<SHADE_TILE / 16>(rows, SHADE_LD, H,
+                                  Wb + 2LL * (i - 1) * H * H, H, rows,
+                                  SHADE_LD, false);
+      else
+        prod_fma<SHADE_TILE>(rows, SHADE_LD, H, P + m.wt_off[i], H, H);
     }
-    __syncthreads();      // every read of hbuf for this layer is done
-    if (j < H) {
+    if (act) {
       const float b = __ldg(P + m.b_off[i] + j);
-      const float f = m.film ? __ldg(P + m.freq_off + (long long)i * H + j)
-                             : 1.f;
-      const float ph = m.film ? __ldg(P + m.phase_off + (long long)i * H + j)
-                              : 0.f;
+      const float f = film ? __ldg(P + m.freq_off + (long long)i * H + j)
+                           : 1.f;
+      const float ph = film ? __ldg(P + m.phase_off + (long long)i * H + j)
+                            : 0.f;
+      const float cf = film ? 30.f * f : 30.f;
+      const float g_top = __ldg(P + m.w_off[L - 1] + j);
+      const bool top = i == NL - 1;
       float* df = dfs + (long long)i * SHADE_TILE * H;
 #pragma unroll
       for (int p = 0; p < SHADE_TILE; ++p) {
-        float z = acc[p] + b;
-        if (m.film) z = f * z + ph;
+        float z = rows[p * SHADE_LD + j] + b;
+        if (film) z = f * z + ph;
         float s, c;
         sincosf(30.f * z, &s, &c);
-        df[p * H + j] = m.film ? 30.f * f * c : 30.f * c;
-        hbuf[p * H + j] = rnd_if(s, bf);
-        if (i == L - 2 && p0 + p < n) {
+        const float d = cf * c;
+        if (top)
+          al[p] = rnd_if(g_top * d, BF);
+        else
+          df[p * H + j] = d;
+        rows[p * SHADE_LD + j] = rnd_if(s, BF);
+        if (top && p0 + p < n) {
           const long long o = (long long)(p0 + p) * H + j;
-          if (bf && !feat_f32)
+          if (BF && !feat_f32)
             reinterpret_cast<__nv_bfloat16*>(feat_out)[o] =
                 __float2bfloat16_rn(s);
           else
@@ -116,78 +124,83 @@ shade_kernel(const float* __restrict__ x_g, int n,
 
   // ---- last linear layer: one thread per (point, output)
   const float* WL = P + m.w_off[L - 1];      // (dout, H)
-  if (j < SHADE_TILE * m.dout) {
-    const int p = j / m.dout, o = j % m.dout;
+  for (int e = j; e < SHADE_TILE * dout; e += blockDim.x) {
+    const int p = e / dout, o = e - p * dout;
     float a = 0.f;
     for (int k = 0; k < H; ++k)
-      a = fmaf(hbuf[p * H + k], rnd_if(__ldg(WL + (long long)o * H + k), bf),
-               a);
+      a = fmaf(rows[p * SHADE_LD + k],
+               rnd_if(__ldg(WL + (long long)o * H + k), BF), a);
     if (p0 + p < n)
-      sdf_out[(long long)(p0 + p) * m.dout + o] =
+      sdf_out[(long long)(p0 + p) * dout + o] =
           a + __ldg(P + m.b_off[L - 1] + o);
   }
   __syncthreads();
 
-  // ---- reverse chain, seeded with the SDF row of the last weights
-  if (j < H) {
-    const float g0 = __ldg(WL + j);
+  // ---- reverse chain: the rows hold a_i = r(g_{i+1} * df_i)
+  if (act) {
 #pragma unroll
-    for (int p = 0; p < SHADE_TILE; ++p) hbuf[p * H + j] = g0;
+    for (int p = 0; p < SHADE_TILE; ++p) rows[p * SHADE_LD + j] = al[p];
   }
   __syncthreads();
-  for (int i = L - 2; i >= 0; --i) {
-    float* df = dfs + (long long)i * SHADE_TILE * H;
-    if (j < H) {
+  for (int i = NL - 1; i >= 1; --i) {
+    if constexpr (BF)                        // g_i = a_i W_i
+      prod_mma<SHADE_TILE / 16>(rows, SHADE_LD, H,
+                                Wb + (2LL * (i - 1) + 1) * H * H, H, rows,
+                                SHADE_LD, false);
+    else
+      prod_fma<SHADE_TILE>(rows, SHADE_LD, H, P + m.w_off[i], H, H);
+    if (act) {
+      const float* df = dfs + (long long)(i - 1) * SHADE_TILE * H;
 #pragma unroll
       for (int p = 0; p < SHADE_TILE; ++p)
-        df[p * H + j] = rnd_if(hbuf[p * H + j] * df[p * H + j], bf);
-    }
-    __syncthreads();
-    const int in = (i == 0) ? din : H;
-    const float* W = P + m.w_off[i];         // (H, in)
-    if (j < in) {
-      float acc[SHADE_TILE];
-#pragma unroll
-      for (int p = 0; p < SHADE_TILE; ++p) acc[p] = 0.f;
-      for (int k = 0; k < H; k += 4) {
-        const float w0 = rnd_if(__ldg(W + (long long)k * in + j), bf);
-        const float w1 = rnd_if(__ldg(W + (long long)(k + 1) * in + j), bf);
-        const float w2 = rnd_if(__ldg(W + (long long)(k + 2) * in + j), bf);
-        const float w3 = rnd_if(__ldg(W + (long long)(k + 3) * in + j), bf);
-#pragma unroll
-        for (int p = 0; p < SHADE_TILE; ++p) {
-          const float4 g4 = *reinterpret_cast<const float4*>(df + p * H + k);
-          float a = acc[p];
-          a = fmaf(g4.x, w0, a);
-          a = fmaf(g4.y, w1, a);
-          a = fmaf(g4.z, w2, a);
-          a = fmaf(g4.w, w3, a);
-          acc[p] = a;
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < SHADE_TILE; ++p) {
-        if (i > 0)
-          hbuf[p * H + j] = acc[p];
-        else if (p0 + p < n)
-          grad_out[(long long)(p0 + p) * din + j] = acc[p];
-      }
+        rows[p * SHADE_LD + j] =
+            rnd_if(rows[p * SHADE_LD + j] * df[p * H + j], BF);
     }
     __syncthreads();
   }
+  dx_rows<SHADE_TILE>(rows, SHADE_LD, H, P + m.w_off[0], din, p0, n,
+                      grad_out);
 }
 
+// Shared memory of a block: the rows, then the df of sine layers 0..L-3.
+static size_t shade_smem(const ShadeMeta& m) {
+  return ((size_t)SHADE_TILE * SHADE_LD
+          + (size_t)(m.n_layers - 2) * SHADE_TILE * m.hidden)
+         * sizeof(float);
+}
+
+// Bytes of dynamic shared memory a block of kernel C takes for m.
+extern "C" long long arah_shade_smem(ShadeMeta m) {
+  return (long long)shade_smem(m);
+}
+
+// `wbf16`: under bf16, the hidden layers' weights 1..L-2 as bf16
+// (L-2, 2, H, H), each (out, in) then transposed
+// (ops/shade.py:pack_shade_bf16); null in f32.
 extern "C" int arah_shade(const float* x, int n, const float* params,
-                          ShadeMeta m, float* sdf, void* feat, int feat_f32,
-                          float* grad, void* stream) {
+                          const void* wbf16, ShadeMeta m, float* sdf,
+                          void* feat, int feat_f32, float* grad,
+                          void* stream) {
   if (n <= 0) return 0;
-  const size_t smem = (size_t)SHADE_TILE * m.hidden * m.n_layers
-                      * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      shade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const size_t smem = shade_smem(m);
   const int blocks = (n + SHADE_TILE - 1) / SHADE_TILE;
-  shade_kernel<<<blocks, SHADE_THREADS, smem, (cudaStream_t)stream>>>(
-      x, n, params, m, sdf, feat, feat_f32, grad);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wbf16);
+  cudaError_t e;
+  if (m.bf16) {
+    e = cudaFuncSetAttribute(shade_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    shade_kernel<true><<<blocks, SHADE_THREADS, smem, st>>>(
+        x, n, params, wb, m, sdf, feat, feat_f32, grad);
+  } else {
+    e = cudaFuncSetAttribute(shade_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    shade_kernel<false><<<blocks, SHADE_THREADS, smem, st>>>(
+        x, n, params, wb, m, sdf, feat, feat_f32, grad);
+  }
   return launch_status();
 }

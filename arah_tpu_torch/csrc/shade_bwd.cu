@@ -20,7 +20,9 @@
 //      dx = hbar.
 // Under bf16_shading every product's operands are rounded to bf16 at the
 // places _shade_bwd_kernel rounds them (_dot, _dot_nt) and accumulated in
-// f32; chain values and residents stay f32 (shade_resid_bf16 off).
+// f32; chain values and residents stay f32. The bf16 residents of the TPU
+// kernel (shade_resid_bf16) are not ported: the C -> H op raises on a CUDA
+// tensor when they are asked for (ops/shade.py:siren_shade).
 //
 // Bound on the H100: operations. A point costs ~2.9x C's multiply-adds:
 // the forward and reverse chains again, the adjoint and primal-backward
@@ -31,14 +33,15 @@
 // many blocks as fit on the card at once).
 // - The chain products. Each hidden (H x H) layer takes four per point
 //   (steps 1, 2, 3, 5). Under bf16 their operands are bf16 values, so they
-//   run on the tensor cores (prod_mma: mma.sync m16n8k16, bf16 x bf16 ->
-//   f32): warp w owns output units [32w, 32w + 32) of all 32 points, loads
-//   its weight fragments straight from a bf16 copy of the weights in L2
-//   (16 B a lane, the next k-chunk in flight while the current one
-//   multiplies), so each weight it loads feeds 32 points. The f32 launch
-//   (the eikonal points) runs the same body with FMA products on the CUDA
-//   cores (prod_fma; never TF32). The din-wide products (the first layer,
-//   dx) run on the CUDA cores in both.
+//   run on the tensor cores (mma.cuh:prod_mma, shared with C and I:
+//   mma.sync m16n8k16, bf16 x bf16 -> f32): warp w owns output units
+//   [32w, 32w + 32) of all 32 points, loads its weight fragments straight
+//   from a bf16 copy of the weights in L2 (16 B a lane, the next k-chunk
+//   in flight while the current one multiplies), so each weight it loads
+//   feeds 32 points. The f32 launch (the eikonal points) runs the same
+//   body with FMA products on the CUDA cores (mma.cuh:prod_fma; never
+//   TF32). The din-wide products (the first layer, dx) run on the CUDA
+//   cores in both.
 // - The tile's rows. One f32 [point][unit] tile in shared memory holds the
 //   current product's input; a product reads it, synchronises and writes
 //   its result in place, and each thread then does the per-unit algebra of
@@ -63,6 +66,7 @@
 //   zero cotangents and zero a rows, are never written to the workspace,
 //   and contribute exactly zero.
 #include "atb.cuh"
+#include "mma.cuh"
 #include "shade_meta.cuh"
 
 #define SB_THREADS 256
@@ -74,14 +78,6 @@
 static_assert(SB_TILE * 8 == SB_THREADS, "dx_rows: 8 lanes per point");
 static_assert(SB_TILE == 32, "prod_mma: two 16-point fragments per warp");
 static_assert(SB_TILE % SB_PF == 0, "whole groups of residents");
-
-template <bool BF> struct WsRow { using T = float; };
-template <> struct WsRow<true> { using T = __nv_bfloat16; };
-
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Element offsets of one chunk's workspace rows, per sine layer i: A_i
 // (2 nc, H) = [a_i rows; zbar_i rows], B_i (2 nc, K_i) = [t_i rows; h_i
@@ -96,165 +92,6 @@ __device__ __forceinline__ void unit_sc(float z, float f, float ph,
                                         bool film, float& s, float& c) {
   const float u = film ? __fadd_rn(__fmul_rn(f, z), ph) : z;
   sincosf(__fmul_rn(30.f, u), &s, &c);
-}
-
-// rows[p][n] <- sum over k < K of rows[p][k] W[k * ldw + n], n < N, on the
-// CUDA cores: thread n owns unit n, and each weight it loads from L2
-// (coalesced over n) feeds the tile's 32 points.
-__device__ void prod_fma(float* rows, int K, const float* __restrict__ W,
-                         int ldw, int N) {
-  const int j = threadIdx.x;
-  float acc[SB_TILE];
-#pragma unroll
-  for (int p = 0; p < SB_TILE; ++p) acc[p] = 0.f;
-  if (j < N) {
-    if ((K & 3) == 0) {
-      for (int k = 0; k < K; k += 4) {
-        const float w0 = __ldg(W + (long long)k * ldw + j);
-        const float w1 = __ldg(W + (long long)(k + 1) * ldw + j);
-        const float w2 = __ldg(W + (long long)(k + 2) * ldw + j);
-        const float w3 = __ldg(W + (long long)(k + 3) * ldw + j);
-#pragma unroll
-        for (int p = 0; p < SB_TILE; ++p) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(rows + p * SB_LD + k);
-          float a = acc[p];
-          a = fmaf(v.x, w0, a);
-          a = fmaf(v.y, w1, a);
-          a = fmaf(v.z, w2, a);
-          a = fmaf(v.w, w3, a);
-          acc[p] = a;
-        }
-      }
-    } else {
-      for (int k = 0; k < K; ++k) {
-        const float w = __ldg(W + (long long)k * ldw + j);
-#pragma unroll
-        for (int p = 0; p < SB_TILE; ++p)
-          acc[p] = fmaf(rows[p * SB_LD + k], w, acc[p]);
-      }
-    }
-  }
-  __syncthreads();                     // every read of the rows is done
-  if (j < N) {
-#pragma unroll
-    for (int p = 0; p < SB_TILE; ++p) rows[p * SB_LD + j] = acc[p];
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows[p][n] <- sum over k < K of rows[p][k] M[n][k], n < N, on the tensor
-// cores. M: bf16, row-major (N, K), K a multiple of 32; the rows hold bf16
-// values in f32. Warp w owns units [32w, 32w + 32): 2 x 4 fragments of
-// 16 points x 8 units. Per chunk of 32 k, lane (g, t) loads 8 consecutive
-// k of unit row g of each fragment (16 B) and of its two point rows; the
-// k order inside the chunk is permuted alike for both operands (slots
-// 2t, 2t+1, 2t+8, 2t+9 of step s take k 8t + 4s + 0..3), which only
-// reorders the sum.
-__device__ void prod_mma(float* rows, int K, const __nv_bfloat16* M, int N) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = warp * 32;
-  const bool on = n0 < N;
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  if (on) {
-    uint4 b[4], bn[4];
-    auto load_b = [&](int k0, uint4 (&dst)[4]) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int nr = n0 + 8 * nt + g;
-        dst[nt] = nr < N ? __ldg(reinterpret_cast<const uint4*>(
-                               M + (long long)nr * K + k0 + 8 * t))
-                         : make_uint4(0u, 0u, 0u, 0u);
-      }
-    };
-    load_b(0, b);
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      if (k0 + 32 < K) load_b(k0 + 32, bn);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* r0 = rows + (16 * mt + g) * SB_LD + k0 + 8 * t;
-        const float* r1 = r0 + 8 * SB_LD;
-        const float4 x0 = *reinterpret_cast<const float4*>(r0);
-        const float4 x1 = *reinterpret_cast<const float4*>(r0 + 4);
-        const float4 y0 = *reinterpret_cast<const float4*>(r1);
-        const float4 y1 = *reinterpret_cast<const float4*>(r1 + 4);
-        const unsigned a0[4] = {pack_bf16(x0.x, x0.y), pack_bf16(y0.x, y0.y),
-                                pack_bf16(x0.z, x0.w), pack_bf16(y0.z, y0.w)};
-        const unsigned a1[4] = {pack_bf16(x1.x, x1.y), pack_bf16(y1.x, y1.y),
-                                pack_bf16(x1.z, x1.w), pack_bf16(y1.z, y1.w)};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          mma_bf16(acc[mt][nt], a0, b[nt].x, b[nt].y);
-          mma_bf16(acc[mt][nt], a1, b[nt].z, b[nt].w);
-        }
-      }
-      if (k0 + 32 < K) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) b[nt] = bn[nt];
-      }
-    }
-  }
-  __syncthreads();                     // every read of the rows is done
-  if (on) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int nc = n0 + 8 * nt + 2 * t;
-        if (nc < N) {                  // N % 8 == 0: nc + 1 < N too
-          float* r = rows + (16 * mt + g) * SB_LD + nc;
-          *reinterpret_cast<float2*>(r) =
-              make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-          *reinterpret_cast<float2*>(r + 8 * SB_LD) =
-              make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-        }
-      }
-  }
-  __syncthreads();
-}
-
-// dx[p][c] = sum over k < K of rows[p][k] W[k * din + c], c < din <= 4:
-// 8 lanes per point, each a strided share of k, then a shuffle sum.
-__device__ void dx_rows(const float* rows, int K, const float* __restrict__ W,
-                        int din, int p0, int n, float* __restrict__ dx_g) {
-  const int p = threadIdx.x >> 3, l = threadIdx.x & 7;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = l; k < K; k += 8) {
-    const float r = rows[p * SB_LD + k];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (c < din)
-        acc[c] = fmaf(r, __ldg(W + (long long)k * din + c), acc[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1)
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o, 8);
-  if (l < din && p0 + p < n)
-    dx_g[(long long)(p0 + p) * din + l] =
-        l == 0 ? acc[0] : (l == 1 ? acc[1] : (l == 2 ? acc[2] : acc[3]));
 }
 
 // BF: the bf16_shading launch (tensor-core products, bf16 workspace rows);
@@ -294,19 +131,21 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
   // rows <- rows W_i^T (steps 1 and 3) and rows <- rows W_i (2 and 5, i >= 1)
   auto fwd = [&](int i) {
     if (i == 0) {
-      prod_fma(rows, din, P + m.wt_off[0], H, H);
+      prod_fma<SB_TILE>(rows, SB_LD, din, P + m.wt_off[0], H, H);
     } else {
       if constexpr (BF)
-        prod_mma(rows, H, Wb + 2LL * (i - 1) * H * H, H);
+        prod_mma<2>(rows, SB_LD, H, Wb + 2LL * (i - 1) * H * H, H, rows,
+                    SB_LD, false);
       else
-        prod_fma(rows, H, P + m.wt_off[i], H, H);
+        prod_fma<SB_TILE>(rows, SB_LD, H, P + m.wt_off[i], H, H);
     }
   };
   auto rev = [&](int i) {
     if constexpr (BF)
-      prod_mma(rows, H, Wb + (2LL * (i - 1) + 1) * H * H, H);
+      prod_mma<2>(rows, SB_LD, H, Wb + (2LL * (i - 1) + 1) * H * H, H,
+                  rows, SB_LD, false);
     else
-      prod_fma(rows, H, P + m.w_off[i], H, H);
+      prod_fma<SB_TILE>(rows, SB_LD, H, P + m.w_off[i], H, H);
   };
   const int ntiles = (n + SB_TILE - 1) / SB_TILE;
 
@@ -492,7 +331,7 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
       if (i > 0)
         rev(i);                        // rows <- zbar_i W_i = hbar_i
       else
-        dx_rows(rows, H, P + m.w_off[0], din, p0, n, dx_g);
+        dx_rows<SB_TILE>(rows, SB_LD, H, P + m.w_off[0], din, p0, n, dx_g);
     }
     __syncthreads();
   }

@@ -129,7 +129,9 @@ class ColorMeta(ctypes.Structure):
                 ('gb_off', ctypes.c_longlong * 8),
                 ('gpose_off', ctypes.c_longlong),
                 ('gs_off', ctypes.c_longlong * 8),
-                ('wd_off', _I * 8), ('wx_off', _I * 8), ('ws_cols', _I)]
+                ('wd_off', _I * 8), ('wx_off', _I * 8), ('ws_cols', _I),
+                ('wf_off', (ctypes.c_longlong * 4) * 8),
+                ('wb_off', (ctypes.c_longlong * 4) * 8)]
 
 
 class NetMeta(ctypes.Structure):
@@ -159,7 +161,8 @@ def load():
     lib.arah_siren.argtypes = [_P, _I, _P, NetMeta, _I, _P, _P]
     lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, NetMeta, _I,
                               _F, _F, _F, _F, _P, _P, _P, _P, _P]
-    lib.arah_shade.argtypes = [_P, _I, _P, ShadeMeta, _P, _P, _I, _P, _P]
+    lib.arah_shade.argtypes = [_P, _I, _P, _P, ShadeMeta, _P, _P, _I, _P,
+                                _P]
     lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, ColorMeta, _P, _P]
     lib.arah_march.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                                NetMeta, _I, _F, _F, _P, _P, _P, _P, _P, _P]
@@ -172,11 +175,16 @@ def load():
     lib.arah_shade_bwd_blocks.argtypes = [_I, ShadeMeta]
     lib.arah_shade_bwd_ws.argtypes = [_I, _I, ShadeMeta]
     lib.arah_shade_bwd_ws.restype = ctypes.c_longlong
-    lib.arah_color_bwd.argtypes = [_P, _P, _P, _P, _I, _P, ColorMeta, _P, _P,
-                                   _P, _I, ctypes.c_longlong, _P, _P, _P]
+    lib.arah_color_bwd.argtypes = [_P, _P, _P, _P, _I, _P, _P, ColorMeta,
+                                   _P, _P, _P, _I, ctypes.c_longlong, _P, _P,
+                                   _P]
     lib.arah_color_bwd_blocks.argtypes = [_I, ColorMeta]
     lib.arah_color_bwd_ws.argtypes = [_I, ColorMeta]
     lib.arah_color_bwd_ws.restype = ctypes.c_longlong
+    lib.arah_shade_smem.argtypes = [ShadeMeta]
+    lib.arah_shade_smem.restype = ctypes.c_longlong
+    lib.arah_color_bwd_smem.argtypes = [ColorMeta]
+    lib.arah_color_bwd_smem.restype = ctypes.c_longlong
     for fn in (lib.arah_knn, lib.arah_corr, lib.arah_shade,
                lib.arah_color_fwd, lib.arah_march, lib.arah_iso,
                lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd,

@@ -22,9 +22,10 @@ import torch
 from arah_tpu_torch.nn.layers import mm_t
 from arah_tpu_torch.ops import _build
 
-# kernel I's tile: under bf16 the pose gradient rounds each tile's column
-# sum of delta (as the Pallas kernel rounds each grid tile's), and the
-# plain backward groups its rows the same way
+# under bf16 the pose gradient rounds the column sum of delta over each
+# group of BWD_TILE points (as the Pallas kernel rounds each grid tile's;
+# kernel I's 32-point tile sums its two halves apart, CB_HALF in
+# csrc/color.cu), and the plain backward groups its rows the same way
 BWD_TILE = 16
 # kernel I's points per workspace pass (CB_CHUNK in csrc/color.cu)
 CB_CHUNK = 65536
@@ -134,6 +135,37 @@ def color_mlp_bwd_plain(weights, biases, small, feats, pose, g_rgb,
     return dW, db, dsmall, dfeats, dpose
 
 
+def _pad32(k: int) -> int:
+    return -(-k // 32) * 32
+
+
+def _bf16_blocks(parts):
+    """Kernel I's tensor-core weight blocks, in pack order: (layer, part
+    index, first column, width) of every x, small and feats part of the
+    hidden layers (the last layer and the pose parts stay on the CUDA
+    cores)."""
+    return [(l, c, st, wd) for l, comps in enumerate(parts[:-1])
+            for c, (name, st, wd) in enumerate(comps) if name != 'pose']
+
+
+def pack_color_bf16(weights, S: int, F: int, P: int, skips: tuple):
+    """Kernel I's tensor-core operands under bf16: for each block of
+    `_bf16_blocks`, the part's weights (out, width) rounded to bf16 with
+    the width zero-padded to the next multiple of 32, then their transpose
+    (padded width, out); one flat bf16 tensor. The offsets are
+    ColorMeta's wf_off and wb_off (`_pack`)."""
+    out = []
+    for l, _, st, wd in _bf16_blocks(_parts(weights, S, F, P, skips)):
+        w = torch.nn.functional.pad(
+            weights[l].detach()[:, st:st + wd].bfloat16(),
+            (0, _pad32(wd) - wd))
+        out += [w.reshape(-1), w.T.contiguous().reshape(-1)]
+    if not out:
+        return torch.empty((0,), dtype=torch.bfloat16,
+                           device=weights[0].device)
+    return torch.cat(out)
+
+
 def _pack(weights, biases, S: int, F: int, P: int, skips: tuple,
           squeeze_out: bool, bf16: bool, feats_bf16: bool):
     """(parameter buffer, ColorMeta, gradient-buffer size) for kernels D
@@ -184,6 +216,14 @@ def _pack(weights, biases, S: int, F: int, P: int, skips: tuple,
     for l in range(L):
         wx_off.append(cols if l > 0 else 0)
         cols += outs[l - 1] if l > 0 else 0
+    # kernel I's bf16 weight blocks (pack_color_bf16), element offsets
+    wf_off = [[0] * 4 for _ in range(L)]
+    wb_off = [[0] * 4 for _ in range(L)]
+    off = 0
+    for l, c, _, wd in _bf16_blocks(parts):
+        wf_off[l][c] = off
+        wb_off[l][c] = off + outs[l] * _pad32(wd)
+        off += 2 * outs[l] * _pad32(wd)
 
     I8, L8 = _build._I * 8, _build.ctypes.c_longlong * 8
     I4x8 = (_build._I * 4) * 8
@@ -192,16 +232,18 @@ def _pack(weights, biases, S: int, F: int, P: int, skips: tuple,
 
     def i4x8(rows):
         return I4x8(*[(_build._I * 4)(*r) for r in rows + [[0] * 4] * pad])
+
+    def l4x8(rows):
+        return L4x8(*[(_build.ctypes.c_longlong * 4)(*r)
+                      for r in rows + [[0] * 4] * pad])
     meta = _build.ColorMeta(
         L, S, F, P, max(outs[:-1]), int(squeeze_out), int(bf16),
         int(feats_bf16), I8(*(outs + [0] * pad)), I8(*(n_comp + [0] * pad)),
-        i4x8(kind), i4x8(width),
-        L4x8(*[(_build.ctypes.c_longlong * 4)(*r)
-               for r in w_off + [[0] * 4] * pad]),
+        i4x8(kind), i4x8(width), l4x8(w_off),
         L8(*(b_off + [0] * pad)), i4x8(start), L8(*(wo_off + [0] * pad)),
         L8(*(g_off + [0] * pad)), L8(*(gb_off + [0] * pad)), gpose_off,
         L8(*(gs_off + [0] * pad)), I8(*(wd_off + [0] * pad)),
-        I8(*(wx_off + [0] * pad)), cols)
+        I8(*(wx_off + [0] * pad)), cols, l4x8(wf_off), l4x8(wb_off))
     return pack.tensor(), meta, size
 
 
@@ -256,10 +298,10 @@ def color_bwd_rows(weights, biases, small, feats, pose, g_rgb, skips: tuple,
                    squeeze_out: bool = True, bf16: bool = False):
     """Kernel I on CUDA tensors: (`color_bwd`'s result, deltas, xs) with
     the kernel's own per-point rows of its last chunk of CB_CHUNK points
-    (all of them for n <= CB_CHUNK): deltas[l] (n, out_l) is the delta of
-    layer l before its bf16 rounding, xs[l] (n, out_{l-1}) the recomputed
-    x input of layer l >= 1 (xs[0] is None), as it went into the products
-    and the ReLU mask."""
+    (all of them for n <= CB_CHUNK), in f32: deltas[l] (n, out_l) is the
+    delta of layer l as it went into the products (rounded to bf16 under
+    bf16), xs[l] (n, out_{l-1}) the recomputed x input of layer l >= 1
+    (xs[0] is None), as it went into the products and the ReLU mask."""
     n, S = small.shape
     F = feats.shape[1]
     P = 0 if pose is None else pose.shape[-1]
@@ -270,6 +312,14 @@ def color_bwd_rows(weights, biases, small, feats, pose, g_rgb, skips: tuple,
     feats = feats.float().contiguous()
     params, meta, size = _pack(weights, biases, S, F, P, skips, squeeze_out,
                                bf16, False)
+    wbf = None
+    if bf16:
+        outs = [w.shape[0] for w in weights]
+        if F % 32 or any(o % 32 for o in outs[:-1]):
+            raise ValueError('color_bwd kernel: its bf16 tensor-core '
+                             'products take feature and hidden widths '
+                             f'divisible by 32, not F={F}, widths {outs}')
+        wbf = pack_color_bf16(weights, S, F, P, skips)
     dev = small.device
     lib = _build.load()
     nblocks = lib.arah_color_bwd_blocks(n, meta)
@@ -284,7 +334,8 @@ def color_bwd_rows(weights, biases, small, feats, pose, g_rgb, skips: tuple,
     _build.check(lib.arah_color_bwd(
         small.data_ptr(), feats.data_ptr(),
         pose_t.data_ptr() if pose_t is not None else None, g_rgb.data_ptr(),
-        n, params.data_ptr(), meta, dsmall.data_ptr(), dfeats.data_ptr(),
+        n, params.data_ptr(), None if wbf is None else wbf.data_ptr(), meta,
+        dsmall.data_ptr(), dfeats.data_ptr(),
         partial.data_ptr(), nblocks, size, grads.data_ptr(), ws.data_ptr(),
         _build.stream_ptr(small)), 'color_bwd')
     _build.COUNTS['color_bwd'] += 1
@@ -298,10 +349,13 @@ def color_bwd_rows(weights, biases, small, feats, pose, g_rgb, skips: tuple,
         off += b.numel()
     dpose = grads[off:off + P].reshape(1, P) if P else None
     nc = n - (n - 1) // CB_CHUNK * CB_CHUNK
-    deltas = [ws[nc * meta.wd_off[l]:nc * (meta.wd_off[l] + w.shape[0])]
-              .reshape(nc, w.shape[0]) for l, w in enumerate(weights)]
-    xs = [None] + [ws[nc * meta.wx_off[l]:nc * (meta.wx_off[l] + w.shape[0])]
-                   .reshape(nc, w.shape[0])
+    rows = ws.view(torch.bfloat16) if bf16 else ws     # bf16 rows under bf16
+    deltas = [rows[nc * meta.wd_off[l]:nc * (meta.wd_off[l] + w.shape[0])]
+              .reshape(nc, w.shape[0]).float()
+              for l, w in enumerate(weights)]
+    xs = [None] + [rows[nc * meta.wx_off[l]:
+                        nc * (meta.wx_off[l] + w.shape[0])]
+                   .reshape(nc, w.shape[0]).float()
                    for l, w in enumerate(weights[:-1], start=1)]
     return (dW, db, dsmall, dfeats, dpose), deltas, xs
 

@@ -48,8 +48,8 @@ def pack_shade(gen: GeneratedMLP, bf16: bool):
 
 
 def pack_shade_bf16(gen: GeneratedMLP):
-    """Kernel H's tensor-core operands under bf16: the weights of the
-    hidden (H, H) layers 1..L-2 in bf16, each as it is (out, in) and
+    """Kernels C's and H's tensor-core operands under bf16: the weights of
+    the hidden (H, H) layers 1..L-2 in bf16, each as it is (out, in) and
     transposed, (L-2, 2, H, H). The values are those `pack_shade(gen,
     bf16=True)` stores (rounded to bf16, in f32)."""
     H = gen.weights[0].shape[0]
@@ -100,13 +100,18 @@ def siren_shade(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
     dout = gen.weights[-1].shape[0]
     _build.require(x, 'x', torch.float32, (n, din))
     params, meta = pack_shade(gen, bf16)
+    if bf16 and H % 32:
+        raise ValueError('shade kernel: its bf16 tensor-core products take '
+                         f'a hidden width divisible by 32, not {H}')
+    wbf = pack_shade_bf16(gen) if bf16 else None
     sdf = torch.empty((n, dout), dtype=torch.float32, device=x.device)
     feat = torch.empty((n, H), dtype=torch.bfloat16 if bf16 and not feat_f32
                        else torch.float32, device=x.device)
     grad = torch.empty((n, din), dtype=torch.float32, device=x.device)
     lib = _build.load()
-    _build.check(lib.arah_shade(x.data_ptr(), n, params.data_ptr(), meta,
-                                sdf.data_ptr(), feat.data_ptr(),
+    _build.check(lib.arah_shade(x.data_ptr(), n, params.data_ptr(),
+                                None if wbf is None else wbf.data_ptr(),
+                                meta, sdf.data_ptr(), feat.data_ptr(),
                                 int(feat_f32), grad.data_ptr(),
                                 _build.stream_ptr(x)),
                  'shade')

@@ -1,7 +1,7 @@
 """Differentiable fused shading of the training step: the C -> H op.
 
-`siren_shade_grad(gen, x, bf16)` returns (sdf (N, out), features
-(N, hidden), normal d(sdf[:, 0])/dx (N, 3)), all f32, as a
+`siren_shade_grad(gen, x, bf16, resid_bf16)` returns (sdf (N, out),
+features (N, hidden), normal d(sdf[:, 0])/dx (N, 3)), all f32, as a
 `torch.autograd.Function`. Its forward is the shading kernel C
 (csrc/shade.cu, features kept in f32 as the JAX training op returns them)
 and its backward the kernel H (csrc/shade_bwd.cu, the port of
@@ -154,12 +154,12 @@ def shade_bwd(gen: GeneratedMLP, x, g_out, g_feat, g_n, bf16: bool = False):
 
 class _ShadeGrad(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, bf16, n_layers, film, x, *leaves):
+    def forward(ctx, bf16, resid_bf16, n_layers, film, x, *leaves):
         gen = _unflatten(leaves, n_layers, film)
         ctx.bf16, ctx.n_layers, ctx.film = bf16, n_layers, film
         ctx.save_for_backward(x, *leaves)
         return siren_shade(gen, x.detach().contiguous(), bf16=bf16,
-                           feat_f32=True)
+                           resid_bf16=resid_bf16, feat_f32=True)
 
     @staticmethod
     def backward(ctx, g_out, g_feat, g_n):
@@ -171,8 +171,8 @@ class _ShadeGrad(torch.autograd.Function):
         g_feat = zeros(gen.weights[-1].shape[1]) if g_feat is None else g_feat
         g_n = zeros(x.shape[1]) if g_n is None else g_n
         dx, d = shade_bwd(gen, x, g_out, g_feat, g_n, ctx.bf16)
-        return (None, None, None, dx, *d.weights, *d.biases, *d.freqs,
-                *d.phases)
+        return (None, None, None, None, dx, *d.weights, *d.biases,
+                *d.freqs, *d.phases)
 
 
 def _unflatten(leaves, n_layers: int, film: bool) -> GeneratedMLP:
@@ -183,11 +183,15 @@ def _unflatten(leaves, n_layers: int, film: bool) -> GeneratedMLP:
                         tuple(leaves[2 * L + k:2 * L + 2 * k]))
 
 
-def siren_shade_grad(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False):
+def siren_shade_grad(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
+                     resid_bf16: bool = False):
     """The C -> H op: (sdf, features, normal) of the generated SIREN at
-    (N, 3) points, f32, differentiable in every leaf of `gen` and in x."""
+    (N, 3) points, f32, differentiable in every leaf of `gen` and in x.
+    `resid_bf16` (the TPU kernels' bf16 residents) reaches C, which raises
+    on a CUDA tensor (not ported) and, like JAX's CPU twin, ignores it on
+    a CPU tensor."""
     film = len(gen.freqs) > 0
-    return _ShadeGrad.apply(bool(bf16), len(gen.weights), film, x,
-                            *gen.weights, *gen.biases, *gen.freqs,
+    return _ShadeGrad.apply(bool(bf16), bool(resid_bf16), len(gen.weights),
+                            film, x, *gen.weights, *gen.biases, *gen.freqs,
                             *gen.phases)
 

@@ -147,17 +147,21 @@ def _detached(gen: GeneratedMLP) -> GeneratedMLP:
 
 
 def _shade_sdf(cfg: ModelConfig, gen: GeneratedMLP, flat_p,
-               training: bool = False, bf16: bool | None = None):
+               training: bool = False, bf16: bool | None = None,
+               resid_bf16: bool | None = None):
     """(sdf (N,), features, normals (N, 3)) of the generated SIREN. In
     training, differentiable in `gen` and the points: the C -> H op, or
-    siren_apply with a double-backward."""
+    siren_apply with a double-backward. `bf16` and `resid_bf16` default to
+    the config's `bf16_shading` and `shade_resid_bf16`."""
     bf16 = cfg.bf16_shading if bf16 is None else bf16
+    resid = cfg.shade_resid_bf16 if resid_bf16 is None else resid_bf16
     if training and cfg.use_pallas_shade_grad:
-        out, feats, grads = siren_shade_grad(gen, flat_p, bf16=bf16)
+        out, feats, grads = siren_shade_grad(gen, flat_p, bf16=bf16,
+                                             resid_bf16=resid)
         return out[:, 0], feats, grads
     if not training and cfg.use_pallas_shade:
         out, feats, grads = siren_shade(gen, flat_p, bf16=bf16,
-                                        resid_bf16=cfg.shade_resid_bf16)
+                                        resid_bf16=resid)
         return out[:, 0], feats, grads
     with torch.enable_grad():
         p = flat_p if flat_p.requires_grad \
@@ -325,9 +329,10 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
         'deviation': deviation_value(params['deviation']),
     }
     if training:
-        # the eikonal stays f32, like every other regulariser
+        # the eikonal stays f32, like every other regulariser, with f32
+        # residents (JAX hands its op neither flag)
         out['grad_theta'] = _shade_sdf(cfg, gen, inp.points_eik, True,
-                                       bf16=False)[2]
+                                       bf16=False, resid_bf16=False)[2]
         sdf_fn = make_sdf_fn(gen)
         if inp.points_uniform is not None:
             out['off_surface_sdf'] = sdf_fn(inp.points_uniform)

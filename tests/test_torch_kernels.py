@@ -481,6 +481,41 @@ class TestKernelPacks:
             assert torch.equal(w, gen.weights[i].bfloat16().float())
 
 
+    def test_color_bf16_pack_round_trips(self, rng):
+        """Kernel I's bf16 pack (flagship layout at a narrow width): at
+        each block's wf_off, the x, small or feats part of a hidden layer,
+        (out, width) rounded to bf16 as the plain version rounds it, with
+        its width zero-padded to a multiple of 32 (small: 33 -> 64); at
+        wb_off its transpose; no block for the pose parts or the last
+        layer; the blocks tile the pack."""
+        from arah_tpu_torch.ops.color import _pack, _parts, pack_color_bf16
+        S, F, Pw, H = 33, 64, 128, 64
+        d0 = S + F + Pw
+        dims = [(d0, H), (H, H), (H, H // 2), (d0 + H // 2, H), (H, H),
+                (H, 3)]
+        ws = [t(rng.randn(o, i).astype(np.float32)) for i, o in dims]
+        bs = [t(rng.randn(o).astype(np.float32)) for _, o in dims]
+        pack = pack_color_bf16(ws, S, F, Pw, (3,))
+        _, meta, _ = _pack(ws, bs, S, F, Pw, (3,), True, True, False)
+        assert pack.dtype == torch.bfloat16
+        L, seen = len(ws), 0
+        for l, comps in enumerate(_parts(ws, S, F, Pw, (3,))):
+            for c, (name, st, wd) in enumerate(comps):
+                if name == 'pose' or l == L - 1:
+                    assert meta.wf_off[l][c] == meta.wb_off[l][c] == 0
+                    continue
+                o, kp = ws[l].shape[0], -(-wd // 32) * 32
+                f = pack[meta.wf_off[l][c]:meta.wf_off[l][c] + o * kp]
+                b = pack[meta.wb_off[l][c]:meta.wb_off[l][c] + o * kp]
+                f, b = f.reshape(o, kp), b.reshape(kp, o)
+                assert torch.equal(f[:, :wd].float(),
+                                   ws[l][:, st:st + wd].bfloat16().float())
+                assert not bool(f[:, wd:].float().any())
+                assert torch.equal(b, f.T)
+                seen += 2 * o * kp
+        assert seen == pack.numel() and seen > 0
+
+
 class TestColorGrad:
     def _net(self, rng):
         S, F, Pw, H, n = 33, 64, 128, 64, 200

@@ -20,7 +20,7 @@ import torch
 
 from test_renderer import small_config
 from torch_port_util import (jax_scene, np_, port_cfg, port_frame,
-                             port_params, t)
+                             port_inputs, port_params, t)
 
 torch.set_num_threads(2)
 
@@ -160,6 +160,49 @@ def test_shade_samples_training(rng, cano):
             (path, np.abs(pg - g).max() / scale)
     # the colour, skinning, latent and hypernet leaves all got gradients
     assert n_grad >= 20, n_grad
+
+
+def test_shade_resid_bf16_reaches_the_op(rng, monkeypatch):
+    """`shade_resid_bf16` reaches kernel C through the C -> H op in a
+    training render: the shading call gets `resid_bf16=True`, the f32
+    eikonal call `False` (JAX hands its eikonal op neither flag). On a CPU
+    tensor C's plain version ignores the flag, as JAX's CPU twin does, so
+    every output equals the flag-off render's; on a CUDA tensor C raises
+    (bf16 residents are not ported)."""
+    from arah_tpu_torch.data.batch import draw_train_draws
+    from arah_tpu_torch.ops import shade_grad
+    from arah_tpu_torch.parallel.train_step import trainable
+    from arah_tpu_torch.render.renderer import render
+    cfg = small_config(train_skinning=True)
+    _, params, _, inp = jax_scene(cfg, rng, n_rays=8)
+    pp = trainable(port_params(params))
+    draws = draw_train_draws(np.random.RandomState(0), port_cfg(cfg), 1, 8,
+                             device='cpu')
+    pinp = port_inputs(inp)._replace(
+        points_uniform=torch.rand(16, 3) * 2 - 1,
+        points_inside=torch.randn(16, 3) * 0.1,
+        points_skinning=torch.randn(16, 3) * 0.2,
+        points_eik=draws.points_eik[0])
+    calls, real = [], shade_grad.siren_shade
+
+    def spy(gen, x, **kw):
+        calls.append((x.shape[0], kw.get('resid_bf16')))
+        return real(gen, x, **kw)
+    monkeypatch.setattr(shade_grad, 'siren_shade', spy)
+    outs = {}
+    for flag in (False, True):
+        calls.clear()
+        pcfg = port_cfg(cfg)._replace(shade_resid_bf16=flag)
+        outs[flag] = render(pp, pcfg, pinp, training=True,
+                            jitter=(draws.u1[0], draws.u2[0], draws.u3[0]))
+        n_eik = pcfg.n_eik_points
+        assert sorted(calls, key=lambda c: c[0] == n_eik) == \
+            [(calls[0][0], flag), (n_eik, False)], calls
+        assert calls[0][0] != n_eik
+    assert outs[False].keys() == outs[True].keys()
+    for k, v in outs[False].items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, outs[True][k]), k
 
 
 def test_loss_vs_jax(rng):
