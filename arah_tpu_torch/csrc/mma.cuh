@@ -1,4 +1,4 @@
-// The tile products of kernels C (shade.cu), H (shade_bwd.cu) and I
+// The tile products of kernels C (shade.cu), H (shade_bwd.cu), D and I
 // (color.cu): a tile of points' rows, f32 in shared memory, times a weight
 // matrix, for 256 threads (8 warps).
 //

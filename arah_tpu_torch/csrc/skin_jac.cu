@@ -11,25 +11,101 @@
 //
 // Bound on the H100: operations. A point costs the MLP's multiply-adds
 // four times (the primal and three tangents: 4 x (3x128 + 3x128x128 +
-// 128x25) ~ 0.21 M at the flagship) against 12 B in and 36 B out.
+// 128x25) ~ 0.21 M at the flagship) against 12 B in and 36 B out. G stays
+// f32, as the reference is: FMA on the CUDA cores, never TF32.
 //
-// Design: C's tile (tile_mlp.cuh): 256 threads over 16 points. The three
-// tangents ride along the primal as 48 more rows of one 64-row tile, so
-// each layer is one product of the same weights with 64 rows in shared
-// memory (ping-pong buffers, [row][unit]); each thread owns one unit of a
-// contiguous block of rows, so every weight it loads from L2 feeds up to
-// 32 FMAs. A second pass adds the bias to the primal rows and scales the
-// tangent rows by softplus100' of the primal pre-activation
-// (sigmoid(100 z), exactly 1 above the linear threshold, as JAX's
-// derivative of its `where`). The softmax, blend and LBS run per point
-// with their tangents in f32; exact expf/log1pf, no fast math. Any N: the
-// last tile is masked. No reduction.
+// Design: a block of 256 threads owns SJ_PTS = 16 points. The three
+// tangents ride along the primal, so each layer is one (64 rows x din) .
+// (din x dout) f32 product of the same weights, written as an SGEMM tile:
+// - Row 4p + t is point p's primal (t = 0) or its tangent along x_{t-1}.
+//   The activations live in shared memory k-major, act[k][row], so a
+//   thread's 4 rows of one k are one float4.
+// - The layer's (din, dout) weights, dout zero-padded to a multiple of 32
+//   (the 25 logits -> 32: exact zeros; ops/skin_jac.py:pack_skin_jac), are
+//   staged whole in shared memory with cp.async (64 KB at 128 x 128); the
+//   next layer's copy is in flight during this layer's epilogue.
+// - Thread (p, g) computes its point's 4 rows x UN units from unit UN g:
+//   UN = 8 on all 256 threads for the hidden layers, 4 on 128 threads for
+//   the padded logits. Per k, one LDS.128 of activations and UN / 4 of
+//   weights feed 4 UN FMAs (32 or 16: 8 or more a shared load). Each
+//   output's sum runs over k in order from 0, as a thread-per-unit loop
+//   sums it.
+// - The epilogue holds a point's primal and its tangents of a unit in one
+//   thread: it adds the bias to the primal, applies softplus100 and scales
+//   the tangents by softplus100' = sigmoid(100 z) (exactly 1 above the
+//   linear threshold, as JAX's derivative of its `where`), and writes the
+//   four back in place (the product's reads are done) as one float4; the
+//   logits, scaled, go to the same buffer row-major for the softmax.
+// The softmax, blend and LBS run per point with their tangents in f32,
+// the softmax on 48 threads (a point's three tangents); exact
+// expf/log1pf, no fast math. Shared memory: 32 KB of activations, 64 KB
+// of weights and ~12 KB static, two blocks per SM. Any N: the last tile
+// is masked. No reduction.
 #include "tile_mlp.cuh"
 
-#define SJ_PTS TILE_RAYS            // points per tile
-#define SJ_ROWS (4 * SJ_PTS)        // row t * SJ_PTS + p: t = 0 primal,
-                                    // t = 1 + k the tangent along x_k
-#define SJ_CHUNK 32                 // rows per accumulator pass
+#define SJ_PTS 16                   // points per tile
+#define SJ_ROWS (4 * SJ_PTS)        // row 4p + t: t = 0 primal, t = 1 + k
+                                    // the tangent along x_k
+#define SJ_MAXW 128                 // widest (padded) layer
+#define SJ_LDL 33                   // row stride of the logits rows (odd:
+                                    // the softmax's reads miss no bank)
+
+static_assert(SJ_PTS * 16 == TILE_THREADS, "16 unit groups of 16 points");
+static_assert(SJ_ROWS * SJ_LDL <= SJ_MAXW * SJ_ROWS, "logits fit in act");
+
+__host__ __device__ inline int sj_pad(int d) { return (d + 31) & ~31; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the copy of layer l's (din, pad(dout)) weights into ws.
+__device__ __forceinline__ void sj_stage_w(float* ws,
+                                           const float* __restrict__ P,
+                                           const NetMeta& m, int l) {
+  const float* src = P + m.skin_wt_off[l];
+  const int n4 = m.skin_dims[l] * sj_pad(m.skin_dims[l + 1]) / 4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    cp_async16(ws + 4 * i, src + 4 * i);
+}
+
+// acc[t][j] = sum over k < din, in order, of act[k][4p + t] ws[k][u0 + j].
+template <int UN>
+__device__ __forceinline__ void sj_product(const float* act, const float* ws,
+                                           int din, int ldw, int p, int u0,
+                                           float (&acc)[4][UN]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int j = 0; j < UN; ++j) acc[t][j] = 0.f;
+  const float* a = act + 4 * p;
+  const float* w = ws + u0;
+#pragma unroll 4
+  for (int k = 0; k < din; ++k) {
+    const float4 x4 = *reinterpret_cast<const float4*>(a + k * SJ_ROWS);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    float wv[UN];
+#pragma unroll
+    for (int q = 0; q < UN / 4; ++q) {
+      const float4 w4 =
+          *reinterpret_cast<const float4*>(w + k * ldw + 4 * q);
+      wv[4 * q] = w4.x;
+      wv[4 * q + 1] = w4.y;
+      wv[4 * q + 2] = w4.z;
+      wv[4 * q + 3] = w4.w;
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int j = 0; j < UN; ++j) acc[t][j] = fmaf(x[t], wv[j], acc[t][j]);
+  }
+}
 
 // Hierarchical softmax (tile_mlp.cuh:hier_softmax) and its tangent dp
 // along the logit tangent dc. The maxima only stabilise the exponentials
@@ -95,12 +171,12 @@ static __device__ void hier_softmax_jvp(const float* c, const float* dc,
   }
 }
 
-__global__ void __launch_bounds__(TILE_THREADS)
+__global__ void __launch_bounds__(TILE_THREADS, 2)
 skin_jac_kernel(const float* __restrict__ x_g, int n,
                 const float* __restrict__ bones_g,
                 const float* __restrict__ frame_g,
-                const float* __restrict__ P, NetMeta m, int ld,
-                float softmax_scale, float* __restrict__ jac_out) {
+                const float* __restrict__ P, NetMeta m, float softmax_scale,
+                float* __restrict__ jac_out) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float bones[N_BONES * 16];
   __shared__ float xs[SJ_PTS][3];
@@ -108,12 +184,15 @@ skin_jac_kernel(const float* __restrict__ x_g, int n,
   __shared__ float s_dw[3][SJ_PTS][N_BONES];
   __shared__ float s_T[SJ_PTS][16];
   __shared__ float s_dT[3][SJ_PTS][16];
-  float* cur = smem;                       // [SJ_ROWS][ld]
-  float* nxt = smem + SJ_ROWS * ld;
+  float* act = smem;                       // [SJ_MAXW][SJ_ROWS]
+  float* ws = smem + SJ_MAXW * SJ_ROWS;    // [din][pad(dout)]
   const int j = threadIdx.x;
+  const int pt = j % SJ_PTS, grp = j / SJ_PTS;   // the thread's point and
+                                                 // unit group
   const int p0 = blockIdx.x * SJ_PTS;
   const FrameAffine fa = frame_affine(frame_g);
 
+  sj_stage_w(ws, P, m, 0);
   for (int k = j; k < N_BONES * 16; k += blockDim.x) bones[k] = bones_g[k];
   if (j < SJ_PTS * 3) {
     const int p = j / 3, c = j % 3;
@@ -121,72 +200,70 @@ skin_jac_kernel(const float* __restrict__ x_g, int n,
   }
   __syncthreads();
   if (j < SJ_ROWS * 3) {
-    const int r = j / 3, c = j % 3, t = r / SJ_PTS, p = r % SJ_PTS;
-    cur[r * ld + c] = (t == 0) ? xs[p][c] * fa.nscale + fa.noff[c]
-                               : ((c == t - 1) ? fa.nscale : 0.f);
+    const int r = j / 3, c = j % 3, p = r / 4, t = r % 4;
+    act[c * SJ_ROWS + r] = (t == 0) ? xs[p][c] * fa.nscale + fa.noff[c]
+                                    : ((c == t - 1) ? fa.nscale : 0.f);
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  for (int l = 0; l < m.n_skin; ++l) {
+  const int L = m.n_skin;
+  for (int l = 0; l < L; ++l) {
     const int din = m.skin_dims[l], dout = m.skin_dims[l + 1];
-    const bool logits = (l == m.n_skin - 1);
-    const float* Wt = P + m.skin_wt_off[l];      // (din, dout)
-    const int G = TILE_THREADS / dout;            // groups of dout threads
-    const int unit = j % dout, grp = j / dout;
-    const int R = (SJ_ROWS + G - 1) / G;
-    if (grp < G) {
-      const int r_end = min(SJ_ROWS, (grp + 1) * R);
-      for (int c0 = grp * R; c0 < r_end; c0 += SJ_CHUNK) {
-        const int nr = min(SJ_CHUNK, r_end - c0);
-        float acc[SJ_CHUNK];
-#pragma unroll
-        for (int r = 0; r < SJ_CHUNK; ++r) acc[r] = 0.f;
-        for (int k = 0; k < din; ++k) {
-          const float w = __ldg(Wt + (long long)k * dout + unit);
-#pragma unroll
-          for (int r = 0; r < SJ_CHUNK; ++r)
-            if (r < nr) acc[r] = fmaf(cur[(c0 + r) * ld + k], w, acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < SJ_CHUNK; ++r)
-          if (r < nr) nxt[(c0 + r) * ld + unit] = acc[r];
-      }
-    }
-    __syncthreads();
-    // bias and activation: one thread per (point, unit) owns its 4 rows
+    const int ldw = sj_pad(dout);
     const float* b = P + m.skin_b_off[l];
-    for (int e = j; e < SJ_PTS * dout; e += blockDim.x) {
-      const int p = e / dout, u = e % dout;
-      const float z = nxt[p * ld + u] + __ldg(b + u);
-      if (logits) {
+    if (l < L - 1) {
+      // hidden: softplus100 on the primal, its derivative on the tangents
+      const bool on = 8 * grp < ldw;
+      float acc[4][8];
+      if (on) sj_product<8>(act, ws, din, ldw, pt, 8 * grp, acc);
+      __syncthreads();                   // every read of act and ws is done
+      sj_stage_w(ws, P, m, l + 1);
+      if (on) {
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float v = t == 0 ? z : nxt[(t * SJ_PTS + p) * ld + u];
-          nxt[(t * SJ_PTS + p) * ld + u] = v * softmax_scale;
+        for (int u8 = 0; u8 < 8; ++u8) {
+          const int u = 8 * grp + u8;
+          const float z = acc[0][u8] + __ldg(b + u);
+          const float bz = 100.f * z;
+          float d = 1.f;
+          if (!(bz > 20.f)) {
+            const float ez = expf(bz);
+            d = ez / (1.f + ez);
+          }
+          *reinterpret_cast<float4*>(act + u * SJ_ROWS + 4 * pt) =
+              make_float4(softplus100(z), acc[1][u8] * d, acc[2][u8] * d,
+                          acc[3][u8] * d);
         }
-      } else {
-        const float bz = 100.f * z;
-        float d = 1.f;
-        if (!(bz > 20.f)) {
-          const float ez = expf(bz);
-          d = ez / (1.f + ez);
-        }
-        nxt[p * ld + u] = softplus100(z);
+      }
+    } else {
+      // the logits, scaled: row t * SJ_PTS + p of stride SJ_LDL
+      const bool on = 4 * grp < ldw;
+      float acc[4][4];
+      if (on) sj_product<4>(act, ws, din, ldw, pt, 4 * grp, acc);
+      __syncthreads();
+      if (on) {
 #pragma unroll
-        for (int t = 1; t < 4; ++t) nxt[(t * SJ_PTS + p) * ld + u] *= d;
+        for (int u4 = 0; u4 < 4; ++u4) {
+          const int u = 4 * grp + u4;
+          if (u >= dout) continue;
+          const float z = acc[0][u4] + __ldg(b + u);
+          act[pt * SJ_LDL + u] = z * softmax_scale;
+#pragma unroll
+          for (int t = 1; t < 4; ++t)
+            act[(t * SJ_PTS + pt) * SJ_LDL + u] = acc[t][u4] * softmax_scale;
+        }
       }
     }
+    cp_async_wait_all();
     __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
   }
 
   // hierarchical softmax and its three tangents: thread (k, p)
   if (j < 3 * SJ_PTS) {
     const int k = j / SJ_PTS, p = j % SJ_PTS;
     float w[N_BONES], dw[N_BONES];
-    hier_softmax_jvp(cur + p * ld, cur + ((1 + k) * SJ_PTS + p) * ld, w, dw);
+    hier_softmax_jvp(act + p * SJ_LDL, act + ((1 + k) * SJ_PTS + p) * SJ_LDL,
+                     w, dw);
 #pragma unroll
     for (int bb = 0; bb < N_BONES; ++bb) {
       s_dw[k][p][bb] = dw[bb];
@@ -221,21 +298,34 @@ skin_jac_kernel(const float* __restrict__ x_g, int n,
   }
 }
 
+// Bytes of dynamic shared memory a block of kernel G takes: the
+// activations and the widest layer's padded weights.
+static size_t skin_jac_smem(const NetMeta& m) {
+  int w = 0;
+  for (int l = 0; l < m.n_skin; ++l)
+    w = max(w, m.skin_dims[l] * sj_pad(m.skin_dims[l + 1]));
+  return (size_t)(SJ_MAXW * SJ_ROWS + w) * sizeof(float);
+}
+
+extern "C" long long arah_skin_jac_smem(NetMeta m) {
+  return (long long)skin_jac_smem(m);
+}
+
+// J (n, 3, 3) at x (n, 3). `params`: ops/skin_jac.py:pack_skin_jac (each
+// layer's (in, pad32(out)) weights and padded bias, 16-byte aligned);
+// widths 3, ..., 25 with hidden widths of at most SJ_MAXW.
 extern "C" int arah_skin_jac(const float* x, int n, const float* bones16,
                              const float* frame, const float* params,
                              NetMeta m, float softmax_scale, float* jac,
                              void* stream) {
   if (n <= 0) return 0;
-  int ld = 0;
-  for (int l = 0; l <= m.n_skin; ++l) ld = max(ld, m.skin_dims[l]);
-  ld = (ld + 3) & ~3;
-  const size_t smem = (size_t)2 * SJ_ROWS * ld * sizeof(float);
+  const size_t smem = skin_jac_smem(m);
   cudaError_t e = cudaFuncSetAttribute(
       skin_jac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (n + SJ_PTS - 1) / SJ_PTS;
   skin_jac_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(
-      x, n, bones16, frame, params, m, ld, softmax_scale, jac);
+      x, n, bones16, frame, params, m, softmax_scale, jac);
   return launch_status();
 }

@@ -163,7 +163,8 @@ def load():
                               _F, _F, _F, _F, _P, _P, _P, _P, _P]
     lib.arah_shade.argtypes = [_P, _I, _P, _P, ShadeMeta, _P, _P, _I, _P,
                                 _P]
-    lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, ColorMeta, _P, _P]
+    lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, _P, ColorMeta, _P,
+                                   _P, _P]
     lib.arah_march.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                                NetMeta, _I, _F, _F, _P, _P, _P, _P, _P, _P]
     lib.arah_iso.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
@@ -185,6 +186,10 @@ def load():
     lib.arah_shade_smem.restype = ctypes.c_longlong
     lib.arah_color_bwd_smem.argtypes = [ColorMeta]
     lib.arah_color_bwd_smem.restype = ctypes.c_longlong
+    lib.arah_color_fwd_smem.argtypes = [ColorMeta]
+    lib.arah_color_fwd_smem.restype = ctypes.c_longlong
+    lib.arah_skin_jac_smem.argtypes = [NetMeta]
+    lib.arah_skin_jac_smem.restype = ctypes.c_longlong
     for fn in (lib.arah_knn, lib.arah_corr, lib.arah_shade,
                lib.arah_color_fwd, lib.arah_march, lib.arah_iso,
                lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd,
@@ -202,8 +207,14 @@ class ParamPack:
     def __init__(self):
         self.blocks, self.total = [], 0
 
-    def put(self, t) -> int:
+    def put(self, t, align: int = 1) -> int:
+        """`align`: the block starts at a multiple of `align` floats
+        (zeros before it)."""
         t = t.float().reshape(-1)
+        pad = -self.total % align
+        if pad:
+            self.blocks.append(t.new_zeros(pad))
+            self.total += pad
         self.blocks.append(t)
         self.total += t.numel()
         return self.total - t.numel()

@@ -149,11 +149,17 @@ def _bf16_blocks(parts):
 
 
 def pack_color_bf16(weights, S: int, F: int, P: int, skips: tuple):
-    """Kernel I's tensor-core operands under bf16: for each block of
-    `_bf16_blocks`, the part's weights (out, width) rounded to bf16 with
-    the width zero-padded to the next multiple of 32, then their transpose
-    (padded width, out); one flat bf16 tensor. The offsets are
-    ColorMeta's wf_off and wb_off (`_pack`)."""
+    """The tensor-core operands of kernels D and I under bf16: for each
+    block of `_bf16_blocks`, the part's weights (out, width) rounded to
+    bf16 with the width zero-padded to the next multiple of 32 (D and I
+    read this one), then their transpose (padded width, out; I only); one
+    flat bf16 tensor. The offsets are ColorMeta's wf_off and wb_off
+    (`_pack`)."""
+    outs = [w.shape[0] for w in weights]
+    if F % 32 or any(o % 32 for o in outs[:-1]):
+        raise ValueError('color kernels: their bf16 tensor-core products '
+                         'take feature and hidden widths divisible by 32, '
+                         f'not F={F}, widths {outs}')
     out = []
     for l, _, st, wd in _bf16_blocks(_parts(weights, S, F, P, skips)):
         w = torch.nn.functional.pad(
@@ -216,7 +222,7 @@ def _pack(weights, biases, S: int, F: int, P: int, skips: tuple,
     for l in range(L):
         wx_off.append(cols if l > 0 else 0)
         cols += outs[l - 1] if l > 0 else 0
-    # kernel I's bf16 weight blocks (pack_color_bf16), element offsets
+    # the bf16 weight blocks of D and I (pack_color_bf16), element offsets
     wf_off = [[0] * 4 for _ in range(L)]
     wb_off = [[0] * 4 for _ in range(L)]
     off = 0
@@ -261,41 +267,67 @@ def _check_inputs(small, feats, pose):
     return pose.detach().reshape(-1).float().contiguous()
 
 
-def color_fwd(weights, biases, small, feats, pose, skips: tuple,
-              squeeze_out: bool = True, bf16: bool = False):
-    """Kernel D: rgb (N, out) of the colour MLP (see `color_mlp_plain`)."""
-    if not small.is_cuda:
-        return color_mlp_plain(weights, biases, small, feats, pose, skips,
-                               squeeze_out, bf16)
-    n, S = small.shape
+def color_fwd_operands(weights, biases, small, feats, pose, skips: tuple,
+                       squeeze_out: bool = True, bf16: bool = False,
+                       wbf=None):
+    """Kernel D's operands for CUDA inputs, as `color_fwd_launch` takes
+    them: (params, meta, wbf, pose row). `wbf`: under bf16,
+    `pack_color_bf16` of the weights when the caller has it (built here
+    otherwise)."""
+    S, F = small.shape[1], feats.shape[1]
     P = 0 if pose is None else pose.shape[-1]
     pose_t = _check_inputs(small, feats, pose)
-    params, meta, _ = _pack(weights, biases, S, feats.shape[1], P, skips,
-                            squeeze_out, bf16, feats.dtype == torch.bfloat16)
-    rgb = torch.empty((n, weights[-1].shape[0]), dtype=torch.float32,
+    params, meta, _ = _pack(weights, biases, S, F, P, skips, squeeze_out,
+                            bf16, feats.dtype == torch.bfloat16)
+    if bf16 and wbf is None:
+        wbf = pack_color_bf16(weights, S, F, P, skips)
+    return params, meta, wbf if bf16 else None, pose_t
+
+
+def color_fwd_launch(params, meta, wbf, pose_t, small, feats):
+    """Launch kernel D on `color_fwd_operands`' operands: rgb (N, out)."""
+    n = small.shape[0]
+    rgb = torch.empty((n, meta.out[meta.n_layers - 1]), dtype=torch.float32,
                       device=small.device)
+    # scratch: the hidden layers' pose sums, computed once a call
+    pose_sum = torch.empty((meta.n_layers * meta.hmax,), dtype=torch.float32,
+                           device=small.device)
     lib = _build.load()
     _build.check(lib.arah_color_fwd(
         small.data_ptr(), feats.data_ptr(),
         pose_t.data_ptr() if pose_t is not None else None, n,
-        params.data_ptr(), meta, rgb.data_ptr(), _build.stream_ptr(small)),
+        params.data_ptr(), None if wbf is None else wbf.data_ptr(), meta,
+        rgb.data_ptr(), pose_sum.data_ptr(), _build.stream_ptr(small)),
         'color_fwd')
     _build.COUNTS['color_fwd'] += 1
     return rgb
 
 
+def color_fwd(weights, biases, small, feats, pose, skips: tuple,
+              squeeze_out: bool = True, bf16: bool = False, wbf=None):
+    """Kernel D: rgb (N, out) of the colour MLP (see `color_mlp_plain`).
+    `wbf`: as for `color_fwd_operands`."""
+    if not small.is_cuda:
+        return color_mlp_plain(weights, biases, small, feats, pose, skips,
+                               squeeze_out, bf16)
+    return color_fwd_launch(*color_fwd_operands(
+        weights, biases, small, feats, pose, skips, squeeze_out, bf16, wbf),
+        small, feats)
+
+
 def color_bwd(weights, biases, small, feats, pose, g_rgb, skips: tuple,
-              squeeze_out: bool = True, bf16: bool = False):
-    """Kernel I: the backward of kernel D (see `color_mlp_bwd_plain`)."""
+              squeeze_out: bool = True, bf16: bool = False, wbf=None):
+    """Kernel I: the backward of kernel D (see `color_mlp_bwd_plain`).
+    `wbf`: as for `color_fwd_operands`."""
     if not small.is_cuda:
         return color_mlp_bwd_plain(weights, biases, small, feats, pose, g_rgb,
                                    skips, squeeze_out, bf16)
     return color_bwd_rows(weights, biases, small, feats, pose, g_rgb, skips,
-                          squeeze_out, bf16)[0]
+                          squeeze_out, bf16, wbf)[0]
 
 
 def color_bwd_rows(weights, biases, small, feats, pose, g_rgb, skips: tuple,
-                   squeeze_out: bool = True, bf16: bool = False):
+                   squeeze_out: bool = True, bf16: bool = False, wbf=None):
     """Kernel I on CUDA tensors: (`color_bwd`'s result, deltas, xs) with
     the kernel's own per-point rows of its last chunk of CB_CHUNK points
     (all of them for n <= CB_CHUNK), in f32: deltas[l] (n, out_l) is the
@@ -312,13 +344,9 @@ def color_bwd_rows(weights, biases, small, feats, pose, g_rgb, skips: tuple,
     feats = feats.float().contiguous()
     params, meta, size = _pack(weights, biases, S, F, P, skips, squeeze_out,
                                bf16, False)
-    wbf = None
-    if bf16:
-        outs = [w.shape[0] for w in weights]
-        if F % 32 or any(o % 32 for o in outs[:-1]):
-            raise ValueError('color_bwd kernel: its bf16 tensor-core '
-                             'products take feature and hidden widths '
-                             f'divisible by 32, not F={F}, widths {outs}')
+    if not bf16:
+        wbf = None
+    elif wbf is None:
         wbf = pack_color_bf16(weights, S, F, P, skips)
     dev = small.device
     lib = _build.load()
@@ -367,8 +395,15 @@ class _ColorMLP(torch.autograd.Function):
         weights, biases = wb[:n_layers], wb[n_layers:]
         ctx.cfg = (skips, squeeze_out, bf16, n_layers)
         ctx.save_for_backward(small, feats, pose, *wb)
+        # the bf16 weight blocks, built once for D and I
+        ctx.wbf = None
+        if bf16 and small.is_cuda:
+            ctx.wbf = pack_color_bf16(weights, small.shape[1],
+                                      feats.shape[1],
+                                      0 if pose is None else pose.shape[-1],
+                                      skips)
         return color_fwd(weights, biases, small, feats, pose, skips,
-                         squeeze_out, bf16)
+                         squeeze_out, bf16, ctx.wbf)
 
     @staticmethod
     def backward(ctx, g_rgb):
@@ -376,7 +411,7 @@ class _ColorMLP(torch.autograd.Function):
         small, feats, pose, *wb = ctx.saved_tensors
         dW, db, dsmall, dfeats, dpose = color_bwd(
             wb[:L], wb[L:], small, feats, pose, g_rgb, skips, squeeze_out,
-            bf16)
+            bf16, ctx.wbf)
         if dpose is not None:
             dpose = dpose.reshape(pose.shape)
         return (None, None, None, None, dsmall, dfeats.to(feats.dtype),

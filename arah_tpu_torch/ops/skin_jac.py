@@ -39,6 +39,29 @@ def skinning_jac_plain(x_hat, skin_weights, skin_biases,
     return torch.stack(cols, dim=-1)
 
 
+def pack_skin_jac(skin_weights, skin_biases):
+    """Kernel G's operands: (f32 buffer, NetMeta). Per layer the (in, out)
+    transposed weights and the bias, with out zero-padded to a multiple of
+    32 (the 25 logits -> 32; the padding adds exact zeros), each block at a
+    multiple of 4 floats (the kernel copies them 16 bytes at a time)."""
+    pack = _build.ParamPack()
+    wt, bo = [], []
+    for w, b in zip(skin_weights, skin_biases):
+        pad = -w.shape[0] % 32
+        wt.append(pack.put(torch.nn.functional.pad(w.detach().T, (0, pad)),
+                           align=4))
+        bo.append(pack.put(torch.nn.functional.pad(b.detach(), (0, pad)),
+                           align=4))
+    dims = [skin_weights[0].shape[1]] + [w.shape[0] for w in skin_weights]
+    sk = _build.ctypes.c_longlong * 8
+    zeros = [0] * (8 - len(skin_weights))
+    meta = _build.NetMeta(
+        n_skin=len(skin_weights),
+        skin_dims=(_build._I * 9)(*(dims + [0] * (9 - len(dims)))),
+        skin_wt_off=sk(*(wt + zeros)), skin_b_off=sk(*(bo + zeros)))
+    return pack.tensor(), meta
+
+
 def skinning_jac(x_hat, skin_weights, skin_biases, frame: CanonicalFrame,
                  softmax_scale: float = 20.0):
     """Kernel G. x_hat (N, 3) metric canonical points; dense (out, in)
@@ -51,20 +74,12 @@ def skinning_jac(x_hat, skin_weights, skin_biases, frame: CanonicalFrame,
     n = x_hat.shape[0]
     dims = [skin_weights[0].shape[1]] + [w.shape[0] for w in skin_weights]
     if dims[0] != 3 or dims[-1] != 25 or len(skin_weights) > 8 \
-            or max(dims[1:]) > 256:
-        raise ValueError(f'skin_jac kernel: unsupported skinning MLP {dims}')
+            or max(dims[1:]) > 128:
+        raise ValueError(f'skin_jac kernel: unsupported skinning MLP {dims}'
+                         ' (3 -> hidden widths of at most 128 -> 25)')
     x_hat = x_hat.contiguous()
     _build.require(x_hat, 'x_hat', torch.float32, (n, 3))
-    pack = _build.ParamPack()
-    sk = _build.ctypes.c_longlong * 8
-    pad = [0] * (8 - len(skin_weights))
-    skin_wt = [pack.put(w.detach().T.contiguous()) for w in skin_weights]
-    skin_b = [pack.put(b.detach()) for b in skin_biases]
-    meta = _build.NetMeta(
-        n_skin=len(skin_weights),
-        skin_dims=(_build._I * 9)(*(dims + [0] * (9 - len(dims)))),
-        skin_wt_off=sk(*(skin_wt + pad)), skin_b_off=sk(*(skin_b + pad)))
-    params = pack.tensor()
+    params, meta = pack_skin_jac(skin_weights, skin_biases)
     bones16 = frame.bone_transforms.detach().reshape(24, 16).contiguous()
     fvec = frame_vec(frame)
     jac = torch.empty((n, 3, 3), dtype=torch.float32, device=x_hat.device)

@@ -17,7 +17,9 @@
    resumed for 34 iterations, F from scratch at 50 steps); A knn, B corr
    (its `active` set too; also through the straggler split at its phase-2
    shape), C shade (at both precisions, called twice: the same bits),
-   D color_fwd.
+   D color_fwd (f32, and bf16 on bf16 and on f32 features, each called
+   twice: the same bits; timed with its operands packed outside the timed
+   region, the wrapper's time printed beside it).
 4. Drives the port's main path: `render(training=False)` of the flagship
    scene for 3 frames of different poses, with the kernel launch counts
    set to 0 just before and read just after; traces one frame with
@@ -42,7 +44,7 @@
    kernels G (skin_jac), H (shade_bwd: the shading at N points in bf16
    and the eikonal at 1,024 points in f32) and I (color_bwd, in bf16 and
    in f32); each is held against its plain version on them and timed,
-   and H and I must each give the same bits on two calls. Then the main
+   and G, H and I must each give the same bits on two calls. Then the main
    path of this phase: one step with the launch counts set to 0 just
    before and read just after, then timed steps; one profiled step; and
    one step with every kernel against one with every plain path (splits
@@ -216,7 +218,9 @@ def main():
     from arah_tpu_torch.core.embedder import positional_encoding
     from arah_tpu_torch.nn.layers import wn_weight
     from arah_tpu_torch.nn.skinning import skinning_dense_params
-    from arah_tpu_torch.ops.color import color_mlp_fused, color_mlp_plain
+    from arah_tpu_torch.ops.color import (color_fwd_launch,
+                                          color_fwd_operands,
+                                          color_mlp_fused, color_mlp_plain)
     from arah_tpu_torch.ops.corr import (corr_search, corr_search_plain,
                                          dense_skin_fn)
     from arah_tpu_torch.ops.knn import nn_idx, nn_idx_plain
@@ -411,7 +415,10 @@ def main():
         src='arah_tpu_torch/csrc/shade.cu',
         rep='arah_tpu/ops/pallas/shade_kernel.py:113')
 
-    # ---- D: color forward, features from C, random view dirs/normals
+    # ---- D: color forward, features from C, random view dirs/normals.
+    # bf16: the eval layout (C's bf16 features) and the training one (f32
+    # features, here C's f32 ones); f32: C's f32 features. Each launch is
+    # called twice (the same bits).
     cw = [wn_weight(l) for l in params['color']['layers']]
     cb = [l['b'] for l in params['color']['layers']]
     vd = torch.nn.functional.normalize(torch.randn((n_pts, 3), generator=g),
@@ -421,30 +428,43 @@ def main():
     pose = params['latent'][0][None]
     skips = tuple(cfg.color.skips)
     color_rec = {}
-    for bf in (False, True):
+    for bf, fbf in ((False, False), (True, True), (True, False)):
         no_tf32()
-        feats = shade_rec[bf][1]
+        feats = shade_rec[fbf][1]
         rk_ = color_mlp_fused(cw, cb, small, feats, pose, skips, bf16=bf)
+        same = torch.equal(rk_, color_mlp_fused(cw, cb, small, feats, pose,
+                                                skips, bf16=bf))
         rp_ = color_mlp_plain(cw, cb, small, feats, pose, skips, bf16=bf)
         d = (rk_ - rp_).abs()
-        msg = (f'D color_fwd bf16={bf}: max |d rgb| {float(d.max()):.3e}, '
-               f'median {float(d.median()):.3e}, p99.9 {q(d, .999):.3e}')
+        msg = (f'D color_fwd bf16={bf} feats {feats.dtype}: max |d rgb| '
+               f'{float(d.max()):.3e}, median {float(d.median()):.3e}, '
+               f'p99.9 {q(d, .999):.3e}; two calls bit-equal {same}')
         if bf:
             print(msg + ' (bounds median 1e-4, p99.9 1e-2)', flush=True)
             check(float(d.median()) < 1e-4 and q(d, .999) < 1e-2,
-                  'color kernel (bf16) disagrees with its plain version')
+                  f'color kernel (bf16, feats {feats.dtype}) disagrees '
+                  'with its plain version')
         else:
             print(msg + ' (bound max 1e-4)', flush=True)
             check(float(d.max()) < 1e-4,
                   'color kernel (f32) disagrees with its plain version')
-        color_rec[bf] = float(d.max())
+        check(same, f'color kernel (bf16={bf}, feats {feats.dtype}): two '
+              'calls differ')
+        color_rec[bf, fbf] = float(d.max())
     bf = cfg.bf16_shading
     feats = shade_rec[bf][1]
+    ops_d = color_fwd_operands(cw, cb, small, feats, pose, skips, bf16=bf)
+    print(f'  D shared memory per block: '
+          f'{_build.load().arah_color_fwd_smem(ops_d[1])} B (dynamic, '
+          f'bf16={bf})', flush=True)
     macs_d = sum(w.shape[0] * w.shape[1] for w in cw)
+    # the kernel's time with its operands packed outside the timed region
+    # (the kernels line); the wrapper's (pack and launch) beside it
+    ms_wrap = timed(lambda: color_mlp_fused(cw, cb, small, feats, pose,
+                                            skips, bf16=bf), REPS)
     records['color_fwd'] = dict(
-        max_abs_err=color_rec[bf],
-        ms=timed(lambda: color_mlp_fused(cw, cb, small, feats, pose, skips,
-                                         bf16=bf), REPS),
+        max_abs_err=color_rec[bf, bf],
+        ms=timed(lambda: color_fwd_launch(*ops_d, small, feats), REPS),
         plain_ms=timed(lambda: color_mlp_plain(cw, cb, small, feats, pose,
                                                skips, bf16=bf), REPS),
         bound=bound(n_pts * (small.shape[1] * 4 + feats.shape[1]
@@ -452,6 +472,10 @@ def main():
                     n_pts * 2.0 * macs_d, PEAK_BF16 if bf else PEAK_F32),
         src='arah_tpu_torch/csrc/color.cu',
         rep='arah_tpu/ops/pallas/color_kernel.py:214')
+    print(f'  D: kernel {records["color_fwd"]["ms"]:.3f} ms (operands '
+          f'packed outside), wrapper {ms_wrap:.3f} ms (pack and launch) '
+          f'[{card}]', flush=True)
+    del ops_d
     del xs, small, feats, shade_rec, res
     torch.cuda.empty_cache()
 
@@ -1226,17 +1250,24 @@ def check_skin_jac(args, card):
     its median < 1e-5 (f32 on both sides, reassociation only)."""
     import torch
     from arah_tpu_torch.ops.skin_jac import skinning_jac, skinning_jac_plain
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.ops.skin_jac import pack_skin_jac
     x_hat, wts, bs = args[0], args[1], args[2]
+    print(f'G shared memory per block: '
+          f'{_build.load().arah_skin_jac_smem(pack_skin_jac(wts, bs)[1])} B '
+          '(dynamic)', flush=True)
     jk, jp = skinning_jac(*args), skinning_jac_plain(*args)
+    same = torch.equal(jk, skinning_jac(*args))
     d = (jk - jp).abs().amax(dim=(1, 2))
     rel = d / jp.abs().amax(dim=(1, 2)).clamp(min=1e-30)
     n = x_hat.shape[0]
     print(f'G skin_jac ({n} points, f32): per-point |dJ| / max|J| median '
           f'{float(rel.median()):.3e} (bound 1e-5) p99.9 {q(rel, .999):.3e}'
           f' max {float(rel.max()):.3e} (bound 1e-3); max |dJ| '
-          f'{float(d.max()):.3e}', flush=True)
+          f'{float(d.max()):.3e}; two calls bit-equal {same}', flush=True)
     check(float(rel.median()) < 1e-5 and float(rel.max()) < 1e-3,
           'skin_jac kernel disagrees with its plain version')
+    check(same, 'skin_jac kernel: two calls differ')
     macs = sum(w.numel() for w in wts)
     # the primal and three tangents through the MLP, four bone blends,
     # ~400 flops of softmax tangents and LBS per point
@@ -1322,6 +1353,9 @@ def check_color_bwd(args, card, tol):
     import torch
     from arah_tpu_torch.ops import _build
     from arah_tpu_torch.ops.color import _pack, color_bwd, color_mlp_bwd_plain
+    # the step's call also hands I the forward's bf16 weight pack; the
+    # check builds its own, as the wrapper does when it is not given one
+    args = args[:9]
     weights, small, feats, pose, bf16 = args[0], args[2], args[3], args[4], \
         args[8]
     meta = _pack(weights, args[1], small.shape[1], feats.shape[1],

@@ -516,6 +516,98 @@ class TestKernelPacks:
         assert seen == pack.numel() and seen > 0
 
 
+    @pytest.mark.parametrize('bf16,feats_bf16', [(True, True),
+                                                 (True, False),
+                                                 (False, False)])
+    def test_color_fwd_operands_walk_to_plain(self, rng, bf16, feats_bf16):
+        """Kernel D's operands (flagship layout at a narrow width; the
+        eval layout has bf16 features, training f32): under bf16 each
+        hidden part's block at wf_off is that part of the weights rounded
+        to bf16 as `color_mlp_plain` rounds them, its width zero-padded to
+        a multiple of 32; and the forward walked as D's launch reads its
+        operands (bias, then the parts in order, each from its block, the
+        pose part and the last layer from the f32 buffer, small rows
+        zero-padded) gives `color_mlp_plain`'s rgb, up to reassociation
+        (a hidden value may round to the other bf16 neighbour: 1e-4)."""
+        from arah_tpu_torch.ops.color import (_pack, _pad32, _parts,
+                                              color_mlp_plain,
+                                              pack_color_bf16)
+        S, F, Pw, H, n = 33, 64, 128, 64, 200
+        d0 = S + F + Pw
+        dims = [(d0, H), (H, H), (H, H // 2), (d0 + H // 2, H), (H, H),
+                (H, 3)]
+        ws = [t(rng.randn(o, i).astype(np.float32) / np.sqrt(i))
+              for i, o in dims]
+        bs = [t(rng.randn(o).astype(np.float32) * 0.1) for _, o in dims]
+        small = t(rng.randn(n, S).astype(np.float32))
+        feats = t(rng.uniform(-1, 1, (n, F)).astype(np.float32))
+        if feats_bf16:
+            feats = feats.bfloat16()
+        pose = t(rng.randn(1, Pw).astype(np.float32))
+        params, meta, _ = _pack(ws, bs, S, F, Pw, (3,), True, bf16,
+                                feats_bf16)
+        wbf = pack_color_bf16(ws, S, F, Pw, (3,)) if bf16 else None
+        assert meta.bf16 == int(bf16) and meta.feats_bf16 == int(feats_bf16)
+        r = (lambda a: a.bfloat16().float()) if bf16 else (lambda a: a)
+        rows = {1: torch.nn.functional.pad(r(small), (0, _pad32(S) - S)),
+                2: r(feats.float())}
+        ps = r(pose)
+        L, x = len(ws), None
+        for l, comps in enumerate(_parts(ws, S, F, Pw, (3,))):
+            out = meta.out[l]
+            z = params[meta.b_off[l]:meta.b_off[l] + out].expand(n, out)
+            for c, (name, st, wd) in enumerate(comps):
+                assert meta.kind[l][c] == {'x': 0, 'small': 1, 'feats': 2,
+                                           'pose': 3}[name]
+                if bf16 and name != 'pose' and l < L - 1:
+                    kp = _pad32(wd)
+                    blk = wbf[meta.wf_off[l][c]:meta.wf_off[l][c] + out * kp]
+                    blk = blk.reshape(out, kp).float()
+                    assert torch.equal(
+                        blk[:, :wd], ws[l][:, st:st + wd].bfloat16().float())
+                    assert not bool(blk[:, wd:].any())
+                    a = x if name == 'x' else rows[meta.kind[l][c]]
+                    z = z + a[:, :kp] @ blk.T
+                    continue
+                wt = params[meta.w_off[l][c]:meta.w_off[l][c] + wd * out]
+                assert torch.equal(wt.reshape(wd, out),
+                                   r(ws[l][:, st:st + wd]).T)
+                a = ps if name == 'pose' else (
+                    x if name == 'x' else rows[meta.kind[l][c]][:, :wd])
+                z = z + a @ wt.reshape(wd, out)
+            if l < L - 1:
+                x = r(torch.relu(z))
+        walked = torch.sigmoid(z)
+        ref = color_mlp_plain(ws, bs, small, feats, pose, (3,), bf16=bf16)
+        assert float((walked - ref).abs().max()) < 1e-4
+
+    @pytest.mark.parametrize('dims', [(3, 128, 128, 128, 128, 25),
+                                      (3, 100, 100, 25)])
+    def test_skin_jac_pack_pads_with_zeros(self, rng, dims):
+        """Kernel G's pack: per layer the (in, out) transposed weights and
+        the bias with out zero-padded to a multiple of 32 (the 25 logits
+        -> 32, a 100-wide hidden layer -> 128), exact zeros in the padding,
+        every block at a multiple of 4 floats (16-byte copies), and the
+        NetMeta of the true widths."""
+        from arah_tpu_torch.ops.skin_jac import pack_skin_jac
+        ws = [t(rng.randn(o, i).astype(np.float32))
+              for i, o in zip(dims[:-1], dims[1:])]
+        bs = [t(rng.randn(o).astype(np.float32)) for o in dims[1:]]
+        params, meta = pack_skin_jac(ws, bs)
+        assert meta.n_skin == len(ws)
+        assert list(meta.skin_dims)[:len(dims)] == list(dims)
+        for l, (w, b) in enumerate(zip(ws, bs)):
+            o, i = w.shape
+            op = -(-o // 32) * 32
+            wo, bo = meta.skin_wt_off[l], meta.skin_b_off[l]
+            assert wo % 4 == 0 and bo % 4 == 0
+            blk = params[wo:wo + i * op].reshape(i, op)
+            assert torch.equal(blk[:, :o], w.T)
+            assert not bool(blk[:, o:].any())
+            assert torch.equal(params[bo:bo + o], b)
+            assert not bool(params[bo + o:bo + op].any())
+
+
 class TestColorGrad:
     def _net(self, rng):
         S, F, Pw, H, n = 33, 64, 128, 64, 200
