@@ -55,16 +55,6 @@ static_assert(SJ_ROWS * SJ_LDL <= SJ_MAXW * SJ_ROWS, "logits fit in act");
 
 __host__ __device__ inline int sj_pad(int d) { return (d + 31) & ~31; }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Start the copy of layer l's (din, pad(dout)) weights into ws.
 __device__ __forceinline__ void sj_stage_w(float* ws,
                                            const float* __restrict__ P,

@@ -166,9 +166,13 @@ def load():
     lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, _P, ColorMeta, _P,
                                    _P, _P]
     lib.arah_march.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
-                               NetMeta, _I, _F, _F, _P, _P, _P, _P, _P, _P]
+                               NetMeta, _I, _F, _F, _I, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P]
     lib.arah_iso.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                             NetMeta, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
+                             NetMeta, _I, _F, _F, _F, _F, _I, _P, _P, _P, _P,
+                             _P, _P, _P]
+    lib.arah_march_shape.argtypes = [_I, _I, _P]
+    lib.arah_iso_shape.argtypes = [_I, _I, _P]
     lib.arah_skin_jac.argtypes = [_P, _I, _P, _P, _P, NetMeta, _F, _P, _P]
     lib.arah_shade_bwd.argtypes = [_P, _I, _P, _P, ShadeMeta, _P, _P, _P,
                                    _P, _P, _I, ShadeMeta, ctypes.c_longlong,
@@ -194,7 +198,8 @@ def load():
                lib.arah_color_fwd, lib.arah_march, lib.arah_iso,
                lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd,
                lib.arah_knn_rows, lib.arah_siren, lib.arah_shade_bwd_blocks,
-               lib.arah_color_bwd_blocks):
+               lib.arah_color_bwd_blocks, lib.arah_march_shape,
+               lib.arah_iso_shape):
         fn.restype = _I
     _LIB = lib
     return lib

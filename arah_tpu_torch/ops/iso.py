@@ -18,7 +18,8 @@ from arah_tpu_torch.nn.siren import GeneratedMLP, siren_apply
 from arah_tpu_torch.ops import _build
 from arah_tpu_torch.ops.corr import dense_skin_fn
 from arah_tpu_torch.core.body import skinning
-from arah_tpu_torch.ops.march import frame_vec, kernel_affine, pack_siren
+from arah_tpu_torch.ops.march import (TracePack, frame_vec, kernel_affine,
+                                      launch_shape, pack_trace)
 from arah_tpu_torch.solver.broyden import broyden
 from arah_tpu_torch.solver.root_find import CanonicalFrame
 
@@ -57,24 +58,54 @@ def iso_refine_plain(cam, dirs, u0, T0_16, J_inv0_16, mask, skin_weights,
     return res.x, res.aux, res.valid, res.active, res.iters
 
 
+def launch_iso(cam, dirs, u0, T0_16, J_inv0_16, mask, frame: CanonicalFrame,
+               packed: TracePack, max_steps: int, cvg_thresh: float,
+               softmax_scale: float, shape: int,
+               iters: torch.Tensor | None = None):
+    """Launch kernel F at launch shape `shape` (0 or 1, `launch_shape`)
+    on checked operands; writes each ray's Broyden iteration count into
+    `iters` ((N,) int32) when given. Returns (u, T16, valid, active)."""
+    n = dirs.shape[0]
+    if packed.meta.n_skin == 0:
+        raise ValueError('iso kernel: the pack holds no skinning MLP')
+    bones16 = frame.bone_transforms.reshape(24, 16).contiguous()
+    fvec = frame_vec(frame)
+    dev = dirs.device
+    u = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    T16 = torch.empty((n, 16), dtype=torch.float32, device=dev)
+    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    active = torch.empty((n,), dtype=torch.bool, device=dev)
+    counters = torch.empty((2,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    _build.check(lib.arah_iso(
+        cam.data_ptr(), dirs.data_ptr(), u0.data_ptr(), T0_16.data_ptr(),
+        J_inv0_16.data_ptr(), mask.data_ptr(), n, bones16.data_ptr(),
+        fvec.data_ptr(), packed.params.data_ptr(), packed.meta,
+        int(max_steps), float(cvg_thresh), 1.0, 1e-6, float(softmax_scale),
+        int(shape), counters.data_ptr(), u.data_ptr(), T16.data_ptr(),
+        valid.data_ptr(), active.data_ptr(),
+        0 if iters is None else iters.data_ptr(),
+        _build.stream_ptr(dirs)), 'iso')
+    _build.COUNTS['iso'] += 1
+    return u, T16, valid, active
+
+
 def iso_refine(cam, dirs, u0, T0_16, J_inv0_16, mask, skin_weights,
                skin_biases, frame: CanonicalFrame, gen: GeneratedMLP,
                max_steps: int = 50, cvg_thresh: float = 1e-5,
-               softmax_scale: float = 20.0):
+               softmax_scale: float = 20.0, packed: TracePack | None = None):
     """Kernel F. cam/dirs (N, 3); u0 (N, 4) [x_hat (metric), z]; T0_16
     (N, 16) initial transforms; J_inv0_16 (N, 16) initial inverse
     Jacobian (row-major 4x4); mask (N,) rays to solve; dense (out, in)
-    skinning weights and (out,) biases; the frame; the generated SIREN.
-    Returns (u (N, 4), T16 (N, 16), valid (N,), active (N,))."""
+    skinning weights and (out,) biases; the frame; the generated SIREN
+    (`packed`: `pack_trace(gen, skin_weights, skin_biases)`, made once
+    where both phases and kernel E share it). Returns (u (N, 4), T16
+    (N, 16), valid (N,), active (N,))."""
     if not dirs.is_cuda:
         return iso_refine_plain(cam, dirs, u0, T0_16, J_inv0_16, mask,
                                 skin_weights, skin_biases, frame, gen,
                                 max_steps, cvg_thresh, softmax_scale)[:4]
     n = dirs.shape[0]
-    dims = [skin_weights[0].shape[1]] + [w.shape[0] for w in skin_weights]
-    if dims[0] != 3 or dims[-1] != 25 or len(skin_weights) > 8 \
-            or max(dims[1:]) > 256:
-        raise ValueError(f'iso kernel: unsupported skinning MLP {dims}')
     for a, name, shape, dt in (
             (cam, 'cam', (n, 3), torch.float32),
             (dirs, 'dirs', (n, 3), torch.float32),
@@ -83,30 +114,8 @@ def iso_refine(cam, dirs, u0, T0_16, J_inv0_16, mask, skin_weights,
             (J_inv0_16, 'J_inv0_16', (n, 16), torch.float32),
             (mask, 'mask', (n,), torch.bool)):
         _build.require(a, name, dt, shape)
-    pack = _build.ParamPack()
-    sk = _build.ctypes.c_longlong * 8
-    skin_wt = [pack.put(w.T.contiguous()) for w in skin_weights]
-    skin_b = [pack.put(b) for b in skin_biases]
-    pad = [0] * (8 - len(skin_weights))
-    meta = _build.NetMeta(
-        **pack_siren(gen, pack), n_skin=len(skin_weights),
-        skin_dims=(_build._I * 9)(*(dims + [0] * (9 - len(dims)))),
-        skin_wt_off=sk(*(skin_wt + pad)), skin_b_off=sk(*(skin_b + pad)))
-    params = pack.tensor()
-    bones16 = frame.bone_transforms.reshape(24, 16).contiguous()
-    fvec = frame_vec(frame)
-    dev = dirs.device
-    u = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    T16 = torch.empty((n, 16), dtype=torch.float32, device=dev)
-    valid = torch.empty((n,), dtype=torch.bool, device=dev)
-    active = torch.empty((n,), dtype=torch.bool, device=dev)
-    lib = _build.load()
-    _build.check(lib.arah_iso(
-        cam.data_ptr(), dirs.data_ptr(), u0.data_ptr(), T0_16.data_ptr(),
-        J_inv0_16.data_ptr(), mask.data_ptr(), n, bones16.data_ptr(),
-        fvec.data_ptr(), params.data_ptr(), meta, int(max_steps),
-        float(cvg_thresh), 1.0, 1e-6, float(softmax_scale), u.data_ptr(),
-        T16.data_ptr(), valid.data_ptr(), active.data_ptr(),
-        _build.stream_ptr(dirs)), 'iso')
-    _build.COUNTS['iso'] += 1
-    return u, T16, valid, active
+    if packed is None:
+        packed = pack_trace(gen, skin_weights, skin_biases)
+    return launch_iso(cam, dirs, u0, T0_16, J_inv0_16, mask, frame, packed,
+                      max_steps, cvg_thresh, softmax_scale,
+                      launch_shape(n))

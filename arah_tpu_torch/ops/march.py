@@ -8,8 +8,15 @@ skinning weights, the distance is the expanded |v|^2 - 2 v.p (each product
 and sum rounded on its own, in the order of `ops/knn.py`), the blended
 rotation is inverted by its adjugate (`core/linalg.py:inv3x3`), and
 points are normalised in the kernel's `nscale`/`noffset` form.
+
+Kernels E and F take one parameter buffer, `pack_trace` (the generated
+SIREN and, for F, the collapsed skinning MLP), which the tracer builds
+once a trace and hands to both phases of both kernels; `launch_shape`
+picks their launch shape from the number of rays.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -102,11 +109,13 @@ def frame_vec(frame: CanonicalFrame) -> torch.Tensor:
 
 
 def pack_siren(gen: GeneratedMLP, pack: _build.ParamPack,
-               name: str = 'march/iso kernel', max_out: int = 1) -> dict:
+               name: str = 'march/iso kernel', max_out: int = 1,
+               align: int = 1) -> dict:
     """Put a generated SIREN (3 -> hidden ... -> out, out <= max_out) into
-    `pack`; returns the SIREN fields of `NetMeta` (the output layer's
-    (out, hidden) rows at `wl_off`). Raises on a shape the kernels do not
-    take."""
+    `pack`, each block at a multiple of `align` floats; returns the SIREN
+    fields of `NetMeta` (hidden layers as (in, hidden) transposed copies,
+    the output layer's (out, hidden) rows at `wl_off`). Raises on a shape
+    the kernels do not take."""
     L = len(gen.weights)
     H = gen.weights[0].shape[0]
     if (L < 2 or L > 8 or gen.weights[0].shape[1] != 3
@@ -117,24 +126,131 @@ def pack_siren(gen: GeneratedMLP, pack: _build.ParamPack,
                          f'{[tuple(w.shape) for w in gen.weights]}')
     film = len(gen.freqs) > 0
     LL = _build.ctypes.c_longlong * 8
+
+    def put(t):
+        return pack.put(t, align)
     return dict(
         n_layers=L, hidden=H, film=int(film),
-        wt_off=LL(*[pack.put(w.T.contiguous()) for w in gen.weights[:-1]]),
-        wl_off=pack.put(gen.weights[-1]),
-        b_off=LL(*[pack.put(b) for b in gen.biases]),
-        freq_off=pack.put(torch.stack(gen.freqs)) if film else 0,
-        phase_off=pack.put(torch.stack(gen.phases)) if film else 0)
+        wt_off=LL(*[put(w.T.contiguous()) for w in gen.weights[:-1]]),
+        wl_off=put(gen.weights[-1]),
+        b_off=LL(*[put(b) for b in gen.biases]),
+        freq_off=put(torch.stack(gen.freqs)) if film else 0,
+        phase_off=put(torch.stack(gen.phases)) if film else 0)
+
+
+class TracePack(NamedTuple):
+    """The parameter buffer of kernels E and F and its `NetMeta`."""
+    params: torch.Tensor
+    meta: _build.NetMeta
+
+
+def put_skin_padded(pack: _build.ParamPack, skin_weights,
+                    skin_biases) -> dict:
+    """Put a collapsed skinning MLP (dense (out, in) weights, (out,)
+    biases) into `pack`, the layout of kernels F and G: per layer the (in,
+    out) transposed weights and the bias, with out zero-padded to a
+    multiple of 32 (the 25 logits -> 32; the padding adds exact zeros),
+    each block at a multiple of 4 floats (the kernels copy them 16 bytes
+    at a time); returns the skinning fields of `NetMeta` (the true
+    widths)."""
+    wt, bo = [], []
+    for w, b in zip(skin_weights, skin_biases):
+        pad = -w.shape[0] % 32
+        wt.append(pack.put(torch.nn.functional.pad(w.detach().T, (0, pad)),
+                           align=4))
+        bo.append(pack.put(torch.nn.functional.pad(b.detach(), (0, pad)),
+                           align=4))
+    dims = [skin_weights[0].shape[1]] + [w.shape[0] for w in skin_weights]
+    sk = _build.ctypes.c_longlong * 8
+    zeros = [0] * (8 - len(skin_weights))
+    return dict(n_skin=len(skin_weights),
+                skin_dims=(_build._I * 9)(*(dims + [0] * (9 - len(dims)))),
+                skin_wt_off=sk(*(wt + zeros)), skin_b_off=sk(*(bo + zeros)))
+
+
+def pack_trace(gen: GeneratedMLP, skin_weights=None,
+               skin_biases=None) -> TracePack:
+    """One buffer for kernels E and F: the generated SIREN (`pack_siren`)
+    and, when given, the collapsed skinning MLP (`put_skin_padded`; widths
+    3, ..., 25). Every block starts at a multiple of 4 floats (16-byte
+    copies into the kernels' shared-memory ring). Raises on a shape the
+    kernels do not take."""
+    pack = _build.ParamPack()
+    fields = pack_siren(gen, pack, align=4)
+    if skin_weights is not None:
+        dims = [skin_weights[0].shape[1]] + [w.shape[0] for w in skin_weights]
+        if dims[0] != 3 or dims[-1] != 25 or len(skin_weights) > 8 \
+                or max(dims[1:]) > 256:
+            raise ValueError(f'iso kernel: unsupported skinning MLP {dims}')
+        fields.update(put_skin_padded(pack, skin_weights, skin_biases))
+    return TracePack(pack.tensor(), _build.NetMeta(**fields))
+
+
+def launch_shape(n: int) -> int:
+    """The launch shape of kernel E or F for n rays: 0 for phase 1's
+    thousands of rays, 1 for a phase-2 batch of at most a couple of
+    thousand. E's are 64-ray CTAs (one an SM, every ray of a frame
+    resident at once), then 16-ray clusters of 4 CTAs; F's are 16-ray
+    clusters of 4, then of 8 (csrc/march.cu, csrc/iso.cu; chosen by a
+    sweep on the H100, PERF.md). A cluster of C CTAs takes a SIREN of
+    width a multiple of 32 C, at most 256: the launch raises otherwise."""
+    return 0 if n > 2048 else 1
+
+
+def tile_shape(kernel: str, shape: int, n: int) -> dict:
+    """The launch of kernel 'march' or 'iso' at shape `shape` for n rays:
+    blocks, cluster size, rays a CTA, dynamic shared memory a CTA and CTAs
+    resident an SM (the card's occupancy query; nothing launched)."""
+    out = (_build.ctypes.c_int * 5)()
+    fn = {'march': 'arah_march_shape', 'iso': 'arah_iso_shape'}[kernel]
+    _build.check(getattr(_build.load(), fn)(shape, n, out), kernel)
+    return dict(zip(('blocks', 'cluster', 'rays', 'smem', 'per_sm'), out))
+
+
+def launch_march(cam, dirs, near, far, verts, skin_weights,
+                 frame: CanonicalFrame, packed: TracePack, n_iters: int,
+                 thresh: float, clamp_dist: float, shape: int,
+                 iters: torch.Tensor | None = None):
+    """Launch kernel E at launch shape `shape` (0 or 1, `launch_shape`)
+    on checked operands; writes each ray's iteration count into `iters`
+    ((N,) int32) when given. Returns (t, unfinished, diverged, x_norm,
+    T16, counters): counters[1] counts the nearest-vertex ties the kernel
+    re-scanned."""
+    n, nv = dirs.shape[0], verts.shape[0]
+    bones16 = frame.bone_transforms.reshape(24, 16).contiguous()
+    fvec = frame_vec(frame)
+    dev = dirs.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    unf = torch.empty((n,), dtype=torch.bool, device=dev)
+    div = torch.empty((n,), dtype=torch.bool, device=dev)
+    x_norm = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    T16 = torch.empty((n, 16), dtype=torch.float32, device=dev)
+    verts4 = torch.empty((nv, 4), dtype=torch.float32, device=dev)
+    counters = torch.empty((2,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    _build.check(lib.arah_march(
+        cam.data_ptr(), dirs.data_ptr(), near.data_ptr(), far.data_ptr(), n,
+        verts.data_ptr(), nv, skin_weights.data_ptr(), bones16.data_ptr(),
+        fvec.data_ptr(), packed.params.data_ptr(), packed.meta, int(n_iters),
+        float(thresh), float(clamp_dist), int(shape), verts4.data_ptr(),
+        counters.data_ptr(), t.data_ptr(), unf.data_ptr(), div.data_ptr(),
+        x_norm.data_ptr(), T16.data_ptr(),
+        0 if iters is None else iters.data_ptr(),
+        _build.stream_ptr(dirs)), 'march')
+    _build.COUNTS['march'] += 1
+    return t, unf, div, x_norm, T16, counters
 
 
 def sphere_march(cam, dirs, near, far, verts, skin_weights,
                  frame: CanonicalFrame, gen: GeneratedMLP,
                  n_iters: int = 50, thresh: float = 1e-5,
-                 clamp_dist: float = 0.1):
+                 clamp_dist: float = 0.1, packed: TracePack | None = None):
     """Kernel E. cam/dirs (N, 3) per-ray origins and directions; near/far
     (N,); verts (V, 3) posed vertices (world); skin_weights (V, 24); the
-    frame's bones, trans and canonical box; the generated SIREN. Returns
-    (t (N,), unfinished (N,) bool, diverged (N,) bool, x_norm (N, 3),
-    T16 (N, 16))."""
+    frame's bones, trans and canonical box; the generated SIREN (`packed`:
+    its `pack_trace`, made once where both phases and kernel F share it).
+    Returns (t (N,), unfinished (N,) bool, diverged (N,) bool, x_norm
+    (N, 3), T16 (N, 16))."""
     if not dirs.is_cuda:
         return sphere_march_plain(cam, dirs, near, far, verts, skin_weights,
                                   frame, gen, n_iters, thresh,
@@ -145,24 +261,8 @@ def sphere_march(cam, dirs, near, far, verts, skin_weights,
                            (verts, 'verts', (nv, 3)),
                            (skin_weights, 'skin_weights', (nv, 24))):
         _build.require(a, name, torch.float32, shape)
-    bones16 = frame.bone_transforms.reshape(24, 16).contiguous()
-    pack = _build.ParamPack()
-    meta = _build.NetMeta(**pack_siren(gen, pack))
-    params = pack.tensor()
-    fvec = frame_vec(frame)
-    dev = dirs.device
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    unf = torch.empty((n,), dtype=torch.bool, device=dev)
-    div = torch.empty((n,), dtype=torch.bool, device=dev)
-    x_norm = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    T16 = torch.empty((n, 16), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    _build.check(lib.arah_march(
-        cam.data_ptr(), dirs.data_ptr(), near.data_ptr(), far.data_ptr(), n,
-        verts.data_ptr(), nv, skin_weights.data_ptr(), bones16.data_ptr(),
-        fvec.data_ptr(), params.data_ptr(), meta, int(n_iters),
-        float(thresh), float(clamp_dist), t.data_ptr(), unf.data_ptr(),
-        div.data_ptr(), x_norm.data_ptr(), T16.data_ptr(),
-        _build.stream_ptr(dirs)), 'march')
-    _build.COUNTS['march'] += 1
-    return t, unf, div, x_norm, T16
+    if packed is None:
+        packed = pack_trace(gen)
+    return launch_march(cam, dirs, near, far, verts, skin_weights, frame,
+                        packed, n_iters, thresh, clamp_dist,
+                        launch_shape(n))[:5]

@@ -16,7 +16,7 @@ import torch
 from arah_tpu_torch.core.body import skinning
 from arah_tpu_torch.ops import _build
 from arah_tpu_torch.ops.corr import dense_skin_fn
-from arah_tpu_torch.ops.march import frame_vec, kernel_affine
+from arah_tpu_torch.ops.march import frame_vec, kernel_affine, put_skin_padded
 from arah_tpu_torch.solver.root_find import CanonicalFrame
 
 
@@ -40,25 +40,10 @@ def skinning_jac_plain(x_hat, skin_weights, skin_biases,
 
 
 def pack_skin_jac(skin_weights, skin_biases):
-    """Kernel G's operands: (f32 buffer, NetMeta). Per layer the (in, out)
-    transposed weights and the bias, with out zero-padded to a multiple of
-    32 (the 25 logits -> 32; the padding adds exact zeros), each block at a
-    multiple of 4 floats (the kernel copies them 16 bytes at a time)."""
+    """Kernel G's operands: (f32 buffer, NetMeta) in the layout of
+    `ops/march.py:put_skin_padded`."""
     pack = _build.ParamPack()
-    wt, bo = [], []
-    for w, b in zip(skin_weights, skin_biases):
-        pad = -w.shape[0] % 32
-        wt.append(pack.put(torch.nn.functional.pad(w.detach().T, (0, pad)),
-                           align=4))
-        bo.append(pack.put(torch.nn.functional.pad(b.detach(), (0, pad)),
-                           align=4))
-    dims = [skin_weights[0].shape[1]] + [w.shape[0] for w in skin_weights]
-    sk = _build.ctypes.c_longlong * 8
-    zeros = [0] * (8 - len(skin_weights))
-    meta = _build.NetMeta(
-        n_skin=len(skin_weights),
-        skin_dims=(_build._I * 9)(*(dims + [0] * (9 - len(dims)))),
-        skin_wt_off=sk(*(wt + zeros)), skin_b_off=sk(*(bo + zeros)))
+    meta = _build.NetMeta(**put_skin_padded(pack, skin_weights, skin_biases))
     return pack.tensor(), meta
 
 

@@ -40,7 +40,7 @@ from arah_tpu_torch.ops.corr import corr_search
 from arah_tpu_torch.ops.fused import fused_nn_idx
 from arah_tpu_torch.ops.iso import iso_refine
 from arah_tpu_torch.ops.knn import nn_idx
-from arah_tpu_torch.ops.march import sphere_march
+from arah_tpu_torch.ops.march import pack_trace, sphere_march
 from arah_tpu_torch.solver.root_find import (CanonicalFrame,
                                              IsoSurfaceResult,
                                              iso_init_inv_jacobian,
@@ -179,16 +179,18 @@ def _march_plain(cfg: RayTracerConfig, sdf_fn: Callable,
 
 def _march(cfg: RayTracerConfig, sdf_fn: Callable, frame: CanonicalFrame,
            smpl: SmplRef, cam_loc, ray_dirs, near, far,
-           sdf_gen=None) -> MarchCarry:
+           sdf_gen=None, packed=None) -> MarchCarry:
     """March-loop dispatch: kernel E when `use_pallas_march` and the
-    generated SIREN (sdf_gen) is given, the plain loop otherwise."""
+    generated SIREN (sdf_gen; `packed` its `pack_trace`) is given, the
+    plain loop otherwise."""
     if cfg.use_pallas_march and sdf_gen is not None:
         n = ray_dirs.shape[0]
         t, unf, div, x_norm, T16 = sphere_march(
             cam_loc.contiguous(), ray_dirs.contiguous(), near.contiguous(),
             far.contiguous(), smpl.verts_posed, smpl.skinning_weights,
             frame, sdf_gen, n_iters=cfg.sphere_tracing_iters,
-            thresh=cfg.root_finding_threshold, clamp_dist=cfg.clamp_dist)
+            thresh=cfg.root_finding_threshold, clamp_dist=cfg.clamp_dist,
+            packed=packed)
         return MarchCarry(t, unf, div, x_norm, T16.reshape(n, 4, 4))
     if cfg.use_pallas_march and ray_dirs.is_cuda:
         raise ValueError('use_pallas_march: the march kernel needs the '
@@ -199,22 +201,22 @@ def _march(cfg: RayTracerConfig, sdf_fn: Callable, frame: CanonicalFrame,
 
 def _march_split(cfg: RayTracerConfig, sdf_fn: Callable,
                  frame: CanonicalFrame, smpl: SmplRef, cam_loc, ray_dirs,
-                 near, far, sdf_gen=None) -> MarchCarry:
+                 near, far, sdf_gen=None, packed=None) -> MarchCarry:
     """Straggler-resolve split of the march: phase 1 caps every ray at
     `march_phase1_steps`; the first `march_resolve_cap` still-unfinished
     rays then resume from their depth with the remaining budget."""
     p1 = cfg.march_phase1_steps
     if p1 <= 0 or p1 >= cfg.sphere_tracing_iters:
         return _march(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near, far,
-                      sdf_gen)
+                      sdf_gen, packed)
     c1 = _march(cfg._replace(sphere_tracing_iters=p1), sdf_fn, frame, smpl,
-                cam_loc, ray_dirs, near, far, sdf_gen)
+                cam_loc, ray_dirs, near, far, sdf_gen, packed)
     idx = _resolve_idx(c1.unfinished, cfg.march_resolve_cap)
     if idx.numel() == 0:
         return c1
     c2 = _march(cfg._replace(sphere_tracing_iters=cfg.sphere_tracing_iters
                              - p1), sdf_fn, frame, smpl, cam_loc[idx],
-                ray_dirs[idx], c1.t[idx], far[idx], sdf_gen)
+                ray_dirs[idx], c1.t[idx], far[idx], sdf_gen, packed)
     return MarchCarry(*(_split_write_back(a, idx, b)
                         for a, b in zip(c1, c2)))
 
@@ -226,12 +228,20 @@ def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
     """KNN-skinning sphere tracing + joint root-finding refinement.
     cam_loc: (N, 3) per-ray origins; ray_dirs (N, 3); near/far (N,);
     sdf_gen: the generated SIREN (kernels E and F); skin_dense: the
-    collapsed skinning MLP (wts, bs, softmax_scale) (kernel F)."""
+    collapsed skinning MLP (wts, bs, softmax_scale) (kernel F). Kernels E
+    and F share one parameter pack (`ops/march.py:pack_trace`), built
+    once here for both phases of both."""
     thresh = cfg.root_finding_threshold
+    use_iso = cfg.use_pallas_iso and sdf_gen is not None \
+        and skin_dense is not None
+    packed = None
+    if use_iso:
+        packed = pack_trace(sdf_gen, skin_dense[0], skin_dense[1])
+    elif cfg.use_pallas_march and sdf_gen is not None:
+        packed = pack_trace(sdf_gen)
 
     def _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd, max_steps):
-        if cfg.use_pallas_iso and sdf_gen is not None \
-                and skin_dense is not None:
+        if use_iso:
             n = ray_dirs.shape[0]
             J_inv0 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, ray_dirs,
                                            x_hat)
@@ -242,7 +252,7 @@ def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
                 T_fwd.reshape(n, 16).contiguous(),
                 J_inv0.reshape(n, 16).contiguous(), valid.contiguous(), wts,
                 bs, frame, sdf_gen, max_steps=max_steps, cvg_thresh=thresh,
-                softmax_scale=softmax_scale)
+                softmax_scale=softmax_scale, packed=packed)
             return IsoSurfaceResult(u[:, :3], u[:, 3], T16.reshape(n, 4, 4),
                                     ok, act)
         if cfg.use_pallas_iso and ray_dirs.is_cuda:
@@ -271,7 +281,7 @@ def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
 
     n = ray_dirs.shape[0]
     c = _march_split(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near, far,
-                     sdf_gen)
+                     sdf_gen, packed)
     x_hat = unnormalize_canonical_points(
         c.x_norm, frame.coord_min, frame.coord_max, frame.center)
     valid = ~c.diverged if eval_mode \

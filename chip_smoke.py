@@ -114,13 +114,57 @@ def q(a, p):
     return float(torch.quantile(a.float().flatten()[:1 << 24], p))
 
 
-def tile_max(iters, tile=16):
-    """Iterations the kernels execute: each 16-ray tile runs until its
-    slowest ray stops, so sum over tiles of (tile max x 16)."""
+def shape_line(kernel, shape, n):
+    """The launch shape kernel E ('march') or F ('iso') takes for n rays:
+    blocks, cluster size, rays a CTA, shared memory and CTAs an SM."""
+    from arah_tpu_torch.ops.march import tile_shape
+    d = tile_shape(kernel, shape, n)
+    return (f'launch shape {shape}: {d["blocks"]} CTAs, cluster '
+            f'{d["cluster"]}, R = {d["rays"]} ray slots, {d["smem"]} B '
+            f'dynamic shared memory a CTA, {d["per_sm"]} CTAs an SM')
+
+
+def shape_sweep(tag, kernel, n, launch, ref, card):
+    """Kernel E ('march') or F ('iso') at both of its launch shapes
+    (ops/march.py:launch_shape) on one input: launch(shape) -> outputs;
+    each must give the bits of ref (the wrapper's launch), and its time is
+    printed. A launch that fails fails the run."""
     import torch
-    pad = (-iters.numel()) % tile
-    it = torch.cat([iters.int(), iters.new_zeros(pad, dtype=torch.int32)])
-    return int(it.reshape(-1, tile).max(dim=1)[0].sum()) * tile
+    from arah_tpu_torch.ops.march import tile_shape
+    times, same = [], True
+    for sh in (0, 1):
+        d = tile_shape(kernel, sh, n)
+        try:
+            out = launch(sh)
+        except RuntimeError as e:
+            check(False, f'{tag}: launch shape {sh} failed: {e}')
+            continue
+        same &= all(torch.equal(x, y) for x, y in zip(out, ref))
+        times.append(f'{sh}: {d["rays"]} rays x {d["cluster"]} CTAs '
+                     f'{timed(lambda: launch(sh), 3):.3f} ms')
+    print(f'  {tag} at both launch shapes: ' + ', '.join(times)
+          + f'; bit-equal {same} [{card}]', flush=True)
+    check(same, f'{tag}: the launch shapes give different bits')
+
+
+def iters_check(tag, it_k, it_p, held=None, why=''):
+    """The kernel's per-ray iteration counts (iters_out) against the plain
+    version's: equal on >= 0.99 of the rays (a flip may differ), or of the
+    rays `held` (a bool mask, for the reason `why`) where a solve's
+    stopping step is set by roundoff; the share over all rays is printed
+    beside it."""
+    same = it_k == it_p
+    agree = float(same.float().mean()) if it_k.numel() else 1.0
+    msg = (f'  {tag}: iterations executed {int(it_k.sum())} (kernel, per-ray '
+           f'counts), needed {int(it_p.sum())} (plain); per-ray agreement '
+           f'{agree:.6f}')
+    if held is not None:
+        agree = float(same[held].float().mean()) if bool(held.any()) else 1.0
+        msg += (f' over all rays; {agree:.6f} over the {int(held.sum())} '
+                f'rays {why}')
+    print(msg + ' (bound >= 0.99)', flush=True)
+    check(agree >= 0.99, f'{tag}: per-ray iteration counts disagree with '
+          'the plain version')
 
 
 def ptxas_report(log):
@@ -150,13 +194,17 @@ def ptxas_report(log):
 
 def demangle(sym):
     """`_Z16shade_bwd_kernelILb1EEv...` -> `shade_bwd_kernel<Lb1>`: the
-    name and the raw template arguments of an Itanium-mangled kernel."""
+    name and the raw template arguments of an Itanium-mangled kernel; a
+    kernel on a launch shape (csrc/stream_mlp.cuh:TileShape) ->
+    `march_kernel<R, NT, C, KC, MINB>`."""
     import re
     m = re.match(r'_Z(\d+)', sym)
     if not m:
         return sym
     i = m.end()
     name = sym[i:i + int(m.group(1))]
+    if 'TileShape' in sym:
+        return f'{name}<{", ".join(re.findall(r"Li(\d+)E", sym))}>'
     t = re.match(r'I(.*?)E', sym[i + int(m.group(1)):])
     return f'{name}<{t.group(1)}>' if t else name
 
@@ -214,6 +262,12 @@ def main():
         check(len(corr) == 1 and corr[0].get('spill_stores') == 0
               and corr[0].get('spill_loads') == 0,
               f'the corr kernel (B/L) spills or is missing: {corr}')
+        ef = {n: r for n, r in ptx.items()
+              if n.startswith(('march_kernel<', 'iso_kernel<'))}
+        check(len(ef) == 4 and all(r.get('spill_stores') == 0
+                                   and r.get('spill_loads') == 0
+                                   for r in ef.values()),
+              f'kernels E/F spill or are missing: {ef}')
 
     from arah_tpu_torch.core.embedder import positional_encoding
     from arah_tpu_torch.nn.layers import wn_weight
@@ -506,7 +560,9 @@ def main():
                     'replaces': r['rep'], 'launches': launches[name],
                     'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                     'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
-                    'bound_by': r['bound'][1], 'library_ms': None})
+                    'bound_by': r['bound'][1], 'library_ms': None,
+                    **{k: r[k] for k in ('phase2_ms', 'phase2_plain_ms',
+                                         'phase2_bound_ms') if k in r}})
         print(f'{name}: {r["ms"]:.3f} ms kernel, {r["plain_ms"]:.3f} ms '
               f'plain, bound {r["bound"][0]:.4f} ms ({r["bound"][1]}), '
               f'launches {launches[name]} {per[name]} [{card}]')
@@ -595,62 +651,93 @@ def march_compare(tag, out_k, out_p, gen, mscale, thresh):
 
 def check_march(cfg, fd, inp, gen, card):
     """Kernel E against `sphere_march_plain` at the main path's two
-    shapes; its record (phase-1 times, bound from the plain run's
-    per-ray iterations)."""
+    shapes (iterations per ray too, from `iters_out`; two calls
+    bit-equal); its record (times and bounds of both phases, each bound
+    from the plain run's per-ray iterations)."""
     import torch
-    from arah_tpu_torch.ops.march import (kernel_affine, sphere_march,
-                                          sphere_march_plain)
+    from arah_tpu_torch.ops.march import (kernel_affine, launch_march,
+                                          launch_shape, pack_trace,
+                                          sphere_march, sphere_march_plain)
     tr = cfg.tracer
     frame, smpl = fd.frame, fd.smpl
     cam = inp.cam_loc.expand(inp.ray_dirs.shape).contiguous()
     p1, cap = tr.march_phase1_steps, tr.march_resolve_cap
     p2 = tr.sphere_tracing_iters - p1
     mscale = kernel_affine(frame)[2]
+    packed = pack_trace(gen)
+    nv = smpl.verts_posed.shape[0]
+    macs = sum(w.numel() for w in gen.weights)
+    flops_it = 2 * macs + 8 * nv + 2 * 24 * 16
+    wbytes = 4 * sum(w.numel() + w.shape[0] for w in gen.weights)
 
     def run(fn, c, d, near, far, iters):
         return fn(c, d, near, far, smpl.verts_posed, smpl.skinning_weights,
                   frame, gen, n_iters=iters,
                   thresh=tr.root_finding_threshold, clamp_dist=tr.clamp_dist)
 
+    def kernel_iters(c, d, near, far, iters):
+        """The kernel's outputs at its main-path launch shape, with each
+        ray's iteration count and the tie count."""
+        it = torch.zeros((d.shape[0],), dtype=torch.int32, device=d.device)
+        out = launch_march(c, d, near, far, smpl.verts_posed,
+                           smpl.skinning_weights, frame, packed, iters,
+                           tr.root_finding_threshold, tr.clamp_dist,
+                           launch_shape(d.shape[0]), iters=it)
+        return out[:5], it, int(out[5][1])
+
+    def phase(tag, args, o):
+        n = args[1].shape[0]
+        k = run(sphere_march, *args)
+        err = march_compare(tag, k, o, gen, mscale,
+                            tr.root_finding_threshold)
+        k2, it_k, ties = kernel_iters(*args)
+        same = all(torch.equal(x, y) for x, y in zip(k, k2))
+        print(f'  two calls bit-equal {same}; nearest-vertex ties '
+              f're-scanned {ties}; {shape_line("march", launch_shape(n), n)}'
+              f' [{card}]', flush=True)
+        check(same, f'{tag}: two calls of the march kernel differ')
+        iters_check(tag, it_k, o[5])
+        shape_sweep(tag, 'march', n, lambda sh: launch_march(
+            *args[:4], smpl.verts_posed, smpl.skinning_weights, frame,
+            packed, args[4], tr.root_finding_threshold, tr.clamp_dist,
+            sh)[:5], k, card)
+        ms = timed(lambda: run(sphere_march, *args), REPS)
+        plain_ms = timed(lambda: run(sphere_march_plain, *args), 2)
+        # least work: each ray-iteration the plain run needed, at the
+        # SIREN's multiply-adds, 8 flops per vertex of the scan and the
+        # bone blend
+        its = int(o[5].sum())
+        b = bound(n * (12 + 12 + 4 + 4 + 4 + 1 + 1 + 12 + 64) + nv * 108
+                  + wbytes, its * float(flops_it), PEAK_F32)
+        print(f'  E work: {its} ray-iterations ({its / n:.3f} per ray, max '
+              f'{int(o[5].max())}); {flops_it} flops each; kernel {ms:.3f} '
+              f'ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms [{card}]',
+              flush=True)
+        return err, ms, plain_ms, b
+
     a1 = (cam, inp.ray_dirs, inp.near, inp.far, p1)
-    k1, o1 = run(sphere_march, *a1), run(sphere_march_plain, *a1)
-    err = march_compare(f'E march phase 1 ({RAYS} rays, {p1} iterations)',
-                        k1, o1, gen, mscale, tr.root_finding_threshold)
-    ms = timed(lambda: run(sphere_march, *a1), REPS)
-    plain_ms = timed(lambda: run(sphere_march_plain, *a1), 2)
+    o1 = run(sphere_march_plain, *a1)
+    err, ms, plain_ms, b = phase(
+        f'E march phase 1 ({RAYS} rays, {p1} iterations)', a1, o1)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
+               src='arah_tpu_torch/csrc/march.cu',
+               rep='arah_tpu/ops/pallas/march_kernel.py:175')
     # phase 2: the first `cap` stragglers of the plain phase 1, resumed
     # from their depth with the remaining budget
     idx = torch.nonzero(o1[1]).flatten()[:cap]
     if idx.numel():
         a2 = (cam[idx], inp.ray_dirs[idx], o1[0][idx], inp.far[idx], p2)
-        k2, o2 = run(sphere_march, *a2), run(sphere_march_plain, *a2)
-        march_compare(f'E march phase 2 ({idx.numel()} stragglers of '
-                      f'{int(o1[1].sum())}, {p2} iterations)', k2, o2, gen,
-                      mscale, tr.root_finding_threshold)
-        print(f'  phase-2 shape: kernel '
-              f'{timed(lambda: run(sphere_march, *a2), REPS):.3f} ms, '
-              f'plain {timed(lambda: run(sphere_march_plain, *a2), 2):.3f}'
-              f' ms; ray-iterations {int(o2[5].sum())} (tile max '
-              f'{tile_max(o2[5])}) [{card}]', flush=True)
+        _, ms2, plain2, b2 = phase(
+            f'E march phase 2 ({idx.numel()} stragglers of '
+            f'{int(o1[1].sum())}, {p2} iterations)', a2,
+            run(sphere_march_plain, *a2))
+        rec.update(phase2_ms=ms2, phase2_plain_ms=plain2,
+                   phase2_bound_ms=b2[0])
     else:
         print('E march phase 2: no stragglers after phase 1')
-    # least work: each ray-iteration the plain run needed, at the SIREN's
-    # multiply-adds, 8 flops per vertex of the scan and the bone blend
-    nv = smpl.verts_posed.shape[0]
-    macs = sum(w.numel() for w in gen.weights)
-    flops_it = 2 * macs + 8 * nv + 2 * 24 * 16
-    its = int(o1[5].sum())
-    nbytes = RAYS * (12 + 12 + 4 + 4 + 4 + 1 + 1 + 12 + 64) + nv * 108 \
-        + 4 * sum(w.numel() + w.shape[0] for w in gen.weights)
-    b = bound(nbytes, its * float(flops_it), PEAK_F32)
-    print(f'  E work at phase 1: {its} ray-iterations ({its / RAYS:.3f} per '
-          f'ray, max {int(o1[5].max())}); the kernel runs {tile_max(o1[5])} '
-          f'(16-ray tiles to their slowest ray); {flops_it} flops each; '
-          f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} '
-          f'ms [{card}]', flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
-                src='arah_tpu_torch/csrc/march.cu',
-                rep='arah_tpu/ops/pallas/march_kernel.py:175')
+        rec.update(phase2_ms=None, phase2_plain_ms=None,
+                   phase2_bound_ms=None)
+    return rec
 
 
 def iso_compare(tag, out_k, out_p, resid):
@@ -683,6 +770,84 @@ def iso_compare(tag, out_k, out_p, resid):
     return max_x
 
 
+def iso_count_witness(tag, rays, wts, bs, frame, gen, steps, cvg, scale,
+                      it_k, it_p, card):
+    """Where the stopping step of F's phase-2 solves comes from. The plain
+    solve runs twice more on the same rays, with the same code: in float64
+    on the card and in float32 on the host's CPU; each run's |g| is kept
+    at every evaluation. Prints each version's per-ray iteration agreement
+    with the float32 card run (the plain version) and with the float64
+    one; and over the rays where the kernel's count and the plain
+    version's differ, the step where the float32 and float64 runs' |g|
+    first part by more than 1%, how many run to the cap in both, and for
+    the others the step where the earlier run stops (at |g| >= 1), its
+    |g| there and the later run's |g| at the same step."""
+    import torch
+    from arah_tpu_torch.ops.iso import iso_residual
+    from arah_tpu_torch.solver.broyden import broyden
+
+    def solve(dtype, dev):
+        def cast(t):
+            return t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+        r = [cast(t) for t in rays]
+        g0 = iso_residual(r[0], r[1], [cast(w) for w in wts],
+                          [cast(b) for b in bs],
+                          type(frame)(*[cast(t) for t in frame]),
+                          type(gen)(*[tuple(cast(t) for t in f)
+                                      for f in gen]), scale)
+        norms = []
+
+        def g(u):
+            out = g0(u)
+            norms.append(torch.linalg.norm(out[0], dim=-1).double().cpu())
+            return out
+        res = broyden(g, r[2], r[3], r[4].reshape(-1, 4, 4),
+                      max_steps=steps, cvg_thresh=cvg, active_init=r[5])
+        return res.iters.cpu(), torch.stack(norms)
+
+    dev = rays[1].device
+    it32, g32 = solve(torch.float32, dev)
+    it64, g64 = solve(torch.float64, dev)
+    itc = solve(torch.float32, torch.device('cpu'))[0]
+    itk = it_k.cpu()
+
+    def agree(a, b):
+        return f'{float((a == b).float().mean()):.6f}'
+    off = torch.nonzero(itk != it32).flatten()
+    msg = ''
+
+    def qs(x, f):
+        return (f'{q(x, 0.5):{f}} ({q(x, 0.25):{f}}-{q(x, 0.75):{f}})'
+                if x.numel() else 'none')
+    if off.numel():
+        stop = torch.minimum(it32[off], it64[off]).long()
+        steps_ = torch.arange(g32.shape[0])[:, None]
+        rel = (g32[:, off] - g64[:, off]).abs() / g64[:, off].abs()
+        parted = (rel > 0.01) & (steps_ <= stop[None])
+        first = torch.where(parted.any(0), parted.float().argmax(0),
+                            stop).double()
+        early = stop < steps
+        sel, s = off[early], stop[early]
+        f32_first = it32[sel] <= it64[sel]
+        g_stop = torch.where(f32_first, g32[s, sel], g64[s, sel])
+        g_other = torch.where(f32_first, g64[s, sel], g32[s, sel])
+        msg = (f'; on the {off.numel()} rays where kernel and plain counts '
+               f'differ, the float32 and float64 runs\' |g| part by > 1% '
+               f'at step {qs(first, ".0f")} (median, quartiles); '
+               f'{int((~early).sum())} of them run to the cap in both; the '
+               f'other {sel.numel()} stop in the earlier run at step '
+               f'{qs(s.double(), ".0f")}, with |g| {qs(g_stop, ".4g")} '
+               f'there ({int((g_stop >= 1).sum())} diverged at >= 1, '
+               f'{int((g_stop < cvg).sum())} converged), the later run at '
+               f'that step with |g| {qs(g_other, ".4g")}')
+    print(f'  {tag}: iteration-count witness: agreement with the plain '
+          f'float32 card run: its own second run {agree(it_p.cpu(), it32)}, '
+          f'kernel {agree(itk, it32)}, plain float64 '
+          f'{agree(it64, it32)}, plain float32 on the CPU {agree(itc, it32)}'
+          f'; with the plain float64 run: kernel {agree(itk, it64)}, plain '
+          f'float32 on the CPU {agree(itc, it64)}{msg} [{card}]', flush=True)
+
+
 def check_iso(cfg, params, fd, inp, gen, card):
     """Kernel F against `iso_refine_plain` at the main path's two shapes,
     from the main path's march (kernel E with its split); its record."""
@@ -690,13 +855,15 @@ def check_iso(cfg, params, fd, inp, gen, card):
     from arah_tpu_torch.core.body import unnormalize_canonical_points
     from arah_tpu_torch.nn.skinning import skinning_dense_params
     from arah_tpu_torch.ops.iso import (iso_refine, iso_refine_plain,
-                                        iso_residual)
+                                        iso_residual, launch_iso)
+    from arah_tpu_torch.ops.march import launch_shape, pack_trace
     from arah_tpu_torch.render.ray_tracing import _march_split
     from arah_tpu_torch.render.renderer import make_sdf_fn, make_skin_fn
     from arah_tpu_torch.solver.root_find import iso_init_inv_jacobian
     tr = cfg.tracer
     frame = fd.frame
     dirs = inp.ray_dirs
+    dev = dirs.device
     cam = inp.cam_loc.expand(dirs.shape).contiguous()
     wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
     scale = cfg.skinning.softmax_scale
@@ -724,13 +891,66 @@ def check_iso(cfg, params, fd, inp, gen, card):
                 return torch.linalg.norm(g(u)[0], dim=-1)
         return resid
 
+    packed = pack_trace(gen, wts, bs)
+    macs = sum(w.numel() for w in gen.weights) + sum(w.numel() for w in wts)
+    flops_ev = 2 * macs + 2 * 24 * 16 + 200
+    wbytes = 4 * sum(w.numel() + w.shape[0] for w in list(gen.weights)
+                     + list(wts))
+
+    def phase(tag, rays, steps, o):
+        n = rays[1].shape[0]
+        k = run(iso_refine, rays, steps)
+        err = iso_compare(tag, k, o, resid_of(rays))
+        it_k = torch.zeros((n,), dtype=torch.int32, device=dev)
+        shape = launch_shape(n)
+        k2 = launch_iso(*rays, frame, packed, steps,
+                        tr.root_finding_threshold, scale, shape, iters=it_k)
+        same = all(torch.equal(x, y) for x, y in zip(k, k2))
+        print(f'  two calls bit-equal {same}; {shape_line("iso", shape, n)}'
+              f' [{card}]', flush=True)
+        check(same, f'{tag}: two calls of the iso kernel differ')
+        check(bool((it_k[k2[3]] == steps).all()), f'{tag}: a ray still '
+              f'active at exit ran fewer than {steps} iterations')
+        held = None
+        if steps > tr.iso_phase1_steps:
+            # phase 2 re-solves rays that did not converge in phase 1; those
+            # that diverge (|g| >= 1) stop at a step that roundoff sets, so
+            # the counts are held on the rays both versions end converged
+            # or still active at the cap
+            held = (k2[2] & o[2]) | (k2[3] & o[3])
+        iters_check(tag, it_k, o[4], held,
+                    'both versions end converged or active at the cap')
+        if held is not None:
+            iso_count_witness(tag, rays, wts, bs, frame, gen, steps,
+                              tr.root_finding_threshold, scale, it_k, o[4],
+                              card)
+        shape_sweep(tag, 'iso', n, lambda sh: launch_iso(
+            *rays, frame, packed, steps, tr.root_finding_threshold, scale,
+            sh), k, card)
+        ms = timed(lambda: run(iso_refine, rays, steps), REPS)
+        plain_ms = timed(lambda: run(iso_refine_plain, rays, steps), 2)
+        # least work: one residual evaluation per unmasked ray at init plus
+        # one per Broyden iteration the plain run needed: SIREN and
+        # skinning MLP multiply-adds, ~200 flops of softmax, blend and 4x4
+        # algebra
+        evals = int(rays[5].sum()) + int(o[4].sum())
+        b = bound(n * (12 + 12 + 16 + 64 + 64 + 1 + 16 + 64 + 1 + 1)
+                  + wbytes, evals * float(flops_ev), PEAK_F32)
+        print(f'  F work: {evals} residual evaluations '
+              f'({int(o[4].sum()) / n:.3f} iterations per ray, max '
+              f'{int(o[4].max())}); {flops_ev} flops each; kernel {ms:.3f} '
+              f'ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms [{card}]',
+              flush=True)
+        return err, ms, plain_ms, b
+
     p1, cap = tr.iso_phase1_steps, tr.iso_resolve_cap
     rays1 = (cam, dirs, u0, T0, J0, mask)
-    k1, o1 = run(iso_refine, rays1, p1), run(iso_refine_plain, rays1, p1)
-    err = iso_compare(f'F iso phase 1 ({RAYS} rays, {p1} steps)', k1, o1,
-                      resid_of(rays1))
-    ms = timed(lambda: run(iso_refine, rays1, p1), REPS)
-    plain_ms = timed(lambda: run(iso_refine_plain, rays1, p1), 2)
+    o1 = run(iso_refine_plain, rays1, p1)
+    err, ms, plain_ms, b = phase(f'F iso phase 1 ({RAYS} rays, {p1} steps)',
+                                 rays1, p1, o1)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
+               src='arah_tpu_torch/csrc/iso.cu',
+               rep='arah_tpu/ops/pallas/iso_kernel.py:209')
     # phase 2: the first `cap` rays still active after the plain phase 1,
     # re-solved from scratch at iso_max_steps
     idx = torch.nonzero(o1[3]).flatten()[:cap]
@@ -738,37 +958,17 @@ def check_iso(cfg, params, fd, inp, gen, card):
         rays2 = tuple(a[idx] for a in rays1[:5]) \
             + (torch.ones_like(idx, dtype=torch.bool),)
         steps = tr.iso_max_steps
-        k2, o2 = run(iso_refine, rays2, steps), \
-            run(iso_refine_plain, rays2, steps)
-        iso_compare(f'F iso phase 2 ({idx.numel()} stragglers of '
-                    f'{int(o1[3].sum())}, {steps} steps)', k2, o2,
-                    resid_of(rays2))
-        ms2 = timed(lambda: run(iso_refine, rays2, steps), REPS)
-        plain2 = timed(lambda: run(iso_refine_plain, rays2, steps), 2)
-        print(f'  phase-2 shape: kernel {ms2:.3f} ms, plain {plain2:.3f} ms;'
-              f' ray-iterations {int(o2[4].sum())} (tile max '
-              f'{tile_max(o2[4])}) [{card}]', flush=True)
+        _, ms2, plain2, b2 = phase(
+            f'F iso phase 2 ({idx.numel()} stragglers of '
+            f'{int(o1[3].sum())}, {steps} steps)', rays2, steps,
+            run(iso_refine_plain, rays2, steps))
+        rec.update(phase2_ms=ms2, phase2_plain_ms=plain2,
+                   phase2_bound_ms=b2[0])
     else:
         print('F iso phase 2: no stragglers after phase 1')
-    # least work: one residual evaluation per ray at init plus one per
-    # Broyden iteration the plain run needed: SIREN and skinning MLP
-    # multiply-adds, ~200 flops of softmax, blend and 4x4 algebra
-    macs = sum(w.numel() for w in gen.weights) + sum(w.numel() for w in wts)
-    flops_ev = 2 * macs + 2 * 24 * 16 + 200
-    evals = RAYS + int(o1[4].sum())
-    nbytes = RAYS * (12 + 12 + 16 + 64 + 64 + 1 + 16 + 64 + 1 + 1) \
-        + 4 * sum(w.numel() + w.shape[0] for w in list(gen.weights)
-                  + list(wts))
-    b = bound(nbytes, evals * float(flops_ev), PEAK_F32)
-    print(f'  F work at phase 1: {evals} residual evaluations '
-          f'({int(o1[4].sum()) / RAYS:.3f} iterations per ray, max '
-          f'{int(o1[4].max())}); the kernel runs {RAYS + tile_max(o1[4])} '
-          f'(16-ray tiles to their slowest ray); {flops_ev} flops each; '
-          f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} '
-          f'ms [{card}]', flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
-                src='arah_tpu_torch/csrc/iso.cu',
-                rep='arah_tpu/ops/pallas/iso_kernel.py:209')
+        rec.update(phase2_ms=None, phase2_plain_ms=None,
+                   phase2_bound_ms=None)
+    return rec
 
 
 def corr_compare(tag, xk, vk, xp, vp, x_bar, frame, skin_fn):

@@ -608,6 +608,70 @@ class TestKernelPacks:
             assert not bool(params[bo + o:bo + op].any())
 
 
+    @pytest.mark.parametrize('film', [True, False])
+    @pytest.mark.parametrize('dims', [(3, 128, 128, 128, 25),
+                                      (3, 100, 25)])
+    def test_trace_pack_round_trips(self, rng, film, dims):
+        """Kernels E and F's one pack (`pack_trace`): every block starts
+        at a multiple of 4 floats (16-byte copies into the shared-memory
+        ring); the SIREN's hidden layers as (in, hidden) transposed copies,
+        its output rows, biases and FiLM rows round-trip to the generated
+        SIREN; each skinning layer is its (in, pad32(out)) transposed
+        weights and its bias padded to pad32(out), zeros in the padding
+        (the 25 logits -> 32, a 100-wide layer -> 128); every float of the
+        pack outside those blocks is zero; E's pack (no skinning MLP) is
+        the prefix of F's with the same SIREN fields."""
+        from arah_tpu_torch.ops.march import pack_trace
+        gen = port_gen(_small_gen(rng, film))
+        ws = [t(rng.randn(o, i).astype(np.float32))
+              for i, o in zip(dims[:-1], dims[1:])]
+        bs = [t(rng.randn(o).astype(np.float32)) for o in dims[1:]]
+        params, meta = pack_trace(gen, ws, bs)
+        L, H = len(gen.weights), gen.weights[0].shape[0]
+        assert (meta.n_layers, meta.hidden, meta.film) == (L, H, int(film))
+        seen = torch.zeros(params.numel(), dtype=torch.bool)
+
+        def block(off, n):
+            assert off % 4 == 0
+            assert not bool(seen[off:off + n].any())
+            seen[off:off + n] = True
+            return params[off:off + n]
+        for i in range(L - 1):
+            w = gen.weights[i]
+            assert torch.equal(block(meta.wt_off[i], w.numel())
+                               .reshape(w.shape[1], w.shape[0]), w.T)
+            assert torch.equal(block(meta.b_off[i], H), gen.biases[i])
+        wl = gen.weights[-1]
+        assert torch.equal(block(meta.wl_off, wl.numel()).reshape(wl.shape),
+                           wl)
+        assert torch.equal(block(meta.b_off[L - 1], wl.shape[0]),
+                           gen.biases[-1])
+        if film:
+            for off, rows in ((meta.freq_off, gen.freqs),
+                              (meta.phase_off, gen.phases)):
+                assert torch.equal(block(off, (L - 1) * H).reshape(L - 1, H),
+                                   torch.stack(rows))
+        assert meta.n_skin == len(ws)
+        assert list(meta.skin_dims)[:len(dims)] == list(dims)
+        for l, (w, b) in enumerate(zip(ws, bs)):
+            o, i = w.shape
+            op = -(-o // 32) * 32
+            blk = block(meta.skin_wt_off[l], i * op).reshape(i, op)
+            assert torch.equal(blk[:, :o], w.T)
+            assert not bool(blk[:, o:].any())
+            bb = block(meta.skin_b_off[l], op)
+            assert torch.equal(bb[:o], b) and not bool(bb[o:].any())
+        assert not bool(params[~seen].any())
+        e_params, e_meta = pack_trace(gen)
+        assert torch.equal(params[:e_params.numel()], e_params)
+        assert e_meta.n_skin == 0
+        for f in ('n_layers', 'hidden', 'film', 'wl_off', 'freq_off',
+                  'phase_off'):
+            assert getattr(e_meta, f) == getattr(meta, f), f
+        assert list(e_meta.wt_off) == list(meta.wt_off)
+        assert list(e_meta.b_off) == list(meta.b_off)
+
+
 class TestColorGrad:
     def _net(self, rng):
         S, F, Pw, H, n = 33, 64, 128, 64, 200

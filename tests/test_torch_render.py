@@ -171,6 +171,62 @@ def test_kernel_flags_dispatch(rng, monkeypatch):
         .mean() >= 0.9
 
 
+def test_sphere_trace_shares_one_pack(rng, monkeypatch):
+    """The tracer builds kernels E and F's parameter pack once a trace
+    (`pack_trace`) and hands the same pack to both phases of both
+    kernels; the trace with that shared pack gives the same values as
+    with a separate pack for each call (E's own SIREN pack, F's own
+    SIREN-and-skinning pack), whose bytes E and F read at the same
+    offsets."""
+    from arah_tpu_torch.ops.march import pack_trace
+    from arah_tpu_torch.render import ray_tracing as prt
+    from arah_tpu_torch.render.renderer import render
+    cfg = _split_cfg(small_config())
+    _, params, _, inp = jax_scene(cfg, rng, n_rays=48)
+    p, ip, pcfg = port_params(params), port_inputs(inp), port_cfg(cfg)
+    built, seen = [], []
+
+    def pack_spy(*a):
+        built.append(pack_trace(*a))
+        return built[-1]
+    monkeypatch.setattr(prt, 'pack_trace', pack_spy)
+
+    def spy(attr, own):
+        real = getattr(prt, attr)
+
+        def f(*a, packed=None, **k):
+            seen.append((attr, packed))
+            if own:           # a separate pack for this call alone
+                gen = a[7] if attr == 'sphere_march' else a[9]
+                sk = () if attr == 'sphere_march' else (a[6], a[7])
+                own_pack = pack_trace(gen, *sk)
+                if attr == 'sphere_march':   # E reads the SIREN prefix
+                    n = own_pack.params.numel()
+                    assert torch.equal(packed.params[:n], own_pack.params)
+                else:
+                    assert torch.equal(packed.params, own_pack.params)
+                    assert bytes(packed.meta) == bytes(own_pack.meta)
+                packed = own_pack
+            return real(*a, packed=packed, **k)
+        monkeypatch.setattr(prt, attr, f)
+    for attr in ('sphere_march', 'iso_refine'):
+        spy(attr, own=False)
+    shared = render(p, pcfg, ip)
+    assert len(built) == 1
+    assert [a for a, _ in seen] == ['sphere_march'] * 2 + ['iso_refine'] * 2
+    assert all(pk is built[0] for _, pk in seen)
+    monkeypatch.undo()
+    monkeypatch.setattr(prt, 'pack_trace', pack_spy)
+    seen.clear()
+    for attr in ('sphere_march', 'iso_refine'):
+        spy(attr, own=True)
+    separate = render(p, pcfg, ip)
+    assert len(seen) == 4 and len(built) == 2
+    for k in ('network_body_mask', 'surface_converged', 'surface_depth',
+              'rgb_values'):
+        assert torch.equal(shared[k], separate[k]), k
+
+
 def test_split_equals_single_pass(rng, monkeypatch):
     """With caps that hold every straggler, the port's splits reproduce
     the single-pass render: a point's (or ray's) trajectory does not
