@@ -1,5 +1,6 @@
 // Kernels B and L: the canonical-correspondence Broyden search,
-// fwd_skin(x_hat) = x_bar, one body for both.
+// fwd_skin(x_hat) = x_bar, one body for both, points from a device-side
+// queue.
 //
 // Replaces the TPU kernels arah_tpu/ops/pallas/corr_kernel_t.py:
 // corr_search_pallas_t (B, body _make_kernel, on both main paths) and
@@ -12,160 +13,270 @@
 // freeze at |g| >= dvg; masked points return x0 and T0, valid = mask &&
 // best |g| < cvg. B also returns `active` (still iterating at max_steps,
 // false for a masked point), which its straggler split reads; L has no
-// such output (active_out is null). The weights come pre-transposed
-// (in, out) for both (ops/corr.py:pack_skin_t).
+// such output (active_out is null).
 //
-// Bound on the H100: operations. Per Broyden iteration of a point the
-// skinning MLP's multiply-adds (3x128 + 3x128x128 + 128x25, ~53 k at the
-// flagship) plus ~200 flops of softmax, blend and 3x3 algebra; the bytes
-// are ~100 B per point in and out.
+// Bound on the H100: operations. Per evaluation of a point (one at init,
+// one a Broyden iteration) the skinning MLP's multiply-adds (3x128 +
+// 3x128x128 + 128x25, ~53 k at the flagship) plus ~200 flops of softmax,
+// blend and 3x3 algebra; the bytes are ~170 B per point in and out.
 //
-// Design: the tile of kernel F (csrc/tile_mlp.cuh). 256 threads own 16
-// points; each Broyden iteration runs the skinning MLP as tile products
-// through shared memory (tile_dense: the 128-wide layers on all 256
-// threads, the 25-logit layer on 50), so each weight loaded from L2 feeds
-// 16 points; the softmax on one thread per point, the bone blend on 16
-// threads per point, then one thread per point does the LBS residual, the
-// rank-1 update and the best iterate (tile_mlp.cuh:broyden_init/
-// broyden_step). The tile loops while any of its points is active
-// (__syncthreads_or, as the TPU's per-tile exit); finished points stay
-// frozen, so each point's values, `active` included, are those of a
-// per-point exit.
-#include "tile_mlp.cuh"
+// Design (csrc/stream_mlp.cuh, after kernel F in csrc/iso.cu): a
+// persistent grid whose CTAs (or clusters) own R point slots each. An
+// empty slot takes the next unmasked point from a global atomic counter
+// (masked points are written at once, at x0/T0); the point's first pass
+// evaluates the residual at x0 (broyden_init's evaluation), every later
+// one at x + upd (a Broyden iteration), so a slot just refilled and a slot
+// mid-solve share one pass, which runs on the live slots only, compacted.
+// The skinning MLP is stream_mlp.cuh's corr pass (pass_table with no SIREN
+// layers), its weights streamed through the shared-memory ring, its
+// logits layer in lane groups (TileShape's NG).
+// The softmax, the LBS residual and the Broyden step (tile_mlp.cuh:
+// broyden_init/broyden_step) run on one thread a slot, the bone blend on
+// 16. A point that converges, diverges or reaches max_steps
+// writes its outputs (and its own iteration count) and frees its slot, so
+// its values depend neither on its neighbours nor on the launch shape.
+#include "stream_mlp.cuh"
 
-__global__ void __launch_bounds__(TILE_THREADS)
-corr_rows_kernel(const float* __restrict__ xbar_g,
-                 const float* __restrict__ x0_g,
-                 const float* __restrict__ t0_g,
-                 const unsigned char* __restrict__ mask_g, int n,
-                 const float* __restrict__ bones_g,
-                 const float* __restrict__ frame_g,
-                 const float* __restrict__ P, NetMeta m, int max_steps,
-                 float cvg, float dvg, float eps, float softmax_scale,
-                 float* __restrict__ x_out, float* __restrict__ t_out,
-                 unsigned char* __restrict__ valid_out,
-                 unsigned char* __restrict__ active_out) {
-  __shared__ __align__(16) float hbuf[TILE_RAYS * TILE_LD];
+struct CorrArgs {
+  const float *xbar, *x0, *t0;
+  const unsigned char* mask;
+  int n;
+  const float *bones, *frame, *P;
+  NetMeta m;
+  int max_steps;
+  float cvg, dvg, eps, softmax_scale;
+  int* counters;          // [0] the point queue
+  float *x_out, *t_out;
+  unsigned char *valid_out, *active_out;   // active_out may be null (L)
+  int* iters_out;         // may be null
+};
+
+template <class S>
+__global__ void __launch_bounds__(S::NT, S::MINB)
+corr_kernel(const CorrArgs a) {
+  constexpr int R = S::R, C = S::C;
+  static_assert(S::MAXW >= N_BONES, "the softmax's rows");
+  extern __shared__ __align__(16) float smem[];
+  float* act = smem;                       // [2][MAXW][LDA]
+  float* ring = smem + 2 * S::ABUF;        // [ST][KC][CU]
+  __shared__ PassTable pt;
   __shared__ float bones[N_BONES * 16];
-  __shared__ float s_xbar[TILE_RAYS][3], s_x[TILE_RAYS][3];
-  __shared__ float s_xn[TILE_RAYS][3], s_dx[TILE_RAYS][3];
-  __shared__ float s_gx[TILE_RAYS][3], s_g[TILE_RAYS][3];
-  __shared__ float s_J[TILE_RAYS][9], s_upd[TILE_RAYS][3];
-  __shared__ float s_xopt[TILE_RAYS][3], s_topt[TILE_RAYS][16];
-  __shared__ float s_T[TILE_RAYS][16], s_w[TILE_RAYS][N_BONES];
-  __shared__ float s_gnopt[TILE_RAYS];
-  __shared__ int s_act[TILE_RAYS], s_mask[TILE_RAYS];
+  __shared__ int s_ray[R], s_new[R], s_it[R], s_init[R];
+  __shared__ int s_exhausted, s_nl, s_list[R];
+  __shared__ float s_xbar[R][3], s_x[R][3], s_xn[R][3], s_dx[R][3];
+  __shared__ float s_gx[R][3], s_J[R][9], s_upd[R][3];
+  __shared__ float s_xopt[R][3], s_topt[R][16], s_gnopt[R];
+  __shared__ float s_T[R][16];
 
   const int j = threadIdx.x;
-  const int r0 = blockIdx.x * TILE_RAYS;
-  const int p = j >> 4, lane = j & 15;    // (point, entry) of the blend
-  const FrameAffine fa = frame_affine(frame_g);
-  for (int k = j; k < N_BONES * 16; k += blockDim.x) bones[k] = bones_g[k];
-  if (j < TILE_RAYS) {
-    const int r = r0 + j;
-    const bool in = r < n;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      s_xbar[j][c] = in ? xbar_g[3 * r + c] : 0.f;
-      s_xn[j][c] = s_x[j][c] = s_xopt[j][c] = in ? x0_g[3 * r + c] : 0.f;
-    }
-    for (int c = 0; c < 16; ++c) s_topt[j][c] = in ? t0_g[16 * r + c] : 0.f;
-    s_mask[j] = s_act[j] = in && mask_g[r] != 0;
+  int rank = 0;
+  if constexpr (C > 1) rank = (int)cg::this_cluster().block_rank();
+  const FrameAffine fa = frame_affine(a.frame);
+  const NetMeta& m = a.m;
+  for (int k = j; k < N_BONES * 16; k += S::NT) bones[k] = a.bones[k];
+  if (j < R) s_ray[j] = -1;
+  if (j == 0) {
+    s_exhausted = 0;
+    pass_table(pt, m, true, C, S::KC);
   }
-  __syncthreads();
+  if constexpr (C > 1) cg::this_cluster().sync();
+  else __syncthreads();
+  ring_start<S>(ring, pt, a.P, rank);
+  int g = 0;                               // the ring's next chunk
+  int cur = 0;                             // the pass's input buffer
 
-  // fwd_skin at s_xn -> s_g (residual) and s_T (blended transform)
-  auto eval = [&]() {
-    if (j < TILE_RAYS) {
+  // point r's outputs (leader only)
+  auto write = [&](int r, const float* x, const float* T, bool valid,
+                   bool active, int it) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        hbuf[j * TILE_LD + c] = s_xn[j][c] * fa.nscale + fa.noff[c];
-    }
-    __syncthreads();
-    for (int l = 0; l < m.n_skin; ++l)
-      tile_dense(hbuf, m.skin_dims[l], P + m.skin_wt_off[l],
-                 P + m.skin_b_off[l], m.skin_dims[l + 1], l == m.n_skin - 1,
-                 softmax_scale);
-    if (j < TILE_RAYS) hier_softmax(hbuf + j * TILE_LD, s_w[j]);
-    __syncthreads();
-    {
-      float s = 0.f;
-#pragma unroll
-      for (int b = 0; b < N_BONES; ++b)
-        s = fmaf(s_w[p][b], bones[b * 16 + lane], s);
-      s_T[p][lane] = s;
-    }
-    __syncthreads();
-    if (j < TILE_RAYS) {
-      const float* T = s_T[j];
-      const float* x = s_xn[j];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        s_g[j][c] = T[4 * c] * x[0] + T[4 * c + 1] * x[1]
-                    + T[4 * c + 2] * x[2] + T[4 * c + 3] - s_xbar[j][c];
-    }
-    __syncthreads();
+    for (int c = 0; c < 3; ++c) a.x_out[3 * r + c] = x[c];
+    for (int c = 0; c < 16; ++c) a.t_out[16 * r + c] = T[c];
+    a.valid_out[r] = valid ? 1 : 0;
+    if (a.active_out) a.active_out[r] = active ? 1 : 0;
+    if (a.iters_out) a.iters_out[r] = it;
   };
 
-  eval();
-  if (j < TILE_RAYS) {
+  for (;;) {
+    // ---- refill: the leader takes the next unmasked points for the empty
+    // slots (masked points keep x0 and T0)
+    if (rank == 0 && j < R && s_ray[j] < 0) {
+      int r = -1;
+      while (!*(volatile int*)&s_exhausted) {
+        const int c = atomicAdd(a.counters, 1);
+        if (c >= a.n) {
+          s_exhausted = 1;
+          break;
+        }
+        if (a.mask[c]) {
+          r = c;
+          break;
+        }
+        write(c, a.x0 + 3 * c, a.t0 + 16 * c, false, false, 0);
+      }
+      s_new[j] = r;
+    }
+    if constexpr (C > 1) cg::this_cluster().sync();
+    else __syncthreads();
+    if (j < R && s_ray[j] < 0) {
+      int r = s_new[j];
+      if constexpr (C > 1) r = *cg::this_cluster().map_shared_rank(&s_new[j], 0);
+      s_ray[j] = r;
+      if (r >= 0) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) s_gx[j][c] = s_g[j][c];
-    s_gnopt[j] = broyden_init(s_T[j], s_gx[j], s_J[j], s_upd[j]);
-  }
+        for (int c = 0; c < 3; ++c) {
+          s_xbar[j][c] = a.xbar[3 * r + c];
+          s_xn[j][c] = s_x[j][c] = s_xopt[j][c] = a.x0[3 * r + c];
+        }
+        for (int c = 0; c < 16; ++c) s_topt[j][c] = a.t0[16 * r + c];
+        s_init[j] = 1;
+        s_it[j] = 0;
+      }
+    }
+    if (!__syncthreads_or(j < R && s_ray[j] >= 0)) break;
 
-  for (int it = 0; it < max_steps; ++it) {
-    if (!__syncthreads_or(j < TILE_RAYS && s_act[j])) break;
-    if (j < TILE_RAYS) {
-      const bool a = s_act[j] != 0;
+    // ---- fwd_skin at s_xn: the skinning MLP on the live slots compacted
+    // to positions [0, nl) of s_list (positions past nl feed zeros; their
+    // results are not read), from buffer cur (stream_mlp.cuh's buffer rule)
+    const int nl = live_list<S>(s_ray, s_list, &s_nl);
+    if (j < R) {
+      const int p = j < nl ? s_list[j] : 0;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        s_dx[j][c] = a ? s_upd[j][c] : 0.f;
-        s_xn[j][c] = s_x[j][c] + s_dx[j][c];
+      for (int c = 0; c < 3; ++c)
+        act[cur * S::ABUF + c * S::LDA + j] =
+            j < nl ? s_xn[p][c] * fa.nscale + fa.noff[c] : 0.f;
+    }
+    const int lg = run_layers<S>(pt, 0, pt.n, act, cur, ring, g, a.P, m,
+                                 a.softmax_scale, rank, nl);
+    cur = lg;
+    // the hierarchical softmax of a position on one thread, its weights
+    // into the free buffer lg ^ 1 (k-major, by position); then the bone
+    // blend, 16 threads a position
+    {
+      const float* lgt = act + lg * S::ABUF;
+      float* wts = act + (lg ^ 1) * S::ABUF;
+      if (j < nl) {
+        float c25[25], w[N_BONES];
+#pragma unroll
+        for (int u = 0; u < 25; ++u) c25[u] = lgt[u * S::LDA + j];
+        hier_softmax(c25, w);
+#pragma unroll
+        for (int b = 0; b < N_BONES; ++b) wts[b * S::LDA + j] = w[b];
+      }
+      __syncthreads();
+      for (int e = j; e < nl * 16; e += S::NT) {
+        const int pos = e >> 4, lane = e & 15;
+        float s = 0.f;
+#pragma unroll
+        for (int b = 0; b < N_BONES; ++b)
+          s = fmaf(wts[b * S::LDA + pos], bones[b * 16 + lane], s);
+        s_T[s_list[pos]][lane] = s;
       }
     }
     __syncthreads();
-    eval();
-    // a finished point stays frozen: its x, residual, Ji and step unchanged
-    if (j < TILE_RAYS && s_act[j]) {
-      bool better;
-      s_act[j] = broyden_step(s_J[j], s_gx[j], s_upd[j], s_gnopt[j],
-                              better, s_dx[j], s_g[j], cvg, dvg, eps);
-      if (better) {
+
+    // ---- the LBS residual, then the init step or a Broyden step of each
+    // live slot
+    if (j < R && s_ray[j] >= 0) {
+      const float* T = s_T[j];
+      const float* x = s_xn[j];
+      float gv[3];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) s_xopt[j][c] = s_xn[j][c];
-        for (int c = 0; c < 16; ++c) s_topt[j][c] = s_T[j][c];
+      for (int c = 0; c < 3; ++c)
+        gv[c] = T[4 * c] * x[0] + T[4 * c + 1] * x[1] + T[4 * c + 2] * x[2]
+                + T[4 * c + 3] - s_xbar[j][c];
+      bool done, active = true;
+      if (s_init[j]) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) s_gx[j][c] = gv[c];
+        s_gnopt[j] = broyden_init(s_T[j], s_gx[j], s_J[j], s_upd[j]);
+        s_init[j] = 0;
+        done = a.max_steps <= 0;
+      } else {
+        bool better;
+        active = broyden_step(s_J[j], s_gx[j], s_upd[j], s_gnopt[j], better,
+                              s_dx[j], gv, a.cvg, a.dvg, a.eps);
+        if (better) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) s_xopt[j][c] = s_xn[j][c];
+          for (int c = 0; c < 16; ++c) s_topt[j][c] = T[c];
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) s_x[j][c] = s_xn[j][c];
+        const int it = ++s_it[j];
+        done = !active || it >= a.max_steps;
       }
+      if (done) {
+        if (rank == 0)
+          write(s_ray[j], s_xopt[j], s_topt[j], s_gnopt[j] < a.cvg, active,
+                s_it[j]);
+        s_ray[j] = -1;
+      } else {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) s_x[j][c] = s_xn[j][c];
+        for (int c = 0; c < 3; ++c) {
+          s_dx[j][c] = s_upd[j][c];
+          s_xn[j][c] = s_x[j][c] + s_dx[j][c];
+        }
+      }
     }
   }
-  __syncthreads();
-  if (r0 + p < n) {
-    const int r = r0 + p;
-    const bool mk = s_mask[p] != 0;
-    t_out[16 * r + lane] = mk ? s_topt[p][lane] : t0_g[16 * r + lane];
-    if (lane < 3) x_out[3 * r + lane] = mk ? s_xopt[p][lane]
-                                           : x0_g[3 * r + lane];
-    if (lane == 0) {
-      valid_out[r] = (mk && s_gnopt[p] < cvg) ? 1 : 0;
-      if (active_out != nullptr) active_out[r] = s_act[p] ? 1 : 0;
-    }
-  }
+  cp_async_wait_all();
+  if constexpr (C > 1) cg::this_cluster().sync();
 }
 
-// B (active != null) and L (active == null).
+// The launch shapes: for layers at most 128 wide (the flagship's),
+// 128-point CTAs (the logits layer in lane groups of 8), then 16-point
+// clusters of 2 CTAs (ops/corr.py:launch_shape picks one by the number of
+// points; PERF.md gives the sweep that chose them); for a skinning MLP
+// up to 256 wide, 64-point CTAs at every batch size.
+//                           R   NT  C  KC MINB ST MAXW NG
+using CorrShape0 = TileShape<128, 512, 1, 32, 1, 2, 128, 4>;
+using CorrShape1 = TileShape<16, 256, 2, 64, 2, 3, 128>;
+using CorrShape2 = TileShape<64, 512, 1, 32, 1, 2>;
+
+template <class S>
+static int corr_launch(const CorrArgs& a, cudaStream_t st, int* shape,
+                       bool run) {
+  return launch_tile<S>(corr_kernel<S>, a, a.n, true, st, shape, run);
+}
+
+static int corr_dispatch(int variant, const CorrArgs& a, cudaStream_t st,
+                         int* shape, bool run) {
+  switch (variant) {
+    case 0: return corr_launch<CorrShape0>(a, st, shape, run);
+    case 1: return corr_launch<CorrShape1>(a, st, shape, run);
+    case 2: return corr_launch<CorrShape2>(a, st, shape, run);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch shape `variant` would take for n points (as arah_march_shape).
+extern "C" int arah_corr_shape(int variant, int n, int* shape) {
+  CorrArgs a = {};
+  a.n = n;
+  return corr_dispatch(variant, a, 0, shape, false);
+}
+
+// B (active != null) and L (active == null). `params`: the skinning
+// blocks of ops/march.py:pack_trace (each layer's (in, pad32(out))
+// transposed weights and padded bias, 16-byte aligned); the pack's SIREN,
+// if any, is not read. `counters`: 2 ints of scratch (zeroed here);
+// `iters_out` may be null.
 extern "C" int arah_corr(const float* xbar, const float* x0, const float* t0,
                          const unsigned char* mask, int n,
                          const float* bones16, const float* frame,
                          const float* params, NetMeta m, int max_steps,
                          float cvg, float dvg, float eps, float softmax_scale,
-                         float* x_out, float* t_out, unsigned char* valid,
-                         unsigned char* active, void* stream) {
+                         int variant, int* counters, float* x_out,
+                         float* t_out, unsigned char* valid,
+                         unsigned char* active, int* iters_out,
+                         void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + TILE_RAYS - 1) / TILE_RAYS;
-  corr_rows_kernel<<<blocks, TILE_THREADS, 0, (cudaStream_t)stream>>>(
-      xbar, x0, t0, mask, n, bones16, frame, params, m, max_steps, cvg, dvg,
-      eps, softmax_scale, x_out, t_out, valid, active);
-  return launch_status();
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(counters, 0, 2 * sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
+  m.n_layers = 0;                          // the corr pass: skinning only
+  CorrArgs a = {xbar, x0, t0, mask, n, bones16, frame, params, m, max_steps,
+                cvg, dvg, eps, softmax_scale, counters, x_out, t_out, valid,
+                active, iters_out};
+  return corr_dispatch(variant, a, st, nullptr, true);
 }

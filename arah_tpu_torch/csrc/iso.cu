@@ -280,7 +280,7 @@ iso_kernel(const IsoArgs a) {
 template <class S>
 static int iso_launch(const IsoArgs& a, cudaStream_t st, int* shape,
                       bool run) {
-  return launch_tile<S>(iso_kernel<S>, a, a.n, st, shape, run);
+  return launch_tile<S>(iso_kernel<S>, a, a.n, true, st, shape, run);
 }
 
 // Launch shape 0 (16-ray clusters of 4 CTAs) or 1 (16-ray clusters of 8).

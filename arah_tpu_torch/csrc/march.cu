@@ -355,7 +355,7 @@ march_kernel(const MarchArgs a) {
 template <class S>
 static int march_launch(const MarchArgs& a, cudaStream_t st, int* shape,
                         bool run) {
-  return launch_tile<S>(march_kernel<S>, a, a.n, st, shape, run);
+  return launch_tile<S>(march_kernel<S>, a, a.n, false, st, shape, run);
 }
 
 // Launch shape 0 (64-ray CTAs) or 1 (16-ray clusters of 4 CTAs).

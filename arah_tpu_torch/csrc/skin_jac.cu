@@ -43,6 +43,7 @@
 // is masked. No reduction.
 #include "tile_mlp.cuh"
 
+#define SJ_THREADS 256              // threads per block
 #define SJ_PTS 16                   // points per tile
 #define SJ_ROWS (4 * SJ_PTS)        // row 4p + t: t = 0 primal, t = 1 + k
                                     // the tangent along x_k
@@ -50,7 +51,7 @@
 #define SJ_LDL 33                   // row stride of the logits rows (odd:
                                     // the softmax's reads miss no bank)
 
-static_assert(SJ_PTS * 16 == TILE_THREADS, "16 unit groups of 16 points");
+static_assert(SJ_PTS * 16 == SJ_THREADS, "16 unit groups of 16 points");
 static_assert(SJ_ROWS * SJ_LDL <= SJ_MAXW * SJ_ROWS, "logits fit in act");
 
 __host__ __device__ inline int sj_pad(int d) { return (d + 31) & ~31; }
@@ -161,7 +162,7 @@ static __device__ void hier_softmax_jvp(const float* c, const float* dc,
   }
 }
 
-__global__ void __launch_bounds__(TILE_THREADS, 2)
+__global__ void __launch_bounds__(SJ_THREADS, 2)
 skin_jac_kernel(const float* __restrict__ x_g, int n,
                 const float* __restrict__ bones_g,
                 const float* __restrict__ frame_g,
@@ -315,7 +316,7 @@ extern "C" int arah_skin_jac(const float* x, int n, const float* bones16,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (n + SJ_PTS - 1) / SJ_PTS;
-  skin_jac_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(
+  skin_jac_kernel<<<blocks, SJ_THREADS, smem, (cudaStream_t)stream>>>(
       x, n, bones16, frame, params, m, softmax_scale, jac);
   return launch_status();
 }

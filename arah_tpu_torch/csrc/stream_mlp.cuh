@@ -1,8 +1,9 @@
-// The network pass of the persistent ray-slot kernels E (march) and F (iso):
-// a tile of R ray slots runs the generated SIREN's hidden layers (and, for
-// F, the collapsed skinning MLP first) with the weights streamed through
-// shared memory and the products register-blocked; optionally the layer's
-// output units are split across the CTAs of a thread-block cluster.
+// The network pass of the persistent slot kernels E (march), F (iso), B/L
+// (corr) and J (siren): a tile of R ray (point) slots runs the generated
+// SIREN's hidden layers (E, J), the collapsed skinning MLP (B/L) or both
+// (F) with the weights streamed through shared memory and the products
+// register-blocked; optionally the layer's output units are split across
+// the CTAs of a thread-block cluster.
 //
 // - The live ray slots are compacted to positions [0, nl) every iteration
 //   (live_list), and the pass runs on those positions only: a warp whose
@@ -24,8 +25,8 @@
 //   lane l owns UB units, VW adjacent ones at a time. Per input row k one
 //   broadcast load of the RB activations and UB / VW loads of weights feed
 //   RB x UB FMAs. Every output's sum runs over k in order from 0 (acc =
-//   fmaf(h, w, acc), then + bias), as the thread-per-unit loops of
-//   tile_mlp.cuh sum it: the same bits on every launch shape.
+//   fmaf(h, w, acc), then + bias), as a thread-per-unit loop sums it: the
+//   same bits on every launch shape.
 // - Cluster split (C > 1): CTA `rank` of the cluster computes output units
 //   [rank wl, (rank + 1) wl) of every layer (wl = ld / C), so it streams
 //   only its share of the weights, and writes its units into every CTA's
@@ -39,7 +40,9 @@
 //   follows another with no cluster barrier between them (F's SIREN after
 //   its skinning MLP, whose logits are read in between) starts on the
 //   buffer the other returned, its inputs written there: its first
-//   epilogue then writes the other's last input, never the logits.
+//   epilogue then writes the other's last input, never the logits. A
+//   kernel whose passes follow each other with no cluster barrier between
+//   them (J's tiles) starts each pass on the buffer the last one returned.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -48,7 +51,7 @@
 
 namespace cg = cooperative_groups;
 
-#define SM_MAXW 256         // widest layer
+#define SM_MAXW 256         // widest layer of a SIREN pass
 #define SM_MAX_PASS 16      // layers of one pass (skinning + SIREN)
 
 enum { EPI_SINE = 0, EPI_SOFTPLUS = 1, EPI_LOGITS = 2 };
@@ -56,33 +59,35 @@ enum { EPI_SINE = 0, EPI_SOFTPLUS = 1, EPI_LOGITS = 2 };
 
 // The launch shape: R ray slots a CTA (a cluster of C CTAs) of NT threads;
 // a ring of ST weight chunks of KC input rows; at least MINB CTAs an SM
-// (the register budget). Warp w owns ray positions [w RB, (w + 1) RB) of
-// the compacted live slots and all CU = 256 / C units of its CTA: lane l
+// (the register budget); layers at most MAXW wide (256 for a SIREN pass,
+// 128 for the corr pass). Warp w owns ray positions [w RB, (w + 1) RB) of
+// the compacted live slots and all CU = MAXW / C units of its CTA: lane l
 // owns UB of them, VW adjacent ones (one shared-memory load) at a time,
-// units VW l + 32 VW v + e (v < UB / VW, e < VW).
-template <int R_, int NT_, int C_, int KC_, int MINB_, int ST_>
+// units VW l + 32 VW v + e (v < UB / VW, e < VW). NG > 1: a narrow layer,
+// one whose share of the CTA is at most CU / NG units (the 25 logits),
+// runs with a warp's lanes in NG groups of 32 / NG, group q taking RB / NG
+// of the warp's positions (run_layer), so no lane computes units past the
+// layer's width.
+template <int R_, int NT_, int C_, int KC_, int MINB_, int ST_,
+          int MAXW_ = SM_MAXW, int NG_ = 1>
 struct TileShape {
   static constexpr int R = R_, NT = NT_, C = C_, KC = KC_, MINB = MINB_,
-                       ST = ST_;
+                       ST = ST_, MAXW = MAXW_, NG = NG_;
   static constexpr int W = NT / 32;           // warps
   static constexpr int RB = R / W;            // ray positions of a warp
-  static constexpr int CU = SM_MAXW / C;      // units of a CTA
+  static constexpr int CU = MAXW / C;         // units of a CTA
   static constexpr int UB = CU / 32;          // units of a lane
   static constexpr int VW = UB < 4 ? UB : 4;  // adjacent units a load
   static constexpr int LDA = R + 4;           // activation row stride
-  static constexpr int ABUF = SM_MAXW * LDA;  // floats of one buffer
+  static constexpr int ABUF = MAXW * LDA;     // floats of one buffer
   static constexpr int RING = ST * KC * CU;
   static size_t smem_bytes() { return (size_t)(2 * ABUF + RING) * 4; }
+  static constexpr int RBN = RB / NG;        // positions of a lane group
   static_assert(R % W == 0 && (RB == 1 || RB == 2 || RB % 4 == 0)
-                && CU % 32 == 0 && UB % VW == 0 && R <= 64 && ST >= 2,
+                && CU % 32 == 0 && UB % VW == 0 && R <= 128 && ST >= 2
+                && RB % NG == 0 && (RBN == 1 || RBN == 2 || RBN % 4 == 0),
                 "shape");
 };
-
-// Lane l's unit q (< UB) of the CTA's share.
-template <class S>
-__device__ __forceinline__ int lane_unit(int lane, int q) {
-  return S::VW * lane + 32 * S::VW * (q / S::VW) + q % S::VW;
-}
 
 struct PassLayer {
   long long wt, b;       // offsets into the parameter buffer
@@ -97,8 +102,9 @@ struct PassTable {
 
 __host__ __device__ inline int pad32i(int d) { return (d + 31) & ~31; }
 
-// Thread 0: the pass of kernel E (SIREN hidden layers) or F (skinning MLP,
-// then the SIREN hidden layers).
+// Thread 0: the pass of kernel E or J (SIREN hidden layers), F (skinning
+// MLP, then the SIREN hidden layers) or B/L (skin, and m.n_layers = 0: the
+// skinning MLP only).
 __device__ inline void pass_table(PassTable& pt, const NetMeta& m, bool skin,
                                   int C, int kc) {
   int n = 0, nch = 0;
@@ -125,6 +131,17 @@ __device__ inline void pass_table(PassTable& pt, const NetMeta& m, bool skin,
         m.film ? i : -1);
   pt.n = n;
   pt.nch = nch;
+}
+
+// The widest layer (rows of an activation buffer) of pass_table's pass.
+__host__ __device__ inline int pass_widest(const NetMeta& m, bool skin) {
+  int w = m.n_layers > 1 ? m.hidden : 0;
+  if (skin)
+    for (int l = 0; l < m.n_skin; ++l) {
+      const int d = pad32i(m.skin_dims[l + 1]);
+      w = d > w ? d : w;
+    }
+  return w;
 }
 
 template <int N>
@@ -190,24 +207,25 @@ __device__ __forceinline__ void ring_start(float* ring, const PassTable& pt,
 }
 
 // acc[i][q] += sum over the chunk's rows k, in order, of a[k][i] times
-// the lane's unit q of row k (a: the warp's first ray position; w: the
-// chunk at the lane's first unit).
-template <class S>
-__device__ __forceinline__ void chunk_fma(float (&acc)[S::RB][S::UB],
+// the lane's unit q of row k, units VW ul + LG VW v + e of the lane's
+// index ul in its group of LG lanes (a: the lane's first ray position; w:
+// the chunk at the lane's first unit).
+template <class S, int RN, int LG>
+__device__ __forceinline__ void chunk_fma(float (&acc)[RN][S::UB],
                                           const float* a, const float* w,
                                           int wl, int rows) {
   auto step = [&](int k) {
-    float av[S::RB], wv[S::UB];
-    ld_vec<S::RB>(a + k * S::LDA, av);
+    float av[RN], wv[S::UB];
+    ld_vec<RN>(a + k * S::LDA, av);
 #pragma unroll
     for (int v = 0; v < S::UB / S::VW; ++v) {
       float t[S::VW];
-      ld_vec<S::VW>(w + k * wl + 32 * S::VW * v, t);
+      ld_vec<S::VW>(w + k * wl + LG * S::VW * v, t);
 #pragma unroll
       for (int e = 0; e < S::VW; ++e) wv[S::VW * v + e] = t[e];
     }
 #pragma unroll
-    for (int i = 0; i < S::RB; ++i)
+    for (int i = 0; i < RN; ++i)
 #pragma unroll
       for (int q = 0; q < S::UB; ++q) acc[i][q] = fmaf(av[i], wv[q], acc[i][q]);
   };
@@ -217,6 +235,80 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[S::RB][S::UB],
   } else {
     for (int k = 0; k < rows; ++k) step(k);
   }
+}
+
+// Layer l of the pass with a warp's lanes in groups of LG: lane ul of
+// group q computes units VW ul + LG VW v + e (v < UB / VW, e < VW) of the
+// CTA's share at the RN positions [pos0 + q RN, pos0 + (q + 1) RN) of the
+// warp's (LG = 32, RN = RB: one group, the warp's RB positions; a layer
+// whose share is at most CU / NG units takes LG = 32 / NG, RN = RB / NG,
+// so no lane computes units past the layer's width). Reads buffer in,
+// writes and returns in ^ 1.
+template <class S, int RN, int LG>
+__device__ __forceinline__ int run_layer(const PassTable& pt, int l,
+                                         float* act, int in, float* ring,
+                                         int& g, const float* __restrict__ P,
+                                         const NetMeta& m, float scale,
+                                         int rank, int nl) {
+  const int lane = threadIdx.x & 31, ul = lane % LG;
+  const int pos0 = (threadIdx.x >> 5) * S::RB + (lane / LG) * RN;
+  const bool live = pos0 < nl;
+  const int din = pt.l[l].din, wl = pt.l[l].wl;
+  const float* a_in = act + in * S::ABUF + pos0;
+  float acc[RN][S::UB];
+#pragma unroll
+  for (int i = 0; i < RN; ++i)
+#pragma unroll
+    for (int q = 0; q < S::UB; ++q) acc[i][q] = 0.f;
+  for (int k0 = 0; k0 < din; k0 += S::KC) {
+    cp_async_wait_group<S::ST - 2>();
+    __syncthreads();
+    ring_issue<S>(ring, pt, P, g + S::ST - 1, rank);
+    const float* ws = ring + (g % S::ST) * (S::KC * S::CU);
+    ++g;
+    if (live)
+      chunk_fma<S, RN, LG>(acc, a_in + k0 * S::LDA, ws + S::VW * ul, wl,
+                           min(S::KC, din - k0));
+  }
+  const int out = in ^ 1;
+  if (live) {
+    const int kind = pt.l[l].kind, film = pt.l[l].film;
+    const long long bo = pt.l[l].b;
+#pragma unroll
+    for (int q = 0; q < S::UB; ++q) {
+      const int uc = S::VW * ul + LG * S::VW * (q / S::VW) + q % S::VW;
+      if (uc >= wl) break;
+      const int u = rank * wl + uc;
+      const float b = __ldg(P + bo + u);
+      float f = 1.f, ph = 0.f;
+      if (film >= 0) {
+        f = __ldg(P + m.freq_off + (long long)film * m.hidden + u);
+        ph = __ldg(P + m.phase_off + (long long)film * m.hidden + u);
+      }
+      float v[RN];
+#pragma unroll
+      for (int i = 0; i < RN; ++i) {
+        float z = acc[i][q] + b;
+        if (kind == EPI_SINE) {
+          if (film >= 0) z = f * z + ph;
+          v[i] = sinf(30.f * z);
+        } else {
+          v[i] = kind == EPI_LOGITS ? z * scale : softplus100(z);
+        }
+      }
+      float* dst = act + out * S::ABUF + u * S::LDA + pos0;
+      if constexpr (S::C > 1) {
+        cg::cluster_group cl = cg::this_cluster();
+#pragma unroll
+        for (int c = 0; c < S::C; ++c)
+          st_vec<RN>(cl.map_shared_rank(dst, c), v);
+      } else {
+        st_vec<RN>(dst, v);
+      }
+    }
+  }
+  if constexpr (S::C > 1) cg::this_cluster().sync();
+  return out;
 }
 
 // Layers [l0, l1) of the pass over the first nl (compacted) ray positions,
@@ -230,80 +322,28 @@ __device__ int run_layers(const PassTable& pt, int l0, int l1, float* act,
                           int in, float* ring, int& g,
                           const float* __restrict__ P, const NetMeta& m,
                           float scale, int rank, int nl) {
-  const int lane = threadIdx.x & 31, pos0 = (threadIdx.x >> 5) * S::RB;
-  const bool live = pos0 < nl;
   for (int l = l0; l < l1; ++l) {
-    const int din = pt.l[l].din, wl = pt.l[l].wl;
-    const float* a_in = act + in * S::ABUF + pos0;
-    float acc[S::RB][S::UB];
-#pragma unroll
-    for (int i = 0; i < S::RB; ++i)
-#pragma unroll
-      for (int q = 0; q < S::UB; ++q) acc[i][q] = 0.f;
-    for (int k0 = 0; k0 < din; k0 += S::KC) {
-      cp_async_wait_group<S::ST - 2>();
-      __syncthreads();
-      ring_issue<S>(ring, pt, P, g + S::ST - 1, rank);
-      const float* ws = ring + (g % S::ST) * (S::KC * S::CU);
-      ++g;
-      if (live)
-        chunk_fma<S>(acc, a_in + k0 * S::LDA, ws + S::VW * lane, wl,
-                     min(S::KC, din - k0));
-    }
-    const int out = in ^ 1;
-    if (live) {
-      const int kind = pt.l[l].kind, film = pt.l[l].film;
-      const long long bo = pt.l[l].b;
-#pragma unroll
-      for (int q = 0; q < S::UB; ++q) {
-        if (lane_unit<S>(lane, q) >= wl) break;
-        const int u = rank * wl + lane_unit<S>(lane, q);
-        const float b = __ldg(P + bo + u);
-        float f = 1.f, ph = 0.f;
-        if (film >= 0) {
-          f = __ldg(P + m.freq_off + (long long)film * m.hidden + u);
-          ph = __ldg(P + m.phase_off + (long long)film * m.hidden + u);
-        }
-        float v[S::RB];
-#pragma unroll
-        for (int i = 0; i < S::RB; ++i) {
-          float z = acc[i][q] + b;
-          if (kind == EPI_SINE) {
-            if (film >= 0) z = f * z + ph;
-            v[i] = sinf(30.f * z);
-          } else {
-            v[i] = kind == EPI_LOGITS ? z * scale : softplus100(z);
-          }
-        }
-        float* dst = act + out * S::ABUF + u * S::LDA + pos0;
-        if constexpr (S::C > 1) {
-          cg::cluster_group cl = cg::this_cluster();
-#pragma unroll
-          for (int c = 0; c < S::C; ++c)
-            st_vec<S::RB>(cl.map_shared_rank(dst, c), v);
-        } else {
-          st_vec<S::RB>(dst, v);
-        }
+    if constexpr (S::NG > 1)
+      if (pt.l[l].wl * S::NG <= S::CU) {
+        in = run_layer<S, S::RBN, 32 / S::NG>(pt, l, act, in, ring, g, P, m,
+                                               scale, rank, nl);
+        continue;
       }
-    }
-    if constexpr (S::C > 1) cg::this_cluster().sync();
-    in = out;
+    in = run_layer<S, S::RB, 32>(pt, l, act, in, ring, g, P, m, scale, rank,
+                                 nl);
   }
   if constexpr (S::C == 1) __syncthreads();
   return in;
 }
 
-// The SIREN's output unit of the first nl ray positions from the last
-// hidden activations (buffer a, k-major): 16 lanes a position over strided
-// k, then a shuffle sum, as tile_row_dot sums it; sdf[list[p]] = sum +
-// bias. All threads call it.
-template <class S>
-__device__ void siren_out(const float* a, const float* __restrict__ P,
-                          const NetMeta& m, const int* list, int nl,
-                          float* sdf) {
-  const int H = m.hidden, lane = threadIdx.x & 15;
-  const float* wrow = P + m.wl_off;
-  const float bias = __ldg(P + m.b_off[m.n_layers - 1]);
+// One output unit of the SIREN at the first nl ray positions from the
+// last hidden activations (buffer a, k-major) and the unit's weight row
+// wrow (H): 16 lanes a position over strided k, then a shuffle sum;
+// store(p, sum + bias) on one lane. All threads call it.
+template <class S, class Store>
+__device__ void siren_dot(const float* a, const float* __restrict__ wrow,
+                          float bias, int H, int nl, Store store) {
+  const int lane = threadIdx.x & 15;
   for (int p0 = 0; p0 < nl; p0 += S::NT / 16) {
     const int p = p0 + (threadIdx.x >> 4);
     float acc = 0.f;
@@ -313,9 +353,18 @@ __device__ void siren_out(const float* a, const float* __restrict__ P,
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, o, 16);
-    if (lane == 0 && p < nl) sdf[list[p]] = acc + bias;
+    if (lane == 0 && p < nl) store(p, acc + bias);
   }
   __syncthreads();
+}
+
+// The SIREN's (one) output unit: sdf[list[p]] = siren_dot at position p.
+template <class S>
+__device__ void siren_out(const float* a, const float* __restrict__ P,
+                          const NetMeta& m, const int* list, int nl,
+                          float* sdf) {
+  siren_dot<S>(a, P + m.wl_off, __ldg(P + m.b_off[m.n_layers - 1]),
+               m.hidden, nl, [&](int p, float v) { sdf[list[p]] = v; });
 }
 
 // The live slots of the tile in slot order (s_ray[slot] >= 0) as list[0,
@@ -349,13 +398,17 @@ __device__ __forceinline__ int scan_lanes(int nl) {
 
 // Host: set up and (if run) launch a persistent grid of kernel on n rays:
 // as many CTAs (clusters) as fit on the card at once, at most one a
-// ray-slot set's worth of rays. shape (if not null): blocks, cluster
-// size, R, dynamic shared memory a CTA, CTAs resident an SM.
+// ray-slot set's worth of rays; skin: the pass holds the skinning MLP
+// (pass_table). shape (if not null): blocks, cluster size, R, dynamic
+// shared memory a CTA, CTAs resident an SM.
 template <class S, class A>
-static int launch_tile(void (*kernel)(A), const A& args, int n,
+static int launch_tile(void (*kernel)(A), const A& args, int n, bool skin,
                        cudaStream_t stream, int* shape, bool run) {
-  // every CTA of a cluster takes whole warps' lanes of each SIREN layer
-  if (args.m.hidden % (32 * S::C) || args.m.hidden > SM_MAXW)
+  // the pass's widest layer fits the shape, and every CTA of a cluster
+  // takes whole warps' lanes of each SIREN layer (a skinning layer's
+  // width is a multiple of 32: each CTA's share, a multiple of 4 floats)
+  const int hidden = args.m.n_layers > 1 ? args.m.hidden : 0;
+  if (pass_widest(args.m, skin) > S::MAXW || hidden % (32 * S::C))
     return (int)cudaErrorInvalidValue;
   const size_t smem = S::smem_bytes();
   cudaError_t e = cudaFuncSetAttribute(

@@ -1,37 +1,26 @@
 // Shared pieces of the solver kernels (B and L corr, one body in
-// corr_rows.cu; E march, F iso) and of J (siren): the skinning MLP's
-// softplus100 and SNARF hierarchical softmax, the adjugate 3x3 inverse, the
-// per-point good-Broyden step of the corr solve, and a tile's passes
-// through the generated SIREN and the collapsed skinning MLP.
-//
-// Tile layout (B/L, E, F, J): a block of TILE_THREADS threads owns TILE_RAYS
-// rays (points). A layer's activations for the tile live in shared memory as
-// [ray][unit] rows of stride TILE_LD; thread j computes output unit j (or
-// unit j % width for narrow layers, whose rays are split between thread
-// groups), so each weight it loads from L2 (coalesced, from a transposed
-// (in, out) copy) feeds one FMA per ray, and the inputs are float4
-// broadcasts from shared memory. Every function here is called by all
-// threads of the block (they synchronise inside).
+// corr_rows.cu; E march, F iso; G skin_jac): the NetMeta parameter layout,
+// the skinning MLP's softplus100 and SNARF hierarchical softmax, the
+// adjugate 3x3 inverse, the per-point good-Broyden step of the corr solve
+// and the kernels' canonical normalisation. The network passes themselves
+// are csrc/stream_mlp.cuh's (B/L, E, F, J) and skin_jac.cu's (G).
 #pragma once
 
 #include "common.cuh"
 
-#define TILE_RAYS 16
-#define TILE_THREADS 256
-#define TILE_LD 256          // widest layer of either network
 #define NET_MAX_LAYERS 8
 #define N_BONES 24
 
-// The generated SIREN (3 -> hidden x (n_layers - 1) -> 1, FiLM optional)
-// and, for F, the collapsed skinning MLP (3 -> ... -> 25), as offsets into
-// one f32 parameter buffer.
+// The generated SIREN (3 -> hidden x (n_layers - 1) -> out, FiLM
+// optional) and, for F, B/L and G, the collapsed skinning MLP (3 -> ... ->
+// 25), as offsets into one f32 parameter buffer.
 struct NetMeta {
   int n_layers, hidden, film;
   long long wt_off[NET_MAX_LAYERS];   // (in, hidden) copies, layers 0..L-2
   long long wl_off;                   // last layer's (hidden,) row
   long long b_off[NET_MAX_LAYERS];    // biases, b_off[L-1] the output's
   long long freq_off, phase_off;      // (L-1, hidden) each, if film
-  int n_skin;                         // skinning linear layers (F only)
+  int n_skin;                         // skinning linear layers
   int skin_dims[NET_MAX_LAYERS + 1];  // widths: 3, ..., 25
   long long skin_wt_off[NET_MAX_LAYERS];  // (in, out) copies
   long long skin_b_off[NET_MAX_LAYERS];
@@ -180,157 +169,4 @@ __device__ __forceinline__ FrameAffine frame_affine(const float* f8) {
   }
   a.mscale = __fmul_rn(0.55f, ext);
   return a;
-}
-
-// One skinning-MLP layer over the tile, in place in hbuf [ray][TILE_LD]:
-// h[p][o] <- softplus100(sum_k h[p][k] W[o][k] + b[o]) for o < dout <=
-// TILE_LD, or the logits scaled by `scale` when `logits`, with Wt the
-// (din, dout) transposed weights. RP rays per thread: TILE_RAYS / RP
-// groups of dout threads.
-template <int RP>
-static __device__ void tile_dense_rp(float* hbuf, int din, const float* Wt,
-                                     const float* b, int dout, bool logits,
-                                     float scale) {
-  constexpr int G = TILE_RAYS / RP;
-  const int j = threadIdx.x;
-  const int unit = j % dout, grp = j / dout;
-  const bool on = grp < G;
-  float* rows = hbuf + (on ? grp : 0) * RP * TILE_LD;
-  float acc[RP];
-#pragma unroll
-  for (int r = 0; r < RP; ++r) acc[r] = 0.f;
-  if (on) {
-    if (din % 4 == 0) {
-      for (int k = 0; k < din; k += 4) {
-        const float w0 = __ldg(Wt + (long long)k * dout + unit);
-        const float w1 = __ldg(Wt + (long long)(k + 1) * dout + unit);
-        const float w2 = __ldg(Wt + (long long)(k + 2) * dout + unit);
-        const float w3 = __ldg(Wt + (long long)(k + 3) * dout + unit);
-#pragma unroll
-        for (int r = 0; r < RP; ++r) {
-          const float4 h4 =
-              *reinterpret_cast<const float4*>(rows + r * TILE_LD + k);
-          float a = acc[r];
-          a = fmaf(h4.x, w0, a);
-          a = fmaf(h4.y, w1, a);
-          a = fmaf(h4.z, w2, a);
-          a = fmaf(h4.w, w3, a);
-          acc[r] = a;
-        }
-      }
-    } else {
-      for (int k = 0; k < din; ++k) {
-        const float w = __ldg(Wt + (long long)k * dout + unit);
-#pragma unroll
-        for (int r = 0; r < RP; ++r)
-          acc[r] = fmaf(rows[r * TILE_LD + k], w, acc[r]);
-      }
-    }
-  }
-  __syncthreads();        // every read of the layer's input is done
-  if (on) {
-    const float bb = __ldg(b + unit);
-#pragma unroll
-    for (int r = 0; r < RP; ++r) {
-      const float z = acc[r] + bb;
-      rows[r * TILE_LD + unit] = logits ? z * scale : softplus100(z);
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void tile_dense(float* hbuf, int din,
-                                           const float* Wt, const float* b,
-                                           int dout, bool logits,
-                                           float scale) {
-  if (2 * dout <= TILE_THREADS)
-    tile_dense_rp<TILE_RAYS / 2>(hbuf, din, Wt, b, dout, logits, scale);
-  else
-    tile_dense_rp<TILE_RAYS>(hbuf, din, Wt, b, dout, logits, scale);
-}
-
-// The generated SIREN's hidden layers over the tile: hbuf [ray][TILE_LD]
-// holds the normalised inputs (3 columns) and, on return, the last hidden
-// activations. The forward is h <- sin(30 (f (h W^T + b) + p)) as
-// siren_apply, with exact sinf.
-static __device__ void tile_siren_hidden(float* hbuf,
-                                         const float* __restrict__ P,
-                                         const NetMeta& m) {
-  const int H = m.hidden, L = m.n_layers, j = threadIdx.x;
-  for (int i = 0; i < L - 1; ++i) {
-    const float* Wt = P + m.wt_off[i];
-    float acc[TILE_RAYS];
-#pragma unroll
-    for (int p = 0; p < TILE_RAYS; ++p) acc[p] = 0.f;
-    if (j < H) {
-      if (i == 0) {
-        for (int k = 0; k < 3; ++k) {
-          const float w = __ldg(Wt + (long long)k * H + j);
-#pragma unroll
-          for (int p = 0; p < TILE_RAYS; ++p)
-            acc[p] = fmaf(hbuf[p * TILE_LD + k], w, acc[p]);
-        }
-      } else {
-        for (int k = 0; k < H; k += 4) {
-          const float w0 = __ldg(Wt + (long long)k * H + j);
-          const float w1 = __ldg(Wt + (long long)(k + 1) * H + j);
-          const float w2 = __ldg(Wt + (long long)(k + 2) * H + j);
-          const float w3 = __ldg(Wt + (long long)(k + 3) * H + j);
-#pragma unroll
-          for (int p = 0; p < TILE_RAYS; ++p) {
-            const float4 h4 =
-                *reinterpret_cast<const float4*>(hbuf + p * TILE_LD + k);
-            float a = acc[p];
-            a = fmaf(h4.x, w0, a);
-            a = fmaf(h4.y, w1, a);
-            a = fmaf(h4.z, w2, a);
-            a = fmaf(h4.w, w3, a);
-            acc[p] = a;
-          }
-        }
-      }
-    }
-    __syncthreads();      // every read of hbuf for this layer is done
-    if (j < H) {
-      const float b = __ldg(P + m.b_off[i] + j);
-      const float f = m.film ? __ldg(P + m.freq_off + (long long)i * H + j)
-                             : 1.f;
-      const float ph = m.film ? __ldg(P + m.phase_off + (long long)i * H + j)
-                              : 0.f;
-#pragma unroll
-      for (int p = 0; p < TILE_RAYS; ++p) {
-        float z = acc[p] + b;
-        if (m.film) z = f * z + ph;
-        hbuf[p * TILE_LD + j] = sinf(30.f * z);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// One output unit of ray p = threadIdx.x / 16 from its last hidden row:
-// the 16 lanes of the ray take strided units of the weight row wrow (H),
-// then a shuffle sum; every lane returns the sum (bias not added).
-static_assert(TILE_RAYS * 16 == TILE_THREADS, "16 lanes per ray");
-__device__ __forceinline__ float tile_row_dot(const float* hbuf,
-                                              const float* __restrict__ wrow,
-                                              int H) {
-  const int p = threadIdx.x >> 4, lane = threadIdx.x & 15;
-  float a = 0.f;
-  for (int k = lane; k < H; k += 16)
-    a = fmaf(hbuf[p * TILE_LD + k], __ldg(wrow + k), a);
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o, 16);
-  return a;
-}
-
-// The generated SIREN (one output) over the tile: hbuf as for
-// tile_siren_hidden; writes the raw (normalised) SDF of ray p to sdf[p].
-static __device__ void tile_siren(float* hbuf, const float* __restrict__ P,
-                                  const NetMeta& m, float* sdf) {
-  tile_siren_hidden(hbuf, P, m);
-  const float a = tile_row_dot(hbuf, P + m.wl_off, m.hidden);
-  if ((threadIdx.x & 15) == 0)
-    sdf[threadIdx.x >> 4] = a + __ldg(P + m.b_off[m.n_layers - 1]);
-  __syncthreads();
 }

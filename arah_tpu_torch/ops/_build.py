@@ -158,9 +158,10 @@ def load():
     lib = ctypes.CDLL(path)
     lib.arah_knn.argtypes = [_P, _I, _P, _I, _P, _P]
     lib.arah_knn_rows.argtypes = [_P, _I, _P, _I, _P, _P]
-    lib.arah_siren.argtypes = [_P, _I, _P, NetMeta, _I, _P, _P]
+    lib.arah_siren.argtypes = [_P, _I, _P, NetMeta, _I, _I, _P, _P]
     lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, NetMeta, _I,
-                              _F, _F, _F, _F, _P, _P, _P, _P, _P]
+                              _F, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P,
+                              _P]
     lib.arah_shade.argtypes = [_P, _I, _P, _P, ShadeMeta, _P, _P, _I, _P,
                                 _P]
     lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, _P, ColorMeta, _P,
@@ -173,6 +174,8 @@ def load():
                              _P, _P, _P]
     lib.arah_march_shape.argtypes = [_I, _I, _P]
     lib.arah_iso_shape.argtypes = [_I, _I, _P]
+    lib.arah_corr_shape.argtypes = [_I, _I, _P]
+    lib.arah_siren_shape.argtypes = [_I, _I, _P]
     lib.arah_skin_jac.argtypes = [_P, _I, _P, _P, _P, NetMeta, _F, _P, _P]
     lib.arah_shade_bwd.argtypes = [_P, _I, _P, _P, ShadeMeta, _P, _P, _P,
                                    _P, _P, _I, ShadeMeta, ctypes.c_longlong,
@@ -199,7 +202,8 @@ def load():
                lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd,
                lib.arah_knn_rows, lib.arah_siren, lib.arah_shade_bwd_blocks,
                lib.arah_color_bwd_blocks, lib.arah_march_shape,
-               lib.arah_iso_shape):
+               lib.arah_iso_shape, lib.arah_corr_shape,
+               lib.arah_siren_shape):
         fn.restype = _I
     _LIB = lib
     return lib

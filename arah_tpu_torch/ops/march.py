@@ -168,22 +168,58 @@ def put_skin_padded(pack: _build.ParamPack, skin_weights,
                 skin_wt_off=sk(*(wt + zeros)), skin_b_off=sk(*(bo + zeros)))
 
 
+def check_skin_dims(skin_weights, name: str):
+    """Raise ValueError on a collapsed skinning MLP (dense (out, in)
+    weights) that the kernels' packs do not take: widths 3, ..., 25, at
+    most 8 layers, none wider than 256."""
+    dims = [skin_weights[0].shape[1]] + [w.shape[0] for w in skin_weights]
+    if dims[0] != 3 or dims[-1] != 25 or len(skin_weights) > 8 \
+            or max(dims[1:]) > 256:
+        raise ValueError(f'{name}: unsupported skinning MLP {dims}')
+
+
 def pack_trace(gen: GeneratedMLP, skin_weights=None,
                skin_biases=None) -> TracePack:
-    """One buffer for kernels E and F: the generated SIREN (`pack_siren`)
-    and, when given, the collapsed skinning MLP (`put_skin_padded`; widths
-    3, ..., 25). Every block starts at a multiple of 4 floats (16-byte
-    copies into the kernels' shared-memory ring). Raises on a shape the
-    kernels do not take."""
+    """One buffer for kernels E and F, and for B, whose pack is its
+    skinning blocks (`ops/corr.py:pack_corr`): the generated SIREN
+    (`pack_siren`) and, when given, the collapsed skinning MLP
+    (`put_skin_padded`; widths 3, ..., 25). Every block starts at a
+    multiple of 4 floats (16-byte copies into the kernels' shared-memory
+    ring). Raises on a shape the kernels do not take."""
     pack = _build.ParamPack()
     fields = pack_siren(gen, pack, align=4)
     if skin_weights is not None:
-        dims = [skin_weights[0].shape[1]] + [w.shape[0] for w in skin_weights]
-        if dims[0] != 3 or dims[-1] != 25 or len(skin_weights) > 8 \
-                or max(dims[1:]) > 256:
-            raise ValueError(f'iso kernel: unsupported skinning MLP {dims}')
+        check_skin_dims(skin_weights, 'iso kernel')
         fields.update(put_skin_padded(pack, skin_weights, skin_biases))
     return TracePack(pack.tensor(), _build.NetMeta(**fields))
+
+
+def pass_widths(meta: _build.NetMeta, skin: bool, siren: bool) -> list:
+    """The layer widths of the network pass of `meta` (its SIREN's hidden
+    width if `siren`, 0 without one; then its skinning MLP's widths padded
+    to 32 if `skin`), as csrc/stream_mlp.cuh:pass_widest reads them."""
+    hidden = meta.hidden if siren and meta.n_layers > 1 else 0
+    return [hidden] + ([-(-meta.skin_dims[l + 1] // 32) * 32
+                        for l in range(meta.n_skin)] if skin else [])
+
+
+def check_pass(kernel: str, meta: _build.NetMeta, shapes, shape: int,
+               skin: bool, siren: bool):
+    """Raise ValueError unless launch shape `shape` of `shapes` ((cluster
+    size, widest layer) each) takes the network pass of `meta` (its
+    skinning MLP if `skin`, its SIREN's hidden layers if `siren`): the
+    check of csrc/stream_mlp.cuh:launch_tile. The pass's widest layer
+    (skinning widths padded to 32) must fit the shape, and a SIREN's
+    width must split into whole warps over the cluster's CTAs."""
+    if not 0 <= shape < len(shapes):
+        raise ValueError(f'{kernel} kernel: no launch shape {shape}')
+    cluster, maxw = shapes[shape]
+    widths = pass_widths(meta, skin, siren)
+    if max(widths) > maxw or widths[0] % (32 * cluster):
+        raise ValueError(
+            f'{kernel} kernel: launch shape {shape} takes layers at most '
+            f'{maxw} wide and a SIREN width that is a multiple of '
+            f'{32 * cluster}; got widths {widths}')
 
 
 def launch_shape(n: int) -> int:
@@ -198,11 +234,13 @@ def launch_shape(n: int) -> int:
 
 
 def tile_shape(kernel: str, shape: int, n: int) -> dict:
-    """The launch of kernel 'march' or 'iso' at shape `shape` for n rays:
-    blocks, cluster size, rays a CTA, dynamic shared memory a CTA and CTAs
-    resident an SM (the card's occupancy query; nothing launched)."""
+    """The launch of kernel 'march', 'iso', 'corr' (B and L) or 'siren'
+    (J) at shape `shape` for n rays (points): blocks, cluster size, rays a
+    CTA, dynamic shared memory a CTA and CTAs resident an SM (the card's
+    occupancy query; nothing launched)."""
     out = (_build.ctypes.c_int * 5)()
-    fn = {'march': 'arah_march_shape', 'iso': 'arah_iso_shape'}[kernel]
+    fn = {'march': 'arah_march_shape', 'iso': 'arah_iso_shape',
+          'corr': 'arah_corr_shape', 'siren': 'arah_siren_shape'}[kernel]
     _build.check(getattr(_build.load(), fn)(shape, n, out), kernel)
     return dict(zip(('blocks', 'cluster', 'rays', 'smem', 'per_sm'), out))
 

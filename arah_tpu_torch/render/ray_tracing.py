@@ -36,7 +36,7 @@ from arah_tpu_torch.core.body import (apply_transform,
                                       unnormalize_canonical_points)
 from arah_tpu_torch.core.linalg import inv_affine
 from arah_tpu_torch.core.rays import stratified_z_vals
-from arah_tpu_torch.ops.corr import corr_search
+from arah_tpu_torch.ops.corr import corr_search, pack_corr
 from arah_tpu_torch.ops.fused import fused_nn_idx
 from arah_tpu_torch.ops.iso import iso_refine
 from arah_tpu_torch.ops.knn import nn_idx
@@ -221,24 +221,35 @@ def _march_split(cfg: RayTracerConfig, sdf_fn: Callable,
                         for a, b in zip(c1, c2)))
 
 
+def trace_pack(cfg: RayTracerConfig, sdf_gen=None, skin_dense=None):
+    """The one parameter pack of a trace's kernels, built once for every
+    phase of E, F and B: `ops/march.py:pack_trace` of the generated SIREN
+    (E and F) and, where F or B runs, of the collapsed skinning MLP (B
+    reads its skinning blocks); B's own `pack_corr` where there is no
+    SIREN; None where no kernel reads one."""
+    skin = skin_dense is not None and (cfg.use_pallas_iso
+                                       or cfg.use_pallas_corr)
+    if sdf_gen is not None and (skin or cfg.use_pallas_march):
+        return pack_trace(sdf_gen, *(skin_dense[:2] if skin else ()))
+    if skin and cfg.use_pallas_corr:
+        return pack_corr(skin_dense[0], skin_dense[1])
+    return None
+
+
 def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
                  frame: CanonicalFrame, smpl: SmplRef, cam_loc, ray_dirs,
                  near, far, eval_mode: bool = False, sdf_gen=None,
-                 skin_dense=None) -> SphereTraceResult:
+                 skin_dense=None, packed=None) -> SphereTraceResult:
     """KNN-skinning sphere tracing + joint root-finding refinement.
     cam_loc: (N, 3) per-ray origins; ray_dirs (N, 3); near/far (N,);
     sdf_gen: the generated SIREN (kernels E and F); skin_dense: the
-    collapsed skinning MLP (wts, bs, softmax_scale) (kernel F). Kernels E
-    and F share one parameter pack (`ops/march.py:pack_trace`), built
-    once here for both phases of both."""
+    collapsed skinning MLP (wts, bs, softmax_scale) (kernel F); packed:
+    the trace's `trace_pack` (built here when not given)."""
     thresh = cfg.root_finding_threshold
     use_iso = cfg.use_pallas_iso and sdf_gen is not None \
         and skin_dense is not None
-    packed = None
-    if use_iso:
-        packed = pack_trace(sdf_gen, skin_dense[0], skin_dense[1])
-    elif cfg.use_pallas_march and sdf_gen is not None:
-        packed = pack_trace(sdf_gen)
+    if packed is None:
+        packed = trace_pack(cfg, sdf_gen, skin_dense)
 
     def _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd, max_steps):
         if use_iso:
@@ -354,10 +365,11 @@ def sample_z_vals(cfg: RayTracerConfig, body_mask, surface_depth, near, far,
 
 def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,
                 frame: CanonicalFrame, skin_dense, x_bar, x0, T0, mask,
-                max_steps: int | None = None):
+                max_steps: int | None = None, packed=None):
     """Flat canonical-correspondence solve: kernel B when
-    `use_pallas_corr`, the dense plain Broyden otherwise. Returns
-    (x_hat (N, 3), T_fwd (N, 4, 4), valid (N,), active (N,))."""
+    `use_pallas_corr` (`packed`: the trace's `trace_pack`), the dense
+    plain Broyden otherwise. Returns (x_hat (N, 3), T_fwd (N, 4, 4), valid
+    (N,), active (N,))."""
     n = x_bar.shape[0]
     if max_steps is None:
         max_steps = cfg.corr_max_steps
@@ -375,7 +387,7 @@ def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,
                 frame.coord_min, frame.coord_max, frame.center,
                 max_steps=max_steps, cvg_thresh=cfg.root_finding_threshold,
                 softmax_scale=softmax_scale,
-                precision=cfg.pallas_precision)
+                precision=cfg.pallas_precision, packed=packed)
             return x_hat, T16.reshape(n, 4, 4), valid & mask, active
     res = search_canonical_corr(skin_fn, frame, x_bar, x0, T0,
                                 max_steps=max_steps,
@@ -386,7 +398,7 @@ def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,
 
 def _corr_solve_split(cfg: RayTracerConfig, skin_fn: Callable,
                       frame: CanonicalFrame, skin_dense, x_bar, x0, T0,
-                      mask):
+                      mask, packed=None):
     """Straggler-resolve split of the corr solve: phase 1 caps every point
     at `corr_phase1_steps`; the first `corr_resolve_cap` still-active
     points are re-solved from scratch at `corr_max_steps` (a point's
@@ -395,15 +407,16 @@ def _corr_solve_split(cfg: RayTracerConfig, skin_fn: Callable,
     p1 = cfg.corr_phase1_steps
     if p1 <= 0 or p1 >= cfg.corr_max_steps:
         return _corr_solve(cfg, skin_fn, frame, skin_dense, x_bar, x0, T0,
-                           mask)
+                           mask, packed=packed)
     x1, T1, v1, act = _corr_solve(cfg, skin_fn, frame, skin_dense, x_bar,
-                                  x0, T0, mask, max_steps=p1)
+                                  x0, T0, mask, max_steps=p1, packed=packed)
     idx = _resolve_idx(act, cfg.corr_resolve_cap)
     if idx.numel() == 0:
         return x1, T1, v1, torch.zeros_like(act)
     x2, T2, v2, _ = _corr_solve(cfg, skin_fn, frame, skin_dense, x_bar[idx],
                                 x0[idx], T0[idx],
-                                torch.ones_like(idx, dtype=torch.bool))
+                                torch.ones_like(idx, dtype=torch.bool),
+                                packed=packed)
     return (_split_write_back(x1, idx, x2), _split_write_back(T1, idx, T2),
             _split_write_back(v1, idx, v2), torch.zeros_like(act))
 
@@ -463,10 +476,12 @@ def _warm_start_inits(cfg: RayTracerConfig, z_vals, x_hat_c, T_c, valid_c,
 
 def canonicalize_samples(cfg: RayTracerConfig, skin_fn: Callable,
                          frame: CanonicalFrame, smpl: SmplRef, cam_loc,
-                         ray_dirs, z_vals, sample_mask, skin_dense=None):
+                         ray_dirs, z_vals, sample_mask, skin_dense=None,
+                         packed=None):
     """Backward-map all ray samples to canonical space: nearest-vertex
-    init (`corr_init`) then the Broyden correspondence search (kernel B);
-    masked samples are frozen and report converge=False. With
+    init (`corr_init`) then the Broyden correspondence search (kernel B,
+    `packed` the trace's `trace_pack`); masked samples are frozen and
+    report converge=False. With
     `corr_coarse_stride` = C > 1 (and S a multiple of C above C) the
     search runs coarse to fine: slot 0 of every block of C samples solves
     from the nearest-vertex init, the other C-1 from
@@ -488,7 +503,8 @@ def canonicalize_samples(cfg: RayTracerConfig, skin_fn: Callable,
         xb_b, x0_b, T0_b, m_b = blk(x_bar), blk(x0), blk(T0), blk(flat_mask)
         xc, Tc, vc, _ = _corr_solve_split(
             cfg, skin_fn, frame, skin_dense, flat(xb_b[:, :, :1]),
-            flat(x0_b[:, :, :1]), flat(T0_b[:, :, :1]), flat(m_b[:, :, :1]))
+            flat(x0_b[:, :, :1]), flat(T0_b[:, :, :1]), flat(m_b[:, :, :1]),
+            packed)
         xc, Tc, vc = xc.reshape(n, Sc, 3), Tc.reshape(n, Sc, 4, 4), \
             vc.reshape(n, Sc)
         x_init, T_init = _warm_start_inits(
@@ -496,7 +512,7 @@ def canonicalize_samples(cfg: RayTracerConfig, skin_fn: Callable,
             T0_b[:, :, 1:])
         xf, Tf, vf, _ = _corr_solve_split(
             cfg, skin_fn, frame, skin_dense, flat(xb_b[:, :, 1:]),
-            flat(x_init), flat(T_init), flat(m_b[:, :, 1:]))
+            flat(x_init), flat(T_init), flat(m_b[:, :, 1:]), packed)
         x_hat = torch.cat([xc[:, :, None], xf.reshape(n, Sc, C - 1, 3)],
                           dim=2).reshape(-1, 3)
         T_fwd = torch.cat([Tc[:, :, None], Tf.reshape(n, Sc, C - 1, 4, 4)],
@@ -505,7 +521,8 @@ def canonicalize_samples(cfg: RayTracerConfig, skin_fn: Callable,
                           dim=2).reshape(-1)
     else:
         x_hat, T_fwd, valid, _ = _corr_solve_split(
-            cfg, skin_fn, frame, skin_dense, x_bar, x0, T0, flat_mask)
+            cfg, skin_fn, frame, skin_dense, x_bar, x0, T0, flat_mask,
+            packed)
     x_norm = normalize_canonical_points(
         x_hat, frame.coord_min, frame.coord_max, frame.center)
     return (x_norm.reshape(n, S, 3), T_fwd.reshape(n, S, 4, 4),
@@ -524,15 +541,18 @@ def trace_and_sample(cfg: RayTracerConfig, sdf_fn: Callable,
                      jitter=None) -> TraceOutput:
     """Sphere trace + sample + canonicalize (no gradients). Training
     (`eval_mode=False`) keeps every ray valid at the iso refinement and
-    jitters the samples with `jitter` (see `sample_z_vals`)."""
+    jitters the samples with `jitter` (see `sample_z_vals`). Kernels E, F
+    and B share one parameter pack (`trace_pack`), built once here."""
+    packed = trace_pack(cfg, sdf_gen, skin_dense)
     surf = sphere_trace(cfg, sdf_fn, skin_fn, frame, smpl, cam_loc,
                         ray_dirs, near, far, eval_mode=eval_mode,
-                        sdf_gen=sdf_gen, skin_dense=skin_dense)
+                        sdf_gen=sdf_gen, skin_dense=skin_dense,
+                        packed=packed)
     z_vals, sample_mask = sample_z_vals(cfg, ~surf.unconverged,
                                         surf.start_dis, near, far, eval_mode,
                                         jitter)
     pts, tfs, cvg = canonicalize_samples(cfg, skin_fn, frame, smpl, cam_loc,
                                          ray_dirs, z_vals, sample_mask,
-                                         skin_dense=skin_dense)
+                                         skin_dense=skin_dense, packed=packed)
     return TraceOutput(surf, SamplerResult(z_vals, sample_mask, pts, tfs,
                                            cvg))

@@ -82,6 +82,20 @@ def make_problem(n: int, device):
             [w.detach() for w in wts], [b.detach() for b in bs])
 
 
+def tile_waste(iters, mask, tile: int = 16):
+    """(evaluations a tile kernel runs, evaluations the points need) of a
+    corr solve whose points ran `iters` (N,) Broyden iterations: a tile
+    of `tile` consecutive points (the last one padded) evaluates the
+    skinning MLP at all its positions once at init and once an iteration
+    until its slowest point stops; a point needs one evaluation at init
+    and one an iteration, a masked point (`mask` False) none."""
+    it = torch.where(mask, iters, torch.zeros_like(iters)).long()
+    t = torch.nn.functional.pad(it, (0, -it.shape[0] % tile)) \
+        .reshape(-1, tile)
+    run = tile * int((1 + t.max(dim=1).values).sum()) if t.numel() else 0
+    return run, int((1 + it)[mask].sum())
+
+
 def main(argv=None, device=None) -> dict:
     """Run the bench; returns {variant: {'ms', 'x_hat', 'valid'} (and
     'iters', the Broyden iterations per point, for the plain ones)}."""

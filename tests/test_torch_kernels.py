@@ -445,21 +445,49 @@ class TestShadeGrad:
 
 class TestKernelPacks:
     def test_corr_pack_of_dense_is_rows_pack(self, rng):
-        """Kernel B's pack of dense (out, in) skinning weights (their
-        transposed views, as `corr_search` packs them) is kernel L's pack
-        of their transposes (`pack_skin_t`): the same buffer and the same
-        NetMeta bytes, so the two launch one kernel on the same
-        operands."""
-        from arah_tpu_torch.ops.corr import pack_skin_t
+        """The corr kernels' pack (B and L, `pack_corr`) of a dense
+        skinning MLP is the skinning part of the tracer's `pack_trace` for
+        the same weights: per layer the (in, pad32(out)) transposed weights
+        and the bias padded to pad32(out), zeros in the padding, every
+        block at a multiple of 4 floats, the same widths, and no SIREN
+        (the kernel runs the skinning layers only). Kernel L's pack of the
+        (in, out) weights (`corr_search_rows` packs their transposes) is
+        the same buffer with the same NetMeta bytes, so B and L launch one
+        kernel on the same operands."""
+        from arah_tpu_torch.ops.corr import pack_corr
+        from arah_tpu_torch.ops.march import pack_trace
         dims = (3, 128, 128, 128, 25)
         dense = [t(rng.randn(o, i).astype(np.float32) / np.sqrt(i))
                  for i, o in zip(dims[:-1], dims[1:])]
         biases = [t(rng.randn(o).astype(np.float32) * 0.1) for o in dims[1:]]
-        pb, mb = pack_skin_t([w.t() for w in dense], biases)
-        pl, ml = pack_skin_t([w.T.contiguous() for w in dense], biases)
-        assert torch.equal(pb, pl)
-        assert bytes(mb) == bytes(ml)
-        assert mb.n_skin == 4 and list(mb.skin_dims)[:5] == list(dims)
+        params, meta = pack_corr(dense, biases)
+        tp, tm = pack_trace(port_gen(_small_gen(rng, True)), dense, biases)
+        assert meta.n_layers == 0 and meta.n_skin == tm.n_skin == 4
+        assert list(meta.skin_dims)[:5] == list(tm.skin_dims)[:5] \
+            == list(dims)
+        seen = 0
+        for l, (w, b) in enumerate(zip(dense, biases)):
+            o, i = w.shape
+            op = -(-o // 32) * 32
+            for off, size in ((meta.skin_wt_off[l], i * op),
+                              (meta.skin_b_off[l], op)):
+                assert off % 4 == 0
+                seen += size
+            wo, bo = meta.skin_wt_off[l], meta.skin_b_off[l]
+            two, tbo = tm.skin_wt_off[l], tm.skin_b_off[l]
+            assert two % 4 == 0 and tbo % 4 == 0
+            blk = params[wo:wo + i * op]
+            assert torch.equal(blk, tp[two:two + i * op])
+            blk = blk.reshape(i, op)
+            assert torch.equal(blk[:, :o], w.T)
+            assert not bool(blk[:, o:].any())
+            assert torch.equal(params[bo:bo + op], tp[tbo:tbo + op])
+            assert torch.equal(params[bo:bo + o], b)
+            assert not bool(params[bo + o:bo + op].any())
+        assert seen == params.numel()
+        pl, ml = pack_corr([w.T.contiguous().T for w in dense], biases)
+        assert torch.equal(params, pl)
+        assert bytes(meta) == bytes(ml)
 
     @pytest.mark.parametrize('film', [True, False])
     def test_shade_bf16_pack_round_trips(self, rng, film):
