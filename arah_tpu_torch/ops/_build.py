@@ -156,8 +156,8 @@ def load():
     if not os.path.exists(path):
         _build(path)
     lib = ctypes.CDLL(path)
-    lib.arah_knn.argtypes = [_P, _I, _P, _I, _P, _P]
-    lib.arah_knn_rows.argtypes = [_P, _I, _P, _I, _P, _P]
+    lib.arah_knn.argtypes = [_P, _I, _P, _I, _I, _P, _P]
+    lib.arah_knn_shape.argtypes = [_I, _I, _I, _P]
     lib.arah_siren.argtypes = [_P, _I, _P, NetMeta, _I, _I, _P, _P]
     lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, NetMeta, _I,
                               _F, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P,
@@ -200,7 +200,7 @@ def load():
     for fn in (lib.arah_knn, lib.arah_corr, lib.arah_shade,
                lib.arah_color_fwd, lib.arah_march, lib.arah_iso,
                lib.arah_skin_jac, lib.arah_shade_bwd, lib.arah_color_bwd,
-               lib.arah_knn_rows, lib.arah_siren, lib.arah_shade_bwd_blocks,
+               lib.arah_knn_shape, lib.arah_siren, lib.arah_shade_bwd_blocks,
                lib.arah_color_bwd_blocks, lib.arah_march_shape,
                lib.arah_iso_shape, lib.arah_corr_shape,
                lib.arah_siren_shape):

@@ -6,8 +6,9 @@
 1. Builds the CUDA kernels from `arah_tpu_torch/csrc/` (first use, into
    `.cache/torch_ext/`) and prints the build time and each kernel's
    registers, spills and shared memory as ptxas reports them (the kernels
-   on `csrc/stream_mlp.cuh`, E, F, B/L and J, one symbol a launch shape,
-   must all be there and none may spill).
+   on `csrc/stream_mlp.cuh`, E, F, B/L and J, and A/K's nearest-vertex
+   body, one symbol a launch shape, must all be there and none may
+   spill).
 2. Builds the flagship bench scene (`scene.build_scene(pretrain=True)`:
    SIREN and skinning net fitted to the capsule body) and prints the
    fit's time and its loss at a fresh batch against the random init's.
@@ -15,7 +16,12 @@
    the shapes of the flagship eval (8192 rays; 8192 x 64 = 524,288
    points), and times both: E march and F iso at their phase-1 shapes
    (8192 rays, 16 iterations) and phase-2 shapes (the stragglers: E
-   resumed for 34 iterations, F from scratch at 50 steps); A knn, B corr
+   resumed for 34 iterations, F from scratch at 50 steps); A knn (its
+   indices equal to the plain version's at every point; every launch
+   shape of A/K's body, each with the plain version's indices, timed at
+   524,288 points and strided subsets of them down to 256; the tie case
+   of duplicated vertices at every size, launch shape and wrapper; the SM
+   clock while A runs, for its lane-instructions a pair), B corr
    (its `active` set too; at phase 1, on phase 1's stragglers, through
    the straggler split and at the phase-2 shape; each with its per-point
    iteration counts against the plain solve's, at every launch shape
@@ -37,15 +43,17 @@
 5. The tracer's unfused A/B path: holds J (siren) against its plain
    version at the 8,192 surface points and the 524,288 sample points of
    a flagship frame (every launch shape with the same bits there and at
-   1,024 and 256 points), K (knn_rows) at the world points of both, and L
+   1,024 and 256 points), K (knn_rows) at the world points of both (and
+   every launch shape there and at 1,024 and 256 of them), and L
    (corr_rows) against its plain version and against B on the frame's
    corr inputs; renders 3 frames with `ARAH_ENABLE_PALLAS=1` and the
    march, iso and corr-init kernel flags off (counted, so that J and K
    and not E, F or A run; one frame traced), compares that render with
    its switch-off twin (in turns, timed) and with the flagship render,
-   and prints J's launches over the 3 frames by batch size, with their
-   device time; then runs the corr-variant bench (`utils/bench_corr.main`,
-   262,144 points), counted, for L, and holds L and B against the bench's
+   and prints J's and K's launches over the 3 frames by batch size, with
+   their device time; then runs the corr-variant bench
+   (`utils/bench_corr.main`, 262,144 points), counted, for L, and holds L
+   and B against the bench's
    plain solve on the bench's own inputs, L with its iteration counts and
    launch shapes (L's record comes from those inputs).
 6. Drives the train step (`scene.build_train_setup`: the flagship step of
@@ -111,6 +119,52 @@ def timed(fn, reps):
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def graph_ms(fn, reps):
+    """Device ms per call of fn from a CUDA graph of `reps` calls (captured
+    after one warm-up call) replayed between CUDA events: the launches
+    back to back, without the host's time between them, which `timed`
+    counts where a launch takes less time on the card than its host
+    side."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    g.replay()
+    e.record()
+    torch.cuda.synchronize()
+    del g
+    return s.elapsed_time(e) / reps
+
+
+def sm_clock(fn, seconds=2.0):
+    """Median SM clock (MHz) that nvidia-smi reads while fn runs over and
+    over for `seconds`; None where nvidia-smi reads none."""
+    import torch
+    try:
+        smi = subprocess.Popen(['nvidia-smi', '--query-gpu=clocks.sm',
+                                '--format=csv,noheader,nounits', '-lms',
+                                '100'], stdout=subprocess.PIPE, text=True)
+    except OSError:
+        return None
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    out = smi.communicate()[0]
+    mhz = sorted(float(v) for v in out.split() if v.replace('.', '').isdigit())
+    return mhz[len(mhz) // 2] if mhz else None
 
 
 def bound(nbytes, flops, peak):
@@ -214,7 +268,7 @@ def demangle(sym):
         return sym
     i = m.end()
     name = sym[i:i + int(m.group(1))]
-    if 'TileShape' in sym:
+    if 'TileShape' in sym or 'KnnShape' in sym:
         return f'{name}<{", ".join(re.findall(r"Li(\d+)E", sym))}>'
     t = re.match(r'I(.*?)E', sym[i + int(m.group(1)):])
     return f'{name}<{t.group(1)}>' if t else name
@@ -226,36 +280,251 @@ def waste_line(run, need):
             f'evaluations ({run / max(need, 1):.3f}x)')
 
 
-def siren_histogram(fn, card):
-    """Kernel J's launches in fn() (the A/B frames): the N of each launch
-    in buckets, with the launches' device time in each bucket. Each
-    launch's input is kept and the launch timed again on it afterwards
-    (CUDA events around 3 back-to-back calls, after a warm-up), so the
-    frames themselves carry no events."""
-    from arah_tpu_torch.ops import fused
-    real, calls = fused.siren_sdf, []
+def launch_histograms(fn, specs, card):
+    """The launches of kernel wrappers in fn() (the A/B frames): specs
+    holds (tag, module, name, the argument whose rows are the batch,
+    timing) of each wrapper, looked up by name in that module; the N of
+    each launch in buckets, with the launches' device time in each bucket.
+    Each launch's inputs are kept and the launch timed again on them
+    afterwards, so the frames themselves carry no events: 'CUDA events'
+    around 3 back-to-back calls after a warm-up (`timed`, which counts the
+    host's time between launches), or 'graph replay' of 3 (`graph_ms`)."""
+    import torch
+    real, calls = {}, {}
+    for tag, mod, name, _, _ in specs:
+        real[tag], calls[tag] = getattr(mod, name), []
 
-    def spy(gen, x, packed=None):
-        calls.append((gen, x.clone(), packed))
-        return real(gen, x, packed)
-    fused.siren_sdf = spy
+        def spy(*args, _tag=tag):
+            calls[_tag].append(tuple(a.clone() if isinstance(
+                a, torch.Tensor) else a for a in args))
+            return real[_tag](*args)
+        setattr(mod, name, spy)
     try:
         fn()
     finally:
-        fused.siren_sdf = real
+        for tag, mod, name, _, _ in specs:
+            setattr(mod, name, real[tag])
     edges = (256, 1024, 2048, 8192)
-    count, ms = [0] * (len(edges) + 1), [0.0] * (len(edges) + 1)
-    for gen, x, packed in calls:
-        b = next((i for i, e in enumerate(edges) if x.shape[0] <= e),
-                 len(edges))
-        count[b] += 1
-        ms[b] += timed(lambda: real(gen, x, packed), 3)
     names = [f'<= {e:,}' for e in edges] + [f'> {edges[-1]:,}']
-    print(f'  J launches by N over these frames ({len(calls)}; '
-          f'distinct N {len({c[1].shape[0] for c in calls})}): '
-          + ', '.join(f'{nm}: {c} launches {t:.3f} ms'
-                      for nm, c, t in zip(names, count, ms))
-          + f'; total {sum(ms):.3f} ms [{card}]', flush=True)
+    for tag, _, _, arg, how in specs:
+        timer = graph_ms if how == 'graph replay' else timed
+        count, ms = [0] * (len(edges) + 1), [0.0] * (len(edges) + 1)
+        for args in calls[tag]:
+            n = args[arg].shape[0]
+            b = next((i for i, e in enumerate(edges) if n <= e), len(edges))
+            count[b] += 1
+            ms[b] += timer(lambda: real[tag](*args), 3)
+        print(f'  {tag} launches by N over these frames ({len(calls[tag])}; '
+              f'distinct N {sorted({c[arg].shape[0] for c in calls[tag]})},'
+              f' timed by {how}): '
+              + ', '.join(f'{nm}: {c} launches {t:.3f} ms'
+                          for nm, c, t in zip(names, count, ms))
+              + f'; total {sum(ms):.3f} ms [{card}]', flush=True)
+
+
+def knn_sweep(tag, p, verts, card):
+    """Kernels A and K (one body) at each launch shape on one input: each
+    must give `nn_idx_plain`'s indices at every point; the times are
+    printed. A launch that fails fails the run."""
+    import torch
+    from arah_tpu_torch.ops.knn import (SHAPES, knn_shape, launch_knn,
+                                        nn_idx_plain)
+    n, v = p.shape[0], verts.shape[0]
+    ref = nn_idx_plain(p, verts)
+    times, same = [], True
+    for sh in range(len(SHAPES)):
+        d = knn_shape(sh, n, v)
+        try:
+            ok = bool(torch.equal(launch_knn(p, verts, sh), ref))
+        except RuntimeError as e:
+            check(False, f'{tag}: launch shape {sh} failed: {e}')
+            continue
+        same &= ok
+        times.append(f'{sh} {SHAPES[sh]} ({d["blocks"]} CTAs, '
+                     f'{d["per_sm"]} an SM) '
+                     f'{timed(lambda: launch_knn(p, verts, sh), 3):.4f} / '
+                     f'{graph_ms(lambda: launch_knn(p, verts, sh), 10):.4f} '
+                     'ms' + ('' if ok else ' DIFFERS'))
+    print(f'  {tag} at its launch shapes ((threads, points a thread, vertex '
+          f'groups, cluster): CUDA events / graph replay): '
+          + ', '.join(times)
+          + f'; indices equal at every point {same} [{card}]', flush=True)
+    check(same, f'{tag}: a launch shape disagrees with nn_idx_plain')
+
+
+def knn_ties(card):
+    """The tie case of kernels A and K: vertices 0..299 repeated at the
+    end of the body, every point within ~1e-3 of one of them, so the tie
+    rule decides each point. At every size, every launch shape and both
+    wrappers (each at the shape it picks) must give `nn_idx_plain`'s
+    indices exactly, all of them below V - 300 (the first copy). V runs
+    over the bench body's 6,946 vertices, 1,500, 20,000 (beyond the
+    shared memory of a CTA of the one-CTA shapes) and 120,000 (beyond
+    that of a cluster of 8) at fewer points."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.ops.knn import (SHAPES, knn_shape, launch_knn,
+                                        nn_idx, nn_idx_plain, nn_idx_rows)
+    rng = np.random.RandomState(7)
+    sizes = (256, 1000, 1024, 8191, 8192, 524288)
+    cases = [(v, n) for v in (6946, 1500, 20000) for n in sizes] \
+        + [(120000, n) for n in (256, 1000)]
+    beyond = {sh: False for sh in range(len(SHAPES))}
+    bad = []
+    for v, n in cases:
+        verts = (rng.randn(v, 3) * 0.3).astype(np.float32)
+        verts[v - 300:] = verts[:300]
+        pts = verts[rng.randint(0, 300, n)] \
+            + rng.randn(n, 3).astype(np.float32) * 1e-3
+        vt, pt = torch.from_numpy(verts).cuda(), torch.from_numpy(pts).cuda()
+        ref = nn_idx_plain(pt, vt, chunk=2048)
+        if int(ref.max()) >= v - 300:
+            bad.append((v, n, 'plain took a later copy'))
+        runs = [(f'shape {sh}', lambda sh=sh: launch_knn(pt, vt, sh))
+                for sh in range(len(SHAPES))]
+        runs += [('nn_idx', lambda: nn_idx(pt, vt)),
+                 ('nn_idx_rows', lambda: nn_idx_rows(pt, vt))]
+        for name, run in runs:
+            try:
+                ok = bool(torch.equal(run(), ref))
+            except RuntimeError as e:
+                ok = False
+                name += f' ({e})'
+            if not ok:
+                bad.append((v, n, name))
+        for sh, (nt, p, w, c) in enumerate(SHAPES):
+            # a CTA's records (its shared memory less the merge rows) hold
+            # less than its share of V: the share went through the chunks
+            rec = (knn_shape(sh, n, v)['smem']
+                   - (8 * nt * p if w * c > 1 else 0)) // 16
+            beyond[sh] |= rec < -(-v // c)
+    print(f'knn ties: {len(cases)} sizes (V x N) x {len(SHAPES)} launch '
+          f'shapes and both wrappers: every index equal to nn_idx_plain\'s '
+          f'{not bad}; a share of V beyond shared memory at shapes '
+          f'{[sh for sh, b in beyond.items() if b]} [{card}]', flush=True)
+    check(not bad, f'knn ties: kernels disagree with nn_idx_plain: {bad}')
+
+
+# Ablations of A/K's body: copies of csrc/knn.cu with exact text
+# replaced, each built beside the kernels into a library of its own.
+# 'select' (a compare and two selects a pair instead of the chunk minimum
+# and its rescan) and 'undoubled' (records (x, y, z, |v|^2) and a multiply
+# by 2 a pair) keep the indices; the other four drop a part of the work
+# behind a condition the compiler cannot fold (a.n < 0 never holds at a
+# launch), so what that part costs is the time it saves.
+_KNN_SCAN = 'for (int c = g * per; c < c1; ++c) {'
+_KNN_NO_SCAN = [(_KNN_SCAN, 'for (int c = g * per; c < c1 && a.n < 0; ++c) {')]
+_KNN_NO_MERGE = [('if constexpr (W * C == 1) {', 'if constexpr (true) {')]
+KNN_ABLATIONS = {
+    'select': [
+        ('m[p] = fminf(m[p], knn_dist(px[p], py[p], pz[p], r));',
+         '{ const float d = knn_dist(px[p], py[p], pz[p], r); '
+         'if (d < best[p]) { best[p] = d; '
+         'idx[p] = lo + s0 + c * KNN_CHUNK + k; } }')],
+    'undoubled': [
+        ('__fmul_rn(2.f, x[b]), __fmul_rn(2.f, y[b]), __fmul_rn(2.f, z[b]),',
+         'x[b], y[b], z[b],'),
+        ('return __fsub_rn(q.w, dot);',
+         'return __fsub_rn(q.w, __fmul_rn(2.f, dot));')],
+    'no rescan': [('if (bch[p] >= 0) {', 'if (bch[p] >= 0 && a.n < 0) {')],
+    'no scan': _KNN_NO_SCAN,
+    'staging only': _KNN_NO_SCAN + _KNN_NO_MERGE,
+    'launch only': _KNN_NO_SCAN + _KNN_NO_MERGE + [
+        ('knn_stage<S::NT>(sv, a.verts, lo, cnt);',
+         'if (a.n < 0) knn_stage<S::NT>(sv, a.verts, lo, cnt);')],
+}
+
+
+def knn_ablation_source(subs):
+    """csrc/knn.cu with each (old, new) of subs replaced; every old must
+    appear exactly once."""
+    from arah_tpu_torch.ops import _build
+    with open(os.path.join(_build.CSRC, 'knn.cu')) as fh:
+        text = fh.read()
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise ValueError(f'knn ablation: {old!r} appears '
+                             f'{text.count(old)} times in csrc/knn.cu')
+        text = text.replace(old, new)
+    return text
+
+
+def start_knn_ablations():
+    """One nvcc a variant of KNN_ABLATIONS, all started together, each into
+    `.cache/knn_ablation/<hash>/`: {name: (library path, process or None
+    where a library of the same source is there)}."""
+    import hashlib
+    from arah_tpu_torch.ops import _build
+    nvcc = _build._nvcc()
+    out = {}
+    for name, subs in KNN_ABLATIONS.items():
+        src = knn_ablation_source(subs)
+        h = hashlib.sha1((repr(_build.NVCC_FLAGS) + src).encode())
+        d = os.path.join(os.path.dirname(_build.CACHE), 'knn_ablation',
+                         h.hexdigest()[:16])
+        lib = os.path.join(d, 'libknn.so')
+        if os.path.exists(lib):
+            out[name] = (lib, None)
+            continue
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, 'knn.cu'), 'w') as fh:
+            fh.write(src)
+        out[name] = (lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, '-I', _build.CSRC, '-shared',
+             os.path.join(d, 'knn.cu'), '-o', lib],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return out
+
+
+def finish_knn_ablations(builds):
+    """Wait for start_knn_ablations' builds: {name: loaded library}; a
+    failed build fails the run."""
+    import ctypes
+    from arah_tpu_torch.ops import _build
+    libs = {}
+    for name, (path, proc) in builds.items():
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                check(False, f'knn ablation {name!r}: nvcc failed:\n{log}')
+                continue
+        lib = ctypes.CDLL(path)
+        lib.arah_knn.argtypes = _build.load().arah_knn.argtypes
+        libs[name] = lib
+    return libs
+
+
+def knn_ablation(libs, cases, card):
+    """Times the full body (csrc/knn.cu through `launch_knn`) and each
+    ablation of `libs` by graph replay on cases [(tag, points, verts,
+    launch shape)]; 'select' and 'undoubled' must give `nn_idx_plain`'s
+    indices."""
+    import torch
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.ops.knn import launch_knn, nn_idx_plain
+    for tag, p, verts, sh in cases:
+        n, v = p.shape[0], verts.shape[0]
+        ref = nn_idx_plain(p, verts)
+        full = graph_ms(lambda: launch_knn(p, verts, sh), 10)
+        parts = [f'full {full:.4f}']
+        for name, lib in libs.items():
+            out = torch.empty((n,), dtype=torch.int32, device=p.device)
+
+            def run(lib=lib, out=out):
+                _build.check(lib.arah_knn(
+                    p.data_ptr(), n, verts.data_ptr(), v, sh,
+                    out.data_ptr(), _build.stream_ptr(p)), 'knn ablation')
+            ms = graph_ms(run, 10)
+            note = ''
+            if name in ('select', 'undoubled'):
+                ok = bool(torch.equal(out, ref))
+                check(ok, f'knn ablation {name!r} ({tag}) disagrees with '
+                      'nn_idx_plain')
+                note = ', indices equal' if ok else ', DIFFERS'
+            parts.append(f'{name} {ms:.4f} ({ms - full:+.4f}{note})')
+        print(f'  A/K ablations, {tag}, launch shape {sh} (graph replay, ms; '
+              f'against the full body): {", ".join(parts)} [{card}]',
+              flush=True)
 
 
 def card_line():
@@ -293,7 +562,11 @@ def main():
           f'python {sys.version.split()[0]}', flush=True)
 
     t0 = time.perf_counter()
-    _build.load()
+    ablations = start_knn_ablations()
+    try:
+        _build.load()
+    finally:
+        knn_libs = finish_knn_ablations(ablations)
     build_s = time.perf_counter() - t0
     built = _build.BUILD_SECONDS
     print(f'kernels: load {build_s:.1f} s (nvcc build '
@@ -307,12 +580,15 @@ def main():
                   f'stores {r.get("spill_stores")} B, spill loads '
                   f'{r.get("spill_loads")} B, stack {r.get("stack")} B, '
                   f'smem {r.get("smem", 0)} B')
-        from arah_tpu_torch.ops import corr as ocorr, siren as osiren
-        # the kernels on csrc/stream_mlp.cuh, one symbol a launch shape
+        from arah_tpu_torch.ops import (corr as ocorr, knn as oknn,
+                                        siren as osiren)
+        # the kernels on csrc/stream_mlp.cuh and A/K's body, one symbol a
+        # launch shape
         for tag, names, want in (
                 ('E/F', ('march_kernel<', 'iso_kernel<'), 4),
                 ('B/L', ('corr_kernel<',), len(ocorr.SHAPES)),
-                ('J', ('siren_kernel<',), len(osiren.SHAPES))):
+                ('J', ('siren_kernel<',), len(osiren.SHAPES)),
+                ('A/K', ('knn_kernel<',), len(oknn.SHAPES))):
             ks = {n: r for n, r in ptx.items() if n.startswith(names)}
             check(len(ks) == want and all(r.get('spill_stores') == 0
                                           and r.get('spill_loads') == 0
@@ -368,24 +644,50 @@ def main():
           f'{int(flat_mask.sum())} active samples, '
           f'{int((~surf.unconverged).sum())} surface rays', flush=True)
 
-    # ---- A: knn
+    # ---- A: knn, held by index equality at every point; then its launch
+    # shapes at 524,288 points and strided subsets of them, and the ties
     no_tf32()
-    idx_k = nn_idx(pts, verts).long()
-    idx_p = nn_idx_plain(pts, verts).long()
-    d_k = torch.linalg.norm(pts - verts[idx_k], dim=-1)
-    d_p = torch.linalg.norm(pts - verts[idx_p], dim=-1)
-    err = float((d_k - d_p).abs().max())
-    print(f'A knn: max |d_kernel - d_plain| = {err:.3e} (bound 1e-5), '
-          f'index agreement {float((idx_k == idx_p).float().mean()):.6f}')
-    check(err < 1e-5, 'knn kernel disagrees with its plain version')
+    idx_k = nn_idx(pts, verts)
+    idx_p = nn_idx_plain(pts, verts)
+    same = bool(torch.equal(idx_k, idx_p))
+    d_k = torch.linalg.norm(pts - verts[idx_k.long()], dim=-1)
+    d_p = torch.linalg.norm(pts - verts[idx_p.long()], dim=-1)
+    print(f'A knn ({n_pts} samples of frame 0): indices equal at every '
+          f'point {same} ({int((idx_k != idx_p).sum())} differ; max |d_kernel'
+          f' - d_plain| {float((d_k - d_p).abs().max()):.3e})', flush=True)
+    check(same, 'knn kernel disagrees with its plain version')
+    for step in (1, 2, 4, 64, 128, 512, 2048):
+        knn_sweep(f'A/K knn ({n_pts // step} samples of frame 0)',
+                  pts[::step].contiguous(), verts, card)
+    knn_ties(card)
+    knn_ablation(knn_libs, [
+        (f'{n_pts} samples of frame 0', pts, verts, 0),
+        (f'{n_pts // 64} of them', pts[::64].contiguous(), verts, 1),
+        (f'{n_pts // 512} of them', pts[::512].contiguous(), verts, 2)],
+        card)
     nv = verts.shape[0]
+    # 7 flops a pair: 3 products, 2 sums, the subtraction, the minimum
     records['knn'] = dict(
-        max_abs_err=err,
+        max_abs_err=float((idx_k - idx_p).abs().max()),
         ms=timed(lambda: nn_idx(pts, verts), REPS),
+        graph_ms=graph_ms(lambda: nn_idx(pts, verts), REPS),
         plain_ms=timed(lambda: nn_idx_plain(pts, verts), REPS),
-        bound=bound(n_pts * 16 + nv * 12, n_pts * nv * 8.0, PEAK_F32),
+        bound=bound(n_pts * 16 + nv * 12, n_pts * nv * 7.0, PEAK_F32),
         src='arah_tpu_torch/csrc/knn.cu',
         rep='arah_tpu/ops/pallas/knn_kernel.py:106')
+    # the exact-rounding floor: lane-instructions a pair at the kernel's
+    # own time (graph replay) and the SM clock read while it runs (132 SMs
+    # x 128 lanes)
+    mhz = sm_clock(lambda: nn_idx(pts, verts))
+    ev, ms_a = records['knn']['ms'], records['knn']['graph_ms']
+    lanes = None if mhz is None else \
+        ms_a * 1e-3 * 132 * 128 * mhz * 1e6 / (n_pts * nv)
+    print(f'  A: {ev:.4f} ms (CUDA events), {ms_a:.4f} ms (graph replay); '
+          'SM clock while it runs '
+          + ('not measured' if mhz is None else
+             f'{mhz:.0f} MHz: {lanes:.2f} lane-instructions a pair')
+          + f' [{card}]', flush=True)
+    del idx_k, idx_p, d_k, d_p
 
     # ---- B: corr, at the main path's two phases
     no_tf32()
@@ -533,7 +835,8 @@ def main():
                     'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
                     'bound_by': r['bound'][1], 'library_ms': None,
                     **{k: r[k] for k in ('phase2_ms', 'phase2_plain_ms',
-                                         'phase2_bound_ms') if k in r}})
+                                         'phase2_bound_ms', 'graph_ms')
+                       if k in r}})
         print(f'{name}: {r["ms"]:.3f} ms kernel, {r["plain_ms"]:.3f} ms '
               f'plain, bound {r["bound"][0]:.4f} ms ({r["bound"][1]}), '
               f'launches {launches[name]} {per[name]} [{card}]')
@@ -1376,7 +1679,7 @@ def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
     counted corr bench)."""
     import numpy as np
     import torch
-    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.ops import _build, fused
     from arah_tpu_torch.ops.corr import (corr_search, dense_skin_fn,
                                          launch_corr, pack_corr)
     from arah_tpu_torch.ops.corr_rows import (corr_search_rows,
@@ -1445,18 +1748,32 @@ def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
         ik, ip = nn_idx_rows(p, verts), nn_idx_plain(p, verts)
         same = bool(torch.equal(ik, ip))
         ms = timed(lambda: nn_idx_rows(p, verts), REPS)
+        gms = graph_ms(lambda: nn_idx_rows(p, verts), REPS)
         plain_ms = timed(lambda: nn_idx_plain(p, verts), REPS)
-        b = bound(n * 16 + nv * 12, n * nv * 8.0, PEAK_F32)
+        b = bound(n * 16 + nv * 12, n * nv * 7.0, PEAK_F32)
         print(f'K knn_rows ({n} world points of frame 0, {nv} verts): '
               f'indices equal at every point {same} ({int((ik != ip).sum())}'
-              f' differ); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-              f'{b[0]:.4f} ms ({b[1]}) [{card}]', flush=True)
+              f' differ); kernel {ms:.4f} ms by CUDA events around the '
+              f'wrapper ({gms:.4f} ms by graph replay), plain '
+              f'{plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}) [{card}]',
+              flush=True)
         check(same, f'knn_rows kernel disagrees with its plain version at '
               f'{n}')
         recs.setdefault('knn_rows', dict(
-            max_abs_err=float((ik - ip).abs().max()), ms=ms,
+            max_abs_err=float((ik - ip).abs().max()), ms=ms, graph_ms=gms,
             plain_ms=plain_ms, bound=b, src='arah_tpu_torch/csrc/knn.cu',
             rep='arah_tpu/ops/pallas/knn_kernel.py:42'))
+        knn_sweep(f'K knn_rows ({n} world points of frame 0)', p, verts,
+                  card)
+    for n in (1024, 256):               # the plain loops' phase-2 batches
+        p = ws[RAYS][:n].contiguous()
+        print(f'K knn_rows ({n} world points of frame 0): kernel '
+              f'{timed(lambda: nn_idx_rows(p, verts), REPS):.4f} ms by CUDA '
+              f'events around the wrapper '
+              f'({graph_ms(lambda: nn_idx_rows(p, verts), REPS):.4f} ms by '
+              f'graph replay) [{card}]', flush=True)
+        knn_sweep(f'K knn_rows ({n} world points of frame 0)', p, verts,
+                  card)
 
     # ---- L on the frame's corr inputs (single pass, corr_max_steps)
     no_tf32()
@@ -1513,8 +1830,10 @@ def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
               f'A/B frame {i}: non-finite, misshapen or empty')
     with pallas_switch():
         no_tf32()
-        siren_histogram(lambda: [render(params, cfg_ab, f) for f in frames],
-                        card)
+        launch_histograms(
+            lambda: [render(params, cfg_ab, f) for f in frames],
+            (('J', fused, 'siren_sdf', 1, 'CUDA events'),
+             ('K', fused, 'nn_idx_rows', 0, 'graph replay')), card)
     print(f'A/B path (ARAH_ENABLE_PALLAS=1; use_pallas_march, _iso, _knn '
           f'off): {len(frames)} frames x {RAYS} rays: {ms:.1f} ms/frame, '
           f'{RAYS / (ms / 1e3):.0f} rays/s, peak memory {peak:.2f} GiB, '
@@ -1600,7 +1919,11 @@ def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
 def profile_frame(fn, ms_frame, card, tag='one frame'):
     """Device time by kernel over one call of fn (a frame or a step), and
     the share of it the device spent idle: of the traced call's wall
-    time, and of the untraced time `ms_frame` (tracing slows the host)."""
+    time, and of the untraced time `ms_frame` (tracing slows the host);
+    then the sum over kernels A and K (one name a launch shape). The
+    device time is printed twice: over the kernels alone, and with the
+    user-annotated device spans added, as this trace read it before it
+    told the two apart."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1611,10 +1934,14 @@ def profile_frame(fn, ms_frame, card, tag='one frame'):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    # time of the kernels it launched, and a user annotation on the device
+    # (the optimizer's step) spans its kernels and the gaps between them
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    kernels = [e for e in dev if not getattr(e, 'is_user_annotation', False)]
+    spans = sum(e.self_device_time_total for e in dev
+                if e not in kernels) / 1e3
     if not kernels:
         print(f'profile of {tag}: the trace holds no device-side events '
               '(device time and idle share not measured)')
@@ -1622,12 +1949,18 @@ def profile_frame(fn, ms_frame, card, tag='one frame'):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f'profile of {tag}: traced wall {wall_ms:.1f} ms, device '
           f'busy {busy:.1f} ms in {sum(e.count for e in kernels)} kernel '
-          f'launches, idle share {1 - busy / wall_ms:.3f} of the traced '
+          f'launches ({busy + spans:.1f} ms with the user-annotated spans, '
+          f'{spans:.1f} ms), '
+          f'idle share {1 - busy / wall_ms:.3f} of the traced '
           f'run, {1 - busy / ms_frame:.3f} of the untraced '
           f'{ms_frame:.1f} ms [{card}]')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f'  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  '
               f'{e.key[:90]}')
+    grp = [e for e in kernels if 'knn' in e.key]
+    print(f'  {sum(e.self_device_time_total for e in grp) / 1e3:9.3f} ms  '
+          f'{sum(e.count for e in grp):6d}x  kernels A and K (names holding '
+          "'knn')")
 
 
 @contextlib.contextmanager

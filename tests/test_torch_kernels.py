@@ -7,7 +7,8 @@ versions.
 
 Tolerances:
   * A (knn): chosen-vertex distances within 1e-5, as tests/test_pallas.py
-    holds the Pallas kernel (indices of near-ties may differ);
+    holds the Pallas kernel (indices of near-ties may differ), and the
+    same indices where duplicated vertices make the tie rule decide;
   * B (corr): Broyden can move a hard point to another, equally valid
     root, so valid-mask agreement > 0.98, median |dx| < 1e-5 on commonly
     valid points, and masked points frozen exactly;
@@ -50,19 +51,58 @@ def _robust(a, b, med=1e-4, p99=2e-2):
 
 
 class TestKnn:
-    def test_plain_vs_pallas_t(self, rng):
+    @pytest.mark.parametrize('case', ['random', 'duplicates'])
+    def test_plain_vs_pallas_t(self, rng, case):
+        """With duplicates (vertices 0..299 repeated at 1200..1499, every
+        point within ~1e-3 of one of them) the tie rule decides every
+        point: the indices must be the Pallas kernel's, the first copy."""
         from arah_tpu.ops.pallas.knn_kernel import nn_idx_pallas_t
         from arah_tpu_torch.ops.knn import nn_idx
-        pts = rng.randn(4096, 3).astype(np.float32)
         verts = rng.randn(1500, 3).astype(np.float32)
+        if case == 'duplicates':
+            verts[1200:] = verts[:300]
+            pts = verts[rng.randint(0, 300, 4096)] \
+                + rng.randn(4096, 3).astype(np.float32) * 1e-3
+        else:
+            pts = rng.randn(4096, 3).astype(np.float32)
         ref = np.asarray(nn_idx_pallas_t(jnp.asarray(pts),
                                          jnp.asarray(verts), tile=1024,
                                          v_tile=512, interpret=True))
         out = nn_idx(t(pts), t(verts))
         assert out.dtype == torch.int32 and out.shape == (4096,)
+        idx = out.numpy()
         d_ref = np.linalg.norm(pts - verts[ref], axis=-1)
-        d_out = np.linalg.norm(pts - verts[out.numpy()], axis=-1)
+        d_out = np.linalg.norm(pts - verts[idx], axis=-1)
         np.testing.assert_allclose(d_out, d_ref, atol=1e-5)
+        if case == 'duplicates':
+            assert idx.max() < 1200 and ref.max() < 1200
+            np.testing.assert_array_equal(idx, ref)
+
+    def test_doubled_form_keeps_the_bits(self, rng):
+        """`nn_idx_plain` (and the kernel) take |v|^2 - x.(2 v): doubling
+        is exact, so every distance has the bits of |v|^2 - 2 (v.x), each
+        product and sum rounded on its own in the same order, and the
+        indices are the undoubled form's. Coordinates span magnitudes from
+        1e-3 to 1e2, ties included."""
+        from arah_tpu_torch.ops.knn import nn_idx_plain
+        verts = (rng.randn(700, 3) * 10.0 ** rng.uniform(-3, 2, (700, 1))
+                 ).astype(np.float32)
+        verts[600:] = verts[:100]
+        pts = np.concatenate([
+            verts[rng.randint(0, 100, 500)],
+            (rng.randn(1500, 3) * 10.0 ** rng.uniform(-3, 2, (1500, 1)))
+        ]).astype(np.float32)
+        p, v = t(pts), t(verts)
+        v_sq = v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2]
+        dot = p[:, 0:1] * v[:, 0] + p[:, 1:2] * v[:, 1] + p[:, 2:3] * v[:, 2]
+        d = v_sq - 2.0 * dot
+        v2 = 2.0 * v
+        d2 = v_sq - (p[:, 0:1] * v2[:, 0] + p[:, 1:2] * v2[:, 1]
+                     + p[:, 2:3] * v2[:, 2])
+        assert torch.equal(d, d2)
+        idx = nn_idx_plain(p, v, chunk=256)
+        assert torch.equal(idx, torch.argmin(d, dim=-1).to(torch.int32))
+        assert int(idx[:500].max()) < 600
 
 
 class TestCorr:

@@ -6,7 +6,11 @@ launch wrappers refuse, with ValueError and before touching the card, a
 network that a launch shape does not take, and pick the corr shape by
 the skinning MLP's width; the launch-shape tables of the wrappers are
 the shapes the CUDA sources build; and the tile-waste count of the corr
-bench (`utils/bench_corr.py:tile_waste`) on a hand-made count vector."""
+bench (`utils/bench_corr.py:tile_waste`) on a hand-made count vector;
+and the launch shapes of kernels A and K (`ops/knn.py`): their table
+against csrc/knn.cu, the thresholds that pick them, and the refusal of
+a shape the source does not build; and the text each ablation of that
+body in `chip_smoke.py` replaces."""
 import os
 import re
 
@@ -226,3 +230,88 @@ def test_tile_waste_counts_a_hand_made_vector():
     mask = torch.tensor([1, 1, 1, 0, 1, 1, 1, 1, 0, 1], dtype=torch.bool)
     assert tile_waste(iters, mask, tile=4) == (32, 20)
     assert tile_waste(iters, torch.ones_like(mask), tile=16) == (16 * 8, 34)
+
+
+def _knn_c_shapes():
+    """[(threads, points a thread, vertex groups, cluster)] of the
+    `using KnnShapeN = KnnShape<NT, P, W, C, MINB>` lines of
+    csrc/knn.cu, N = 0, 1, ... in order, and the dispatch's `case N:`
+    lines naming them."""
+    from arah_tpu_torch.ops import _build
+    with open(os.path.join(_build.CSRC, 'knn.cu')) as fh:
+        text = fh.read()
+    rows = re.findall(r'using\s+KnnShape(\d+)\s*=\s*KnnShape<([^>]*)>', text)
+    assert [int(i) for i, _ in rows] == list(range(len(rows)))
+    cases = re.findall(r'case\s+(\d+):\s*return\s+knn_launch<KnnShape(\d+)>',
+                       text)
+    assert cases == [(str(i), str(i)) for i in range(len(rows))], cases
+    out = []
+    for _, args in rows:
+        a = [int(v) for v in args.split(',')]
+        assert len(a) == 5, args
+        out.append(tuple(a[:4]))
+    return out
+
+
+def test_knn_launch_shapes_match_the_source():
+    """`ops/knn.py:SHAPES` (what kernels A and K launch, and what the
+    sweep reports) are the shapes csrc/knn.cu builds, in the order of its
+    dispatch, each of whole-warp vertex groups."""
+    from arah_tpu_torch.ops import knn
+    assert list(knn.SHAPES) == _knn_c_shapes()
+    for nt, p, w, c in knn.SHAPES:
+        assert nt % w == 0 and (nt // w) % 32 == 0 and p >= 1
+        assert c in (1, 2, 4, 8)
+
+
+@pytest.mark.parametrize('n,shape', [(0, 2), (1, 2), (256, 2), (1024, 2),
+                                     (4096, 2), (4097, 1), (8192, 1),
+                                     (196608, 1), (196609, 0), (524288, 0)])
+def test_knn_launch_shape_thresholds(n, shape):
+    """Kernels A and K take the clusters of 4 up to 4,096 points (the
+    plain loops' phase-2 batches of <= 1,024), the clusters of 2 up to
+    196,608 (the plain march's 8,192), and the wide shape above (the corr
+    init's 524,288)."""
+    from arah_tpu_torch.ops import knn
+    assert knn.launch_shape(n) == shape
+    assert 0 <= shape < len(knn.SHAPES)
+
+
+@pytest.mark.parametrize('shape', [-1, 3, 99])
+def test_knn_unknown_launch_shape_raises(rng, shape):
+    """A launch shape csrc/knn.cu does not build raises ValueError, before
+    any tensor's device is looked at (no fallback to another shape or to
+    the plain version)."""
+    from arah_tpu_torch.ops import knn
+    assert shape < 0 or shape >= len(knn.SHAPES)
+    p, v = t(rng.randn(8, 3)), t(rng.randn(5, 3))
+    with pytest.raises(ValueError, match='no launch shape'):
+        knn.launch_knn(p, v, shape)
+    with pytest.raises(ValueError, match='no launch shape'):
+        knn.knn_shape(shape, 8, 5)
+    with pytest.raises(ValueError, match='expected a CUDA tensor'):
+        knn.launch_knn(p, v, 0)
+
+
+@pytest.mark.parametrize('name', ['select', 'undoubled', 'no rescan',
+                                  'no scan', 'staging only', 'launch only'])
+def test_knn_ablations_apply_to_the_source(name):
+    """Each ablation `chip_smoke.py` builds of A/K's body is csrc/knn.cu
+    with text replaced that appears there exactly once, so an edit of the
+    body cannot leave an ablation timing the body unchanged."""
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(root, 'chip_smoke.py'))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from arah_tpu_torch.ops import _build
+    with open(os.path.join(_build.CSRC, 'knn.cu')) as fh:
+        text = fh.read()
+    subs = smoke.KNN_ABLATIONS[name]
+    src = smoke.knn_ablation_source(subs)
+    assert src != text
+    for old, new in subs:
+        assert text.count(old) == 1 and new in src
+    with pytest.raises(ValueError, match='appears 0 times'):
+        smoke.knn_ablation_source(subs + [('no such text', '')])
