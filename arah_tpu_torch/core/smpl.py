@@ -83,3 +83,62 @@ def blend_shapes(betas: torch.Tensor, shape_disps: torch.Tensor):
 def vertices2joints(J_regressor: torch.Tensor, vertices: torch.Tensor):
     """(J, V) x (B, V, 3) -> (B, J, 3)."""
     return torch.einsum('bik,ji->bjk', vertices, J_regressor)
+
+
+def smpl_to_device(model: SmplModel, device='cuda') -> SmplModel:
+    """The model's arrays as tensors on `device` (float32, faces int32),
+    so that `prepare_frame` copies nothing per call. `parents` stays a
+    CPU int32 tensor: the kinematic chain is unrolled in Python, and a
+    tree on the card would cost a device-to-host copy per frame."""
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32) if not
+                               torch.is_tensor(a) else a,
+                               dtype=torch.float32, device=device)
+    return SmplModel(
+        v_template=f32(model.v_template), shapedirs=f32(model.shapedirs),
+        posedirs=f32(model.posedirs), J_regressor=f32(model.J_regressor),
+        lbs_weights=f32(model.lbs_weights),
+        parents=torch.as_tensor(np.asarray(model.parents, np.int32)),
+        faces=torch.as_tensor(np.asarray(model.faces, np.int32),
+                              device=device))
+
+
+def load_smpl_assets(misc_dir: str, gender: str = 'neutral',
+                     device='cuda') -> SmplModel:
+    """The reference-format `body_models/misc/*.npz` assets, on `device`
+    (`smpl_to_device`): v_templates.npz[gender] (V, 3);
+    shapedirs_all.npz[gender] (V, 3, 10); posedirs_all.npz[gender]
+    (V, 3, 207), reshaped to (207, V*3); J_regressors.npz[gender] (24, V);
+    skinning_weights_all.npz[gender] (V, 24); kintree_table.npy (2, 24),
+    whose first row, with -1 at the root, gives the parents;
+    faces.npz['faces']."""
+    import os
+
+    def load(name, key=gender):
+        return np.load(os.path.join(misc_dir, name))[key]
+    posedirs = load('posedirs_all.npz')
+    posedirs = posedirs.reshape([posedirs.shape[0] * 3, -1]).T
+    parents = np.load(os.path.join(misc_dir, 'kintree_table.npy'))[0] \
+        .astype(np.int32)
+    parents[0] = -1
+    return smpl_to_device(SmplModel(
+        v_template=load('v_templates.npz'),
+        shapedirs=load('shapedirs_all.npz'), posedirs=posedirs,
+        J_regressor=load('J_regressors.npz'),
+        lbs_weights=load('skinning_weights_all.npz'), parents=parents,
+        faces=load('faces.npz', 'faces')), device)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions (..., 4) in xyzw order, normalised here, -> rotation
+    matrices (..., 3, 3): the camera refinement's parameterisation."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)

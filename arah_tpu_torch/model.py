@@ -60,20 +60,26 @@ class FrameData(NamedTuple):
     bounds_max: torch.Tensor      # (3,)
 
 
-@torch.no_grad()
 def prepare_frame(model: SmplModel, betas, pose, trans,
                   box_margin: float = 0.05, device='cuda') -> FrameData:
     """SMPL params (betas (10,), axis-angle pose (72,), trans (3,)) ->
     renderer frame inputs: shaped template and rest joints, pose blend
     shapes, bone transforms, posed verts, the Vitruvian canonicalization
-    and the final bone transforms A @ inv(02v)."""
+    and the final bone transforms A @ inv(02v). Differentiable, as the
+    JAX function is: tensor inputs keep their autograd graph (the SMPL
+    refinement of the train step differentiates the frame); a caller
+    that wants no graph wraps the call in `torch.no_grad()`. Arrays that
+    are not tensors are copied to `device`; a model on the device
+    (`core/smpl.py:smpl_to_device`) is used as it is."""
     def t(a):
-        return torch.as_tensor(np.array(a) if not torch.is_tensor(a)
-                               else a, dtype=torch.float32, device=device)
+        if torch.is_tensor(a):
+            return a.to(device=device, dtype=torch.float32)
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
     v_template, shapedirs = t(model.v_template), t(model.shapedirs)
     posedirs, J_regressor = t(model.posedirs), t(model.J_regressor)
     W = t(model.lbs_weights)
-    parents = np.asarray(model.parents)
+    parents = np.asarray(model.parents.cpu() if torch.is_tensor(
+        model.parents) else model.parents)
     betas, pose, trans = t(betas)[None], t(pose)[None], t(trans)
 
     v_shaped = v_template[None] + blend_shapes(betas, shapedirs)

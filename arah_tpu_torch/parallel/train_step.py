@@ -1,11 +1,20 @@
 """The single-device training step. Port of `arah_tpu/parallel/
 train_step.py` without a mesh: per ray block, the training render and
-the losses; the mean over blocks; one backward; one optimizer update.
+the losses; the mean over blocks and its gradient; one optimizer update.
+With the options of the JAX step: SMPL refinement (the block's frame
+recomputed from the learnable per-frame SMPL leaves, differentiably),
+camera refinement (rays from the learnable extrinsics), the perceptual
+patch loss, and per-block frames.
 
 The randomness that `jax.random` draws inside the JAX step arrives as a
 `TrainDraws` argument: per block, the three sample-jitter arrays and the
 eikonal points (`data/batch.py:draw_train_draws` makes them from a numpy
 seed; the tests draw them with the JAX step's own keys).
+
+The gradient of the mean over blocks is taken one block at a time (each
+block's loss / B, backward, the gradients summed in the leaves), so that
+only one block's graph is alive at once: the same gradient, up to the
+order of the sums, at the peak memory of one block.
 """
 from __future__ import annotations
 
@@ -13,14 +22,19 @@ from typing import Any, NamedTuple
 
 import torch
 
-from arah_tpu_torch.model import FrameData
+from arah_tpu_torch.core.smpl import quat_to_rot
+from arah_tpu_torch.model import FrameData, prepare_frame
 from arah_tpu_torch.render.renderer import ModelConfig, RenderInputs, render
 from arah_tpu_torch.train.loss import LossWeights, compute_loss
+from arah_tpu_torch.utils.lpips import make_perceptual_loss
+from arah_tpu_torch.utils.tree import tree_map
 
 
 class TrainBatch(NamedTuple):
     """One step's data, field for field the JAX `TrainBatch`: leading dim
-    B = ray blocks on the per-block fields; the frame is shared."""
+    B = ray blocks on the per-block fields; the frame is shared, except
+    in per-block-frame mode (`make_train_step(per_block_frame=True)`),
+    where the frame leaves and `latent_idx` carry a leading B dim too."""
     cam_loc: Any          # (B, 3)
     ray_dirs: Any         # (B, R, 3)
     near: Any             # (B, R)
@@ -38,7 +52,8 @@ class TrainBatch(NamedTuple):
     uv: Any               # (B, R, 3) K^-1-lifted pixels
     cam_idx: Any          # (B,) int32 camera index
     frame: FrameData
-    latent_idx: Any       # int frame index (latent code)
+    latent_idx: Any       # frame index (latent code, SMPL leaves): an int
+                          # or () tensor; (B,) with per-block frames
 
 
 class TrainDraws(NamedTuple):
@@ -70,17 +85,62 @@ def trainable(params):
     return params
 
 
+def _take(a, i):
+    """Row i of a, for an int i or an index tensor (gathered on the
+    device, without reading the index back to the host)."""
+    if torch.is_tensor(i):
+        return a.index_select(0, i.reshape(1).to(a.device, torch.long))[0]
+    return a[i]
+
+
+def _refined_frame(params, smpl_model, frame_idx,
+                   box_margin: float = 0.05) -> FrameData:
+    """The frame recomputed from the learnable per-frame SMPL leaves,
+    with gradients into pose, shape and translation."""
+    sp = params['smpl_params']
+    pose = torch.cat([_take(sp['root_orient'], frame_idx),
+                      _take(sp['pose_body'], frame_idx),
+                      _take(sp['pose_hand'], frame_idx)], dim=-1)
+    return prepare_frame(smpl_model, params['betas'], pose,
+                         _take(sp['trans'], frame_idx),
+                         box_margin=box_margin, device=pose.device)
+
+
+def _refined_rays(params, batch: TrainBatch, b: int):
+    """(cam_loc (3,), ray_dirs (R, 3)) of block b from the learnable
+    extrinsics (an xyzw quaternion and a translation per camera) and the
+    block's K^-1-lifted pixels `uv`."""
+    ci = batch.cam_idx[b]
+    R = quat_to_rot(_take(params['cam_rots'], ci))
+    t = _take(params['cam_trans'], ci)
+    cam_loc = -R.T @ t
+    rays = batch.uv[b] @ R
+    rays = rays / (torch.linalg.norm(rays, dim=-1, keepdim=True) + 1e-12)
+    return cam_loc, rays
+
+
 def _block_loss(params, cfg: ModelConfig, loss_w: LossWeights,
-                batch: TrainBatch, draws: TrainDraws, latent, b: int):
+                batch: TrainBatch, draws: TrainDraws, latent, b: int,
+                smpl_model=None, refine_smpl: bool = False,
+                refine_cameras: bool = False, perceptual_fn=None,
+                per_block_frame: bool = False):
     """Render + losses of ray block b."""
-    fd = batch.frame
+    fd, latent_idx = batch.frame, batch.latent_idx
+    if per_block_frame:
+        fd = tree_map(lambda a: a[b], fd)
+        latent_idx = latent_idx[b]
+    if refine_smpl:
+        fd = _refined_frame(params, smpl_model, latent_idx)
+    cam_loc, ray_dirs = batch.cam_loc[b], batch.ray_dirs[b]
+    if refine_cameras:
+        cam_loc, ray_dirs = _refined_rays(params, batch, b)
     pose_cond_extra = {}
     if latent is not None:
         pose_cond_extra = {'latent_code': latent[None],
                            'rot_noise': batch.rot_noise[b],
                            'trans_noise': batch.trans_noise[b]}
     inp = RenderInputs(
-        cam_loc=batch.cam_loc[b], ray_dirs=batch.ray_dirs[b],
+        cam_loc=cam_loc, ray_dirs=ray_dirs,
         near=batch.near[b], far=batch.far[b], frame=fd.frame, smpl=fd.smpl,
         rots=fd.rots, Jtrs=fd.Jtrs, rots_full=fd.rots_full,
         Jtrs_posed=fd.Jtrs_posed, pose_cond_extra=pose_cond_extra,
@@ -94,43 +154,61 @@ def _block_loss(params, cfg: ModelConfig, loss_w: LossWeights,
                  jitter=(draws.u1[b], draws.u2[b], draws.u3[b]))
     gt = {'rgb': batch.rgb_gt[b], 'body_mask': batch.body_mask[b],
           'sampled_weights': batch.sampled_weights[b]}
-    return compute_loss(out, gt, loss_w)
+    return compute_loss(out, gt, loss_w, perceptual_fn=perceptual_fn)
 
 
 def make_train_step(cfg: ModelConfig, loss_w: LossWeights, optimizer,
-                    mesh=None, refine_smpl: bool = False,
+                    mesh=None, smpl_model=None, refine_smpl: bool = False,
                     refine_cameras: bool = False,
                     per_block_frame: bool = False):
     """step(state, batch, draws) -> (state, losses): the mean of the
     blocks' losses, its gradient, and one update of `optimizer` (made by
     `train.optim.make_optimizer` over `state.params`), which updates the
-    parameters in place."""
+    parameters in place.
+
+    refine_smpl: each block's frame comes from `params['smpl_params']`
+    (root_orient, pose_body, pose_hand, trans; a row per frame, taken at
+    the block's `latent_idx`) and `params['betas']` through
+    `prepare_frame(smpl_model, ...)`; `smpl_model` is a `SmplModel`, best
+    on the parameters' device (`core/smpl.py:load_smpl_assets`, or
+    `smpl_to_device`). refine_cameras: each block's rays come from
+    `params['cam_rots']` / `['cam_trans']` at its `cam_idx` and its `uv`.
+    `loss_w.perceptual > 0`: the patch loss on the rays after the first
+    `n_ray_loss` (`utils/lpips.py:make_perceptual_loss`: LPIPS, or its
+    DSSIM proxy without the weights). per_block_frame: the batch's frame
+    leaves and latent_idx carry a leading block dimension
+    (`data/loader.py:collate_train_batch_np(per_block_frame=True)`,
+    `data/batch.py:synthetic_train_batch(fds=...)`)."""
     if mesh is not None:
         raise NotImplementedError('the sharded (multi-GPU) train step is a '
                                   'later slice of the port')
-    if refine_smpl or refine_cameras:
-        raise NotImplementedError('SMPL and camera refinement are a later '
-                                  'slice of the port (prepare_frame runs '
-                                  'without gradients)')
-    if per_block_frame:
-        raise NotImplementedError('per-block frames are a later slice of '
-                                  'the port')
-    if loss_w.perceptual > 0:
-        raise NotImplementedError('the perceptual (LPIPS) loss needs '
-                                  'weights that are not in the repository')
+    if refine_smpl and smpl_model is None:
+        raise ValueError('refine_smpl needs the SMPL model (smpl_model=)')
+    perceptual_fn = make_perceptual_loss() if loss_w.perceptual > 0 \
+        else None
+
+    def block_latent(params, batch, b):
+        if 'latent' not in params:
+            return None
+        idx = batch.latent_idx[b] if per_block_frame else batch.latent_idx
+        return _take(params['latent'], idx)
 
     def step_fn(state: TrainState, batch: TrainBatch, draws: TrainDraws):
         params = state.params
-        latent = params['latent'][batch.latent_idx] \
-            if 'latent' in params else None
         n_blocks = batch.ray_dirs.shape[0]
         optimizer.zero_grad()
-        per_block = [_block_loss(params, cfg, loss_w, batch, draws, latent, b)
-                     for b in range(n_blocks)]
+        per_block = []
+        for b in range(n_blocks):
+            bl = _block_loss(params, cfg, loss_w, batch, draws,
+                             block_latent(params, batch, b), b,
+                             smpl_model=smpl_model, refine_smpl=refine_smpl,
+                             refine_cameras=refine_cameras,
+                             perceptual_fn=perceptual_fn,
+                             per_block_frame=per_block_frame)
+            (bl['loss'] / n_blocks).backward()
+            per_block.append({k: v.detach() for k, v in bl.items()})
         losses = {k: torch.stack([bl[k] for bl in per_block]).mean()
                   for k in per_block[0]}
-        losses['loss'].backward()
         optimizer.step()
-        return (TrainState(params, optimizer, state.step + 1),
-                {k: v.detach() for k, v in losses.items()})
+        return TrainState(params, optimizer, state.step + 1), losses
     return step_fn

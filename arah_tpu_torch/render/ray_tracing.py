@@ -325,7 +325,11 @@ def sample_z_vals(cfg: RayTracerConfig, body_mask, surface_depth, near, far,
                   eval_mode: bool = True, jitter=None):
     """Per-ray depth samples + activity mask: 64 samples on rays that
     missed the body; on body rays 16+1 near-surface and 16 far-surface
-    samples (sorted), the remaining slots masked off. Training
+    samples (sorted), the remaining slots masked off. A ray that misses
+    the box (near >= far) has every slot masked off and composites to
+    the background. JAX keeps its slots, whose depths then fall from
+    near to far; the negative intervals composite to NaN, which reaches
+    the perceptual loss from a patch ray outside the box. Training
     (`eval_mode=False`) jitters each group within its intervals with the
     given uniform draws `jitter` = (u1, u2, u3) of `jitter_shapes`, the
     near-surface group's middle sample pinned to the surface."""
@@ -341,6 +345,7 @@ def sample_z_vals(cfg: RayTracerConfig, body_mask, surface_depth, near, far,
     if not eval_mode:
         z0 = stratified_z_vals(z0, jitter[0])
     mask = torch.ones((n, S), dtype=torch.bool, device=dev)
+    hit = (near < far)[:, None]
     if ns > 0 or fs > 0:
         lin_ns = torch.linspace(0.0, 1.0, ns + 1, device=dev)
         z_near = (surface_depth[:, None] - cfg.surface_vol_range
@@ -359,8 +364,8 @@ def sample_z_vals(cfg: RayTracerConfig, body_mask, surface_depth, near, far,
         mask_body = (torch.arange(S, device=dev) < n_surf)[None, :]
         z = torch.where(body_mask[:, None], z_body, z0)
         mask = torch.where(body_mask[:, None], mask_body, mask)
-        return z, mask
-    return z0, mask
+        return z, mask & hit
+    return z0, mask & hit
 
 
 def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,

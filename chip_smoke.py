@@ -67,6 +67,27 @@
    before and read just after, then timed steps; one profiled step; and
    one step with every kernel against one with every plain path (splits
    off on both sides) from the same state, batch and draws.
+7. Drives the refined step, the H36M configs' SMPL refinement
+   (`train_smpl: true`) with every other option of the step on as well
+   (`scene.build_train_setup(..., refined=True)`): 2 blocks, each on its
+   own pose of the bench body, of 8192 loss rays and one 48 x 48 patch
+   of rays drawn as the dataset draws it (around a random body vertex,
+   its rays kept whether or not they meet the box), SMPL and camera
+   refinement, the perceptual loss on its DSSIM proxy. A warm-up step,
+   whose first block hands A-F 10,496 rays and 671,744 samples and G, H
+   and I 671,744 points: each kernel is held against its plain version
+   there by step 3's and step 6's checks (A and every launch shape of
+   its body; B at both phases, through the split and at 256 units; C on
+   the shading and eikonal calls; D; E and F at both phases, F on every
+   ray as the training path runs it) and G's time is printed; one step
+   with the launch counts set to 0 just before and read just after (A-I
+   each at twice the counts of step 6's one-block step); timed steps;
+   one profiled step; one step with each patch re-centred on the top
+   corner of its frame's box, so that many of its rays miss the box,
+   whose loss and gradients must stay finite; and one step with every
+   kernel against one with every plain path (splits off on both sides)
+   from the same state, batch and draws, which also holds the
+   refinement leaves' gradients.
 
 Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line, and as its
 last line `{"ok": true, "device": {...}}`. Any failed check exits
@@ -624,7 +645,8 @@ def main():
     no_tf32()
     records['march'] = check_march(cfg, fd, inp, gen, card)
     no_tf32()
-    records['iso'] = check_iso(cfg, params, fd, inp, gen, card)
+    records['iso'] = check_iso(cfg, make_skin_fn(params, cfg), wts, bs, fd,
+                               inp, gen, card)
 
     # ---- main-path inputs of A and B: the samples of one eval frame
     with torch.no_grad():
@@ -701,27 +723,7 @@ def main():
     shade_rec = {}
     for bf in (False, True):
         no_tf32()
-        ok_, fk, gk = siren_shade(gen, xs, bf16=bf)
-        ok2, fk2, gk2 = siren_shade(gen, xs, bf16=bf)
-        same = (torch.equal(ok_, ok2) and torch.equal(fk, fk2)
-                and torch.equal(gk, gk2))
-        del ok2, fk2, gk2
-        op, fp, gp = siren_shade_plain(gen, xs, bf16=bf)
-        ds = (ok_ - op).abs()
-        df = (fk.float() - fp.float()).abs()
-        dg = (gk - gp).abs()
-        print(f'C shade bf16={bf}: median |d| sdf {float(ds.median()):.3e} '
-              f'(bound 3e-3) feats {float(df.median()):.3e} (5e-2) normals '
-              f'{float(dg.median()):.3e} (5e-2); p99 {q(ds, .99):.3e} '
-              f'{q(df, .99):.3e} {q(dg, .99):.3e}; max '
-              f'{float(ds.max()):.3e} {float(df.max()):.3e} '
-              f'{float(dg.max()):.3e}; two calls bit-equal {same}',
-              flush=True)
-        check(float(ds.median()) < 3e-3 and float(df.median()) < 5e-2
-              and float(dg.median()) < 5e-2,
-              f'shade kernel (bf16={bf}) disagrees with its plain version')
-        check(same, f'shade kernel (bf16={bf}): two calls differ')
-        shade_rec[bf] = (float(ds.max()), fk, gk)
+        shade_rec[bf] = compare_shade(f'C shade bf16={bf}', gen, xs, bf)
     from arah_tpu_torch.ops.shade import pack_shade
     print(f'  C shared memory per block: '
           f'{_build.load().arah_shade_smem(pack_shade(gen, True)[1])} B '
@@ -758,26 +760,9 @@ def main():
     for bf, fbf in ((False, False), (True, True), (True, False)):
         no_tf32()
         feats = shade_rec[fbf][1]
-        rk_ = color_mlp_fused(cw, cb, small, feats, pose, skips, bf16=bf)
-        same = torch.equal(rk_, color_mlp_fused(cw, cb, small, feats, pose,
-                                                skips, bf16=bf))
-        rp_ = color_mlp_plain(cw, cb, small, feats, pose, skips, bf16=bf)
-        d = (rk_ - rp_).abs()
-        msg = (f'D color_fwd bf16={bf} feats {feats.dtype}: max |d rgb| '
-               f'{float(d.max()):.3e}, median {float(d.median()):.3e}, '
-               f'p99.9 {q(d, .999):.3e}; two calls bit-equal {same}')
-        if bf:
-            print(msg + ' (bounds median 1e-4, p99.9 1e-2)', flush=True)
-            check(float(d.median()) < 1e-4 and q(d, .999) < 1e-2,
-                  f'color kernel (bf16, feats {feats.dtype}) disagrees '
-                  'with its plain version')
-        else:
-            print(msg + ' (bound max 1e-4)', flush=True)
-            check(float(d.max()) < 1e-4,
-                  'color kernel (f32) disagrees with its plain version')
-        check(same, f'color kernel (bf16={bf}, feats {feats.dtype}): two '
-              'calls differ')
-        color_rec[bf, fbf] = float(d.max())
+        color_rec[bf, fbf] = compare_color_fwd(
+            f'D color_fwd bf16={bf} feats {feats.dtype}', cw, cb, small,
+            feats, pose, skips, bf)
     bf = cfg.bf16_shading
     feats = shade_rec[bf][1]
     ops_d = color_fwd_operands(cw, cb, small, feats, pose, skips, bf16=bf)
@@ -826,6 +811,9 @@ def main():
     for name in train_records:
         launches[name] = train_launches[name]
         per[name] = 'per train step'
+    torch.cuda.empty_cache()
+    refined_launches = run_refined(cfg, params, fd, card, no_tf32,
+                                   train_launches)
 
     out = []
     for name, r in records.items():
@@ -836,7 +824,9 @@ def main():
                     'bound_by': r['bound'][1], 'library_ms': None,
                     **{k: r[k] for k in ('phase2_ms', 'phase2_plain_ms',
                                          'phase2_bound_ms', 'graph_ms')
-                       if k in r}})
+                       if k in r},
+                    **({'launches_refined_step': refined_launches[name]}
+                       if name in TRAIN_KERNELS else {})})
         print(f'{name}: {r["ms"]:.3f} ms kernel, {r["plain_ms"]:.3f} ms '
               f'plain, bound {r["bound"][0]:.4f} ms ({r["bound"][1]}), '
               f'launches {launches[name]} {per[name]} [{card}]')
@@ -853,6 +843,63 @@ def main():
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
+
+
+def compare_shade(tag, gen, xs, bf):
+    """Kernel C against `siren_shade_plain` at points xs (bf16 products
+    when `bf`): median |d| of sdf < 3e-3, of features and normals < 5e-2;
+    two calls give the same bits. Returns (max |d sdf|, the kernel's
+    features, its normals)."""
+    import torch
+    from arah_tpu_torch.ops.shade import siren_shade, siren_shade_plain
+    with torch.no_grad():
+        ok_, fk, gk = siren_shade(gen, xs, bf16=bf)
+        ok2, fk2, gk2 = siren_shade(gen, xs, bf16=bf)
+        same = (torch.equal(ok_, ok2) and torch.equal(fk, fk2)
+                and torch.equal(gk, gk2))
+        del ok2, fk2, gk2
+        op, fp, gp = siren_shade_plain(gen, xs, bf16=bf)
+    ds = (ok_ - op).abs()
+    df = (fk.float() - fp.float()).abs()
+    dg = (gk - gp).abs()
+    print(f'{tag} ({xs.shape[0]} points): median |d| sdf '
+          f'{float(ds.median()):.3e} (bound 3e-3) feats '
+          f'{float(df.median()):.3e} (5e-2) normals {float(dg.median()):.3e}'
+          f' (5e-2); p99 {q(ds, .99):.3e} {q(df, .99):.3e} {q(dg, .99):.3e};'
+          f' max {float(ds.max()):.3e} {float(df.max()):.3e} '
+          f'{float(dg.max()):.3e}; two calls bit-equal {same}', flush=True)
+    check(float(ds.median()) < 3e-3 and float(df.median()) < 5e-2
+          and float(dg.median()) < 5e-2,
+          f'{tag}: shade kernel disagrees with its plain version')
+    check(same, f'{tag}: shade kernel: two calls differ')
+    return float(ds.max()), fk, gk
+
+
+def compare_color_fwd(tag, cw, cb, small, feats, pose, skips, bf):
+    """Kernel D against `color_mlp_plain` on one input: in bf16 median
+    |d rgb| < 1e-4 and p99.9 < 1e-2, in f32 max < 1e-4; two calls give
+    the same bits. Returns max |d rgb|."""
+    import torch
+    from arah_tpu_torch.ops.color import color_mlp_fused, color_mlp_plain
+    with torch.no_grad():
+        rk_ = color_mlp_fused(cw, cb, small, feats, pose, skips, bf16=bf)
+        same = torch.equal(rk_, color_mlp_fused(cw, cb, small, feats, pose,
+                                                skips, bf16=bf))
+        rp_ = color_mlp_plain(cw, cb, small, feats, pose, skips, bf16=bf)
+    d = (rk_ - rp_).abs()
+    msg = (f'{tag} ({small.shape[0]} points): max |d rgb| '
+           f'{float(d.max()):.3e}, median {float(d.median()):.3e}, p99.9 '
+           f'{q(d, .999):.3e}; two calls bit-equal {same}')
+    if bf:
+        print(msg + ' (bounds median 1e-4, p99.9 1e-2)', flush=True)
+        check(float(d.median()) < 1e-4 and q(d, .999) < 1e-2,
+              f'{tag}: color kernel disagrees with its plain version')
+    else:
+        print(msg + ' (bound max 1e-4)', flush=True)
+        check(float(d.max()) < 1e-4,
+              f'{tag}: color kernel disagrees with its plain version')
+    check(same, f'{tag}: color kernel: two calls differ')
+    return float(d.max())
 
 
 def fit_report(cfg, params, fd, build_s):
@@ -1120,11 +1167,13 @@ def march_compare(tag, out_k, out_p, gen, mscale, thresh):
     return max_t
 
 
-def check_march(cfg, fd, inp, gen, card):
+def check_march(cfg, fd, inp, gen, card, tag='E march '):
     """Kernel E against `sphere_march_plain` at the main path's two
     shapes (iterations per ray too, from `iters_out`; two calls
-    bit-equal); its record (times and bounds of both phases, each bound
-    from the plain run's per-ray iterations)."""
+    bit-equal) on the rays of `inp` (cam_loc, ray_dirs, near, far) in the
+    frame and body of `fd` (frame, smpl); its record (times and bounds
+    of both phases, each bound from the plain run's per-ray
+    iterations)."""
     import torch
     from arah_tpu_torch.ops.march import (kernel_affine, launch_march,
                                           launch_shape, pack_trace,
@@ -1189,7 +1238,7 @@ def check_march(cfg, fd, inp, gen, card):
     a1 = (cam, inp.ray_dirs, inp.near, inp.far, p1)
     o1 = run(sphere_march_plain, *a1)
     err, ms, plain_ms, b = phase(
-        f'E march phase 1 ({RAYS} rays, {p1} iterations)', a1, o1)
+        f'{tag}phase 1 ({cam.shape[0]} rays, {p1} iterations)', a1, o1)
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
                src='arah_tpu_torch/csrc/march.cu',
                rep='arah_tpu/ops/pallas/march_kernel.py:175')
@@ -1199,13 +1248,13 @@ def check_march(cfg, fd, inp, gen, card):
     if idx.numel():
         a2 = (cam[idx], inp.ray_dirs[idx], o1[0][idx], inp.far[idx], p2)
         _, ms2, plain2, b2 = phase(
-            f'E march phase 2 ({idx.numel()} stragglers of '
+            f'{tag}phase 2 ({idx.numel()} stragglers of '
             f'{int(o1[1].sum())}, {p2} iterations)', a2,
             run(sphere_march_plain, *a2))
         rec.update(phase2_ms=ms2, phase2_plain_ms=plain2,
                    phase2_bound_ms=b2[0])
     else:
-        print('E march phase 2: no stragglers after phase 1')
+        print(f'{tag}phase 2: no stragglers after phase 1')
         rec.update(phase2_ms=None, phase2_plain_ms=None,
                    phase2_bound_ms=None)
     return rec
@@ -1319,26 +1368,29 @@ def iso_count_witness(tag, rays, wts, bs, frame, gen, steps, cvg, scale,
           f'float32 on the CPU {agree(itc, it64)}{msg} [{card}]', flush=True)
 
 
-def check_iso(cfg, params, fd, inp, gen, card):
+def check_iso(cfg, skin_fn, wts, bs, fd, inp, gen, card, train=False,
+              tag='F iso '):
     """Kernel F against `iso_refine_plain` at the main path's two shapes,
-    from the main path's march (kernel E with its split); its record."""
+    from the main path's march (kernel E with its split) of the rays of
+    `inp` in the frame and body of `fd`, with the skinning net `skin_fn`
+    and its collapsed layers (wts, bs); phase 1 on the rays the march
+    left undiverged (the eval path's mask) or, `train`, on every ray (the
+    training path's); its record."""
     import torch
     from arah_tpu_torch.core.body import unnormalize_canonical_points
-    from arah_tpu_torch.nn.skinning import skinning_dense_params
     from arah_tpu_torch.ops.iso import (iso_refine, iso_refine_plain,
                                         iso_residual, launch_iso)
     from arah_tpu_torch.ops.march import launch_shape, pack_trace
     from arah_tpu_torch.render.ray_tracing import _march_split
-    from arah_tpu_torch.render.renderer import make_sdf_fn, make_skin_fn
+    from arah_tpu_torch.render.renderer import make_sdf_fn
     from arah_tpu_torch.solver.root_find import iso_init_inv_jacobian
     tr = cfg.tracer
     frame = fd.frame
     dirs = inp.ray_dirs
     dev = dirs.device
     cam = inp.cam_loc.expand(dirs.shape).contiguous()
-    wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
     scale = cfg.skinning.softmax_scale
-    sdf_fn, skin_fn = make_sdf_fn(gen), make_skin_fn(params, cfg)
+    sdf_fn = make_sdf_fn(gen)
     with torch.no_grad():
         c = _march_split(tr, sdf_fn, frame, fd.smpl, cam, dirs, inp.near,
                          inp.far, gen)
@@ -1346,9 +1398,11 @@ def check_iso(cfg, params, fd, inp, gen, card):
                                              frame.coord_max, frame.center)
         J0 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, dirs, x_hat)
     u0 = torch.cat([x_hat, c.t[:, None]], dim=-1).contiguous()
-    T0 = c.T_fwd.reshape(RAYS, 16).contiguous()
-    J0 = J0.reshape(RAYS, 16).contiguous()
-    mask = (~c.diverged).contiguous()
+    n_rays = dirs.shape[0]
+    T0 = c.T_fwd.reshape(n_rays, 16).contiguous()
+    J0 = J0.reshape(n_rays, 16).contiguous()
+    mask = torch.ones_like(c.diverged) if train \
+        else (~c.diverged).contiguous()
 
     def run(fn, rays, steps):
         return fn(*rays, wts, bs, frame, gen, max_steps=steps,
@@ -1417,7 +1471,7 @@ def check_iso(cfg, params, fd, inp, gen, card):
     p1, cap = tr.iso_phase1_steps, tr.iso_resolve_cap
     rays1 = (cam, dirs, u0, T0, J0, mask)
     o1 = run(iso_refine_plain, rays1, p1)
-    err, ms, plain_ms, b = phase(f'F iso phase 1 ({RAYS} rays, {p1} steps)',
+    err, ms, plain_ms, b = phase(f'{tag}phase 1 ({n_rays} rays, {p1} steps)',
                                  rays1, p1, o1)
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
                src='arah_tpu_torch/csrc/iso.cu',
@@ -1430,13 +1484,13 @@ def check_iso(cfg, params, fd, inp, gen, card):
             + (torch.ones_like(idx, dtype=torch.bool),)
         steps = tr.iso_max_steps
         _, ms2, plain2, b2 = phase(
-            f'F iso phase 2 ({idx.numel()} stragglers of '
+            f'{tag}phase 2 ({idx.numel()} stragglers of '
             f'{int(o1[3].sum())}, {steps} steps)', rays2, steps,
             run(iso_refine_plain, rays2, steps))
         rec.update(phase2_ms=ms2, phase2_plain_ms=plain2,
                    phase2_bound_ms=b2[0])
     else:
-        print('F iso phase 2: no stragglers after phase 1')
+        print(f'{tag}phase 2: no stragglers after phase 1')
         rec.update(phase2_ms=None, phase2_plain_ms=None,
                    phase2_bound_ms=None)
     return rec
@@ -1988,6 +2042,127 @@ def capture_train_kernels():
             setattr(mod, attr, real)
 
 
+@contextlib.contextmanager
+def capture_trace():
+    """Record what the train step hands kernels A-F (the calls still
+    run): {'trace': `renderer.trace_and_sample`, inside which A, B, E and
+    F run; 'shade': C's wrapper as `ops/shade_grad.py` calls it;
+    'color_fwd': D's as `nn/color.py` calls it}, one (args, kwargs,
+    result) a call, in call order."""
+    from arah_tpu_torch.nn import color as ncolor
+    from arah_tpu_torch.ops import shade_grad as oshade
+    from arah_tpu_torch.render import renderer as rend
+    seen = {'trace': [], 'shade': [], 'color_fwd': []}
+    patched = [(rend, 'trace_and_sample', 'trace'),
+               (oshade, 'siren_shade', 'shade'),
+               (ncolor, 'color_mlp_fused', 'color_fwd')]
+    saved = [getattr(mod, attr) for mod, attr, _ in patched]
+    for (mod, attr, name), real in zip(patched, saved):
+        def spy(*args, _real=real, _name=name, **kw):
+            out = _real(*args, **kw)
+            seen[_name].append((args, kw, out))
+            return out
+        setattr(mod, attr, spy)
+    try:
+        yield seen
+    finally:
+        for (mod, attr, _), real in zip(patched, saved):
+            setattr(mod, attr, real)
+
+
+def check_block_kernels(cfg, params, seen, card, no_tf32):
+    """Kernels A-F held against their plain versions, by step 3's checks,
+    on what the refined warm-up step's first block handed them (`seen`
+    of `capture_trace`): A (and every launch shape of its body) and B at
+    both phases on the block's samples, C on its two shading calls, D on
+    its colour call, E and F at both phases on its rays (F with the
+    training path's mask, every ray). `params`: the skinning net that B
+    and F solve with (the step's collapsed layers)."""
+    import torch
+    from types import SimpleNamespace
+    from arah_tpu_torch.nn.skinning import skinning_dense_params
+    from arah_tpu_torch.ops.knn import nn_idx, nn_idx_plain
+    from arah_tpu_torch.render.renderer import make_skin_fn
+    args, kw, out = seen['trace'][0]
+    # the refined frame and rays carry the step's graph: the checks take
+    # them detached
+    frame, smpl = (type(t)(*(a.detach() for a in t)) for t in args[3:5])
+    cam, dirs, near, far = (a.detach() for a in args[5:9])
+    gen = kw['sdf_gen']
+    z, smask = out.samples.z_vals, out.samples.sample_mask
+    pts = (cam[:, None, :] + z[..., None] * dirs[:, None, :]) \
+        .reshape(-1, 3).contiguous()
+    flat_mask = smask.reshape(-1).contiguous()
+    n, verts = pts.shape[0], smpl.verts_posed
+    print(f'A-F on the refined warm-up step\'s block 0: {dirs.shape[0]} rays '
+          f'({int((near >= far).sum())} of them outside the box), {n} '
+          f'samples ({int(flat_mask.sum())} active)', flush=True)
+    no_tf32()
+    with torch.no_grad():
+        idx_k, idx_p = nn_idx(pts, verts), nn_idx_plain(pts, verts)
+    same = bool(torch.equal(idx_k, idx_p))
+    print(f'A knn (refined, {n} samples): indices equal at every point '
+          f'{same} ({int((idx_k != idx_p).sum())} differ)', flush=True)
+    check(same, 'knn kernel disagrees with its plain version (refined)')
+    del idx_k, idx_p
+    knn_sweep(f'A/K knn (refined, {n} samples)', pts, verts, card)
+    with torch.no_grad():
+        wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
+    no_tf32()
+    check_corr(cfg, frame, SimpleNamespace(smpl=smpl), pts, flat_mask, wts,
+               bs, card)
+    del pts, flat_mask
+    for i, (a, k, _) in enumerate(seen['shade'][:2]):
+        no_tf32()
+        compare_shade(f'C shade (refined, call {i}, bf16={k["bf16"]})', a[0],
+                      a[1], k['bf16'])
+    a, k, _ = seen['color_fwd'][0]
+    no_tf32()
+    compare_color_fwd(f'D color_fwd (refined, bf16={k["bf16"]}, feats '
+                      f'{a[3].dtype})', *a[:5], k['skips'], k['bf16'])
+    fd = SimpleNamespace(frame=frame, smpl=smpl)
+    inp = SimpleNamespace(cam_loc=cam, ray_dirs=dirs, near=near, far=far)
+    no_tf32()
+    check_march(cfg, fd, inp, gen, card, tag='E march (refined) ')
+    no_tf32()
+    check_iso(cfg, make_skin_fn(params, cfg), wts, bs, fd, inp, gen, card,
+              train=True, tag='F iso (refined) ')
+
+
+def off_box_step(s, state, draws, card):
+    """One refined step on `s.batch` with each block's patch re-centred
+    on the top corner of its frame's box, so that many of its rays miss
+    the box, as a patch of the dataset's can at the body's edge: the loss
+    and every gradient must stay finite, the perceptual loss > 0."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.scene import append_patch
+    from arah_tpu_torch.train.optim import tree_leaves_with_path
+    from arah_tpu_torch.utils.tree import tree_map
+    b_, B = s.batch, s.batch.ray_dirs.shape[0]
+    n = s.loss_w.n_ray_loss
+    base = b_._replace(**{k: getattr(b_, k)[:, :n] for k in (
+        'ray_dirs', 'near', 'far', 'rgb_gt', 'body_mask', 'uv')})
+    fds = [tree_map(lambda a, _b=b: a[_b], b_.frame) for b in range(B)]
+    off = append_patch(base, np.random.RandomState(5), s.loss_w.patch_size,
+                       fds, aims=b_.frame.bounds_max)
+    miss = [int((off.near[b, n:] >= off.far[b, n:]).sum()) for b in range(B)]
+    state, losses = s.step(state, off, draws)
+    torch.cuda.synchronize()
+    bad = [p for p, v in tree_leaves_with_path(s.params)
+           if v.grad is not None and not bool(torch.isfinite(v.grad).all())]
+    print(f'refined step with each patch on its box\'s corner ({miss} patch '
+          f'rays outside the box): losses '
+          f'{ {k: round(float(v), 6) for k, v in losses.items()} }; leaves '
+          f'with a non-finite gradient {len(bad)} [{card}]', flush=True)
+    check(all(m > 0 for m in miss), 'off-box step: no patch ray outside '
+          'the box')
+    check(all(bool(torch.isfinite(v)) for v in losses.values()) and not bad
+          and float(losses['perceptual_loss']) > 0,
+          f'off-box step: losses {losses}, non-finite gradients at {bad}')
+    return state
+
+
 def rel_stats(k, p):
     """(median, p99.9, max) of |k - p| over p's largest magnitude."""
     import torch
@@ -2421,16 +2596,18 @@ def run_train(cfg, params, fd, card, no_tf32):
     return records, launches
 
 
-def compare_train_steps(cfg, p0, batch, loss_w, draws, card, no_tf32):
+def compare_train_steps(cfg, p0, batch, loss_w, draws, card, no_tf32,
+                        step_kw=None, tag_step='train step'):
     """One step with every kernel against one with every plain path
     (splits off on both sides), from the same parameters `p0`, batch and
-    draws. Every loss term within 1e-2 of its magnitude (+1e-6); the
+    draws; `step_kw` are make_train_step's options (the refined step's). Every loss term within 1e-2 of its magnitude (+1e-6); the
     median and the least per-leaf gradient cosine >= 0.99 over leaves
     with a gradient on both sides (the bf16 rounding points differ:
     autograd of the plain
     forward rounds elsewhere, and Broyden may move a few samples to
     another root); the loss finite, every non-frozen group moved and no
-    frozen leaf moved."""
+    frozen leaf moved. Returns {tag: {path: gradient}} for the
+    refined step's own checks."""
     import numpy as np
     import torch
     from arah_tpu_torch.parallel.train_step import (TrainState,
@@ -2444,7 +2621,7 @@ def compare_train_steps(cfg, p0, batch, loss_w, draws, card, no_tf32):
         no_tf32()
         p = trainable(p0)
         opt, labels = make_optimizer(OptimConfig(train_skinning_net=True), p)
-        step = make_train_step(c, loss_w, opt)
+        step = make_train_step(c, loss_w, opt, **(step_kw or {}))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2461,7 +2638,7 @@ def compare_train_steps(cfg, p0, batch, loss_w, draws, card, no_tf32):
                        leaves.items(),
                        (x for _, x in tree_leaves_with_path(p0)))},
             labels=labels)
-        print(f'train step with the {tag} (splits off): {ms:.1f} ms, peak '
+        print(f'{tag_step} with the {tag} (splits off): {ms:.1f} ms, peak '
               f'memory {peak:.2f} GiB, loss {res[tag]["losses"]["loss"]:.6f} '
               f'[{card}]', flush=True)
         del p, opt, step
@@ -2492,10 +2669,10 @@ def compare_train_steps(cfg, p0, batch, loss_w, draws, card, no_tf32):
           f'(bound >= 0.99) at {lo[1]}; loss terms worst relative |d| '
           f'{worst_term:.3e} (bound 1e-2)', flush=True)
     check(not bad_terms and med >= 0.99 and lo[0] >= 0.99,
-          f'train step: kernels disagree with the plain paths {bad_terms}')
+          f'{tag_step}: kernels disagree with the plain paths {bad_terms}')
     for tag, r in res.items():
         check(np.isfinite(r['losses']['loss']),
-              f'train step ({tag}): loss not finite')
+              f'{tag_step} ({tag}): loss not finite')
         groups = {}
         for path, label in r['labels'].items():
             groups.setdefault(label, []).append(r['moved'][path])
@@ -2507,8 +2684,136 @@ def compare_train_steps(cfg, p0, batch, loss_w, draws, card, no_tf32):
               f'{len(groups.get("frozen", []))} of which moved '
               f'{frozen_moved}', flush=True)
         check(not still and frozen_moved == 0,
-              f'train step ({tag}): groups that did not move {still}, '
+              f'{tag_step} ({tag}): groups that did not move {still}, '
               f'frozen leaves that moved {frozen_moved}')
+    return {tag: dict(r, grads={k: None if g is None else g.detach()
+                                for k, g in r['grads'].items()})
+            for tag, r in res.items()}
+
+
+# the refinement leaves; JAX gives the last two no gradient: they reach
+# the loss only through the tracer, which runs without gradients (and
+# the 'latent' colour pose encoder reads no joint position)
+REFINE_MOVED = (('smpl_params', 'root_orient'), ('smpl_params', 'pose_body'),
+                ('smpl_params', 'pose_hand'), ('betas',), ('cam_rots',))
+REFINE_STILL = (('smpl_params', 'trans'), ('cam_trans',))
+
+
+def run_refined(cfg, params, fd, card, no_tf32, train_launches):
+    """Step 7 of the module docstring. Returns the counted step's
+    launches."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.data.batch import draw_train_draws
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.parallel.train_step import trainable
+    from arah_tpu_torch.scene import PATCH, build_train_setup
+
+    dev = fd.verts_cano.device
+    s = build_train_setup(cfg, RAYS, scene=(params, fd), refined=True)
+    B, R = s.batch.ray_dirs.shape[:2]
+    rng = np.random.RandomState(4)
+    draws = [draw_train_draws(rng, cfg, B, R, dev) for _ in range(2 + STEPS)]
+    labels = [{int(k): int(v) for k, v in zip(*s.batch.body_mask[b, RAYS:]
+                                               .unique(return_counts=True))}
+              for b in range(B)]
+    miss = [int((s.batch.near[b, RAYS:] >= s.batch.far[b, RAYS:]).sum())
+            for b in range(B)]
+    print(f'refined setup: flagship, {B} blocks of {RAYS} loss rays and one '
+          f'{PATCH}x{PATCH} patch ({R} rays, {R * 64:,} samples a block), '
+          f'block b on pose b (latent rows {s.batch.latent_idx.tolist()}); '
+          f'patch mask labels {labels}, patch rays outside the box {miss}; '
+          f'refine_smpl and refine_cameras on; {s.loss_w}', flush=True)
+
+    no_tf32()
+    with capture_train_kernels() as calls, capture_trace() as seen:
+        state, losses = s.step(s.state, s.batch, draws[0])  # warm-up
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(losses['loss'])), 'refined warm-up step: '
+          'loss not finite')
+    p0 = trainable(s.params)
+    check_block_kernels(cfg, p0, seen, card, no_tf32)
+    del seen
+    torch.cuda.empty_cache()
+    # G, H and I on the first block's inputs: 671,744 points, ten full
+    # workspace chunks of H and I (65,536 points) and a part of one
+    print(f'  G, H and I on the refined warm-up step\'s block 0 (timed, '
+          f'{calls["skin_jac"][0][0].shape[0]} points):', flush=True)
+    no_tf32()
+    g = check_skin_jac(calls['skin_jac'][0], card)
+    print(f'  kernel {g["ms"]:.3f} ms, plain {g["plain_ms"]:.3f} ms, bound '
+          f'{g["bound"][0]:.4f} ms ({g["bound"][1]}) [{card}]', flush=True)
+    no_tf32()
+    check_shade_bwd(max(calls['shade_bwd'], key=lambda a: a[1].shape[0]),
+                    card, 5e-3)
+    no_tf32()
+    check_color_bwd(calls['color_bwd'][0], card, 5e-3)
+    del calls
+    torch.cuda.empty_cache()
+
+    no_tf32()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(1 + STEPS):
+        if i == 0:
+            _build.reset_counts()
+        t0 = time.perf_counter()
+        state, losses = s.step(state, s.batch, draws[1 + i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = dict(_build.COUNTS)
+        check(bool(torch.isfinite(losses['loss'])),
+              f'refined step {i}: loss not finite')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(times))
+    print(f'refined main path: {1 + STEPS} steps of {B} blocks x {R} rays: '
+          f'median {ms:.1f} ms/step (min {min(times):.1f}, max '
+          f'{max(times):.1f}; {[round(v, 1) for v in times]}), '
+          f'{B * R / (ms / 1e3):.0f} rays/s, peak memory {peak:.2f} GiB; '
+          f'losses { {k: round(float(v), 6) for k, v in losses.items()} } '
+          f'[{card}]', flush=True)
+    want = {k: B * train_launches[k] for k in TRAIN_KERNELS}
+    got = {k: launches[k] for k in TRAIN_KERNELS}
+    print(f'  launches in the counted refined step {got}; {B} x the '
+          f'one-block step {want}', flush=True)
+    check(got == want, f'refined step: launches {got}, expected {want}')
+    check(float(losses['perceptual_loss']) > 0,
+          'refined step: perceptual loss not > 0')
+    profile_frame(lambda: s.step(state, s.batch, draws[1]), ms, card,
+                  tag='one refined step')
+    state = off_box_step(s, state, draws[2], card)
+    batch, loss_w, opts = s.batch, s.loss_w, s.step_options
+    del state, s
+    torch.cuda.empty_cache()
+
+    res = compare_train_steps(cfg, p0, batch, loss_w, draws[0], card,
+                              no_tf32, step_kw=opts,
+                              tag_step='refined step')
+    for tag, r in res.items():
+        v = r['losses']['perceptual_loss']
+        check(np.isfinite(v) and v > 0,
+              f'refined step ({tag}): perceptual loss {v}')
+
+    def grad(tag, path):
+        g = res[tag]['grads'][path]
+        return torch.zeros(1, device=dev) if g is None else g
+    for path in REFINE_MOVED + REFINE_STILL:
+        gk, gp = grad('kernels', path), grad('plain', path)
+        nk, npl = float(gk.norm()), float(gp.norm())
+        cos = float((gk * gp).sum()) / (nk * npl) if nk and npl else 0.0
+        print(f'  refinement leaf {".".join(path)}: |grad| kernels {nk:.4e}, '
+              f'plain {npl:.4e}, cosine {cos:.6f}', flush=True)
+        if path in REFINE_MOVED:
+            check(nk > 0 and npl > 0 and cos >= 0.99,
+                  f'refined step: leaf {path} gradient {nk} / {npl}, '
+                  f'cosine {cos}')
+        else:
+            check(nk == 0 and npl == 0,
+                  f'refined step: leaf {path} has a gradient ({nk} / '
+                  f'{npl}); JAX gives it none')
+    return launches
 
 
 if __name__ == '__main__':

@@ -333,8 +333,8 @@ def test_training_is_a_later_slice(rng):
     """Training renders on the CPU (the train step is ported): with its
     draws, `render(training=True)` returns the training keys, finite;
     without them it and training-mode sampling refuse. What is still a
-    later slice of the port raises: the sharded step (`mesh=`) and SMPL
-    refinement (`refine_smpl=`)."""
+    later slice of the port raises: the sharded step (`mesh=`); SMPL
+    refinement (`refine_smpl=`) without an SMPL model is refused."""
     from arah_tpu_torch.data.batch import draw_train_draws
     from arah_tpu_torch.parallel.train_step import make_train_step, trainable
     from arah_tpu_torch.render.ray_tracing import sample_z_vals
@@ -364,6 +364,7 @@ def test_training_is_a_later_slice(rng):
     with pytest.raises(ValueError):
         sample_z_vals(pcfg.tracer, z > 0, z, z * 0, z * 2, eval_mode=False)
     opt, _ = make_optimizer(OptimConfig(), pp)
-    for kw in ({'mesh': object()}, {'refine_smpl': True}):
-        with pytest.raises(NotImplementedError):
-            make_train_step(pcfg, LossWeights(), opt, **kw)
+    with pytest.raises(NotImplementedError):
+        make_train_step(pcfg, LossWeights(), opt, mesh=object())
+    with pytest.raises(ValueError, match='smpl_model'):
+        make_train_step(pcfg, LossWeights(), opt, refine_smpl=True)

@@ -29,8 +29,8 @@ import pytest
 import torch
 
 from test_renderer import small_config
-from torch_port_util import (jax_draws, jax_scene, port_batch, port_cfg,
-                             port_params)
+from torch_port_util import (check_step_vs_jax, jax_draws, jax_scene,
+                             port_batch, port_cfg, port_params)
 
 torch.set_num_threads(2)
 
@@ -100,47 +100,7 @@ def _check_step(cfg, monkeypatch, force):
                            opt)
     _, pl = step(TrainState(pp, opt, 0), port_batch(batch),
                  jax_draws(cfg, key, 1, R))
-    assert set(pl) == set(jl)
-    for k in jl:
-        a, b = float(pl[k]), float(jl[k])
-        assert np.isfinite(a)
-        assert abs(a - b) <= 1e-3 * max(abs(a), abs(b)) + 1e-6, (k, a, b)
-
-    jgrads = jax.tree_util.tree_leaves_with_path(jg)
-    jparams = jax.tree_util.tree_leaves(jnew)
-    pleaves = list(tree_leaves_with_path(pp))
-    assert len(jgrads) == len(pleaves) == len(jparams)
-    worst = []
-    for (jpath, g), (path, leaf), jn in zip(jgrads, pleaves, jparams):
-        assert tuple(getattr(k, 'key', getattr(k, 'idx', None))
-                     for k in jpath) == path
-        g = np.asarray(g)
-        pg = np.zeros_like(g) if leaf.grad is None else leaf.grad.numpy()
-        assert pg.shape == g.shape, path
-        scale = np.abs(g).max()
-        if scale > 0:
-            rel = np.abs(pg - g).max() / scale
-            cos = float((pg * g).sum() / (np.linalg.norm(pg)
-                                          * np.linalg.norm(g)))
-            assert rel < 1e-2 and cos >= 0.999, (path, rel, cos)
-            worst.append(rel)
-        else:
-            assert np.abs(pg).max() <= 1e-6, path
-        b0 = before[path].numpy()
-        du_p = leaf.detach().numpy() - b0
-        du_j = np.asarray(jn) - b0
-        if labels[path] == 'frozen':
-            np.testing.assert_array_equal(leaf.detach().numpy(), b0)
-            np.testing.assert_array_equal(du_j, 0.0)
-            continue
-        umax = np.abs(du_j).max()
-        if umax > 0:
-            signal = np.abs(g) > 1e-3 * scale
-            bad = (np.abs(du_p - du_j) > 1e-2 * umax) & signal
-            assert not bad.any(), (path, int(bad.sum()))
-        else:
-            assert np.abs(du_p).max() <= 1e-9, path
-    assert worst and float(np.median(worst)) < 1e-4, np.median(worst)
+    check_step_vs_jax(jl, jg, jnew, pl, pp, before, labels)
 
 
 @pytest.mark.parametrize('split', [False, True])

@@ -121,7 +121,9 @@ def port_batch(jbatch):
         if f == 'frame':
             kw[f] = port_frame_data(v)
         elif f == 'latent_idx':
-            kw[f] = int(v)
+            a = np.asarray(v)
+            kw[f] = int(a) if a.ndim == 0 else torch.as_tensor(
+                a, dtype=torch.int32)
         else:
             a = np.asarray(v)
             kw[f] = torch.as_tensor(a, dtype=torch.int32 if a.dtype.kind
@@ -148,3 +150,157 @@ def jax_draws(cfg, key, n_blocks, n_rays):
                     - 0.5) * 2.0)
     return TrainDraws(*(t(np.stack([np.asarray(a) for a in x]))
                         for x in (u1, u2, u3, eik)))
+
+
+def check_step_vs_jax(jl, jg, jnew, pl, pp, before, labels):
+    """One port train step against the JAX step on the same parameters,
+    batch and draws. jl, jg, jnew: the JAX losses, gradients and
+    parameters after the update; pl: the port's losses; pp: the port's
+    parameters after its step (their `.grad` the step's gradients);
+    before: the port's leaves before the step by path; labels: the
+    optimizer's group of each path. Tolerances as `test_torch_train_step`
+    states them. Returns {path: (port gradient, JAX gradient)}."""
+    from arah_tpu_torch.train.optim import tree_leaves_with_path
+    assert set(pl) == set(jl)
+    for k in jl:
+        a, b = float(pl[k]), float(jl[k])
+        assert np.isfinite(a)
+        assert abs(a - b) <= 1e-3 * max(abs(a), abs(b)) + 1e-6, (k, a, b)
+
+    jgrads = jax.tree_util.tree_leaves_with_path(jg)
+    jparams = jax.tree_util.tree_leaves(jnew)
+    pleaves = list(tree_leaves_with_path(pp))
+    assert len(jgrads) == len(pleaves) == len(jparams)
+    worst, grads = [], {}
+    for (jpath, g), (path, leaf), jn in zip(jgrads, pleaves, jparams):
+        assert tuple(getattr(k, 'key', getattr(k, 'idx', None))
+                     for k in jpath) == path
+        g = np.asarray(g)
+        pg = np.zeros_like(g) if leaf.grad is None else leaf.grad.numpy()
+        assert pg.shape == g.shape, path
+        grads[path] = (pg, g)
+        scale = np.abs(g).max()
+        if scale > 0:
+            rel = np.abs(pg - g).max() / scale
+            cos = float((pg * g).sum() / (np.linalg.norm(pg)
+                                          * np.linalg.norm(g)))
+            assert rel < 1e-2 and cos >= 0.999, (path, rel, cos)
+            worst.append(rel)
+        else:
+            assert np.abs(pg).max() <= 1e-6, path
+        b0 = before[path].numpy()
+        du_p = leaf.detach().numpy() - b0
+        du_j = np.asarray(jn) - b0
+        if labels[path] == 'frozen':
+            np.testing.assert_array_equal(leaf.detach().numpy(), b0)
+            np.testing.assert_array_equal(du_j, 0.0)
+            continue
+        umax = np.abs(du_j).max()
+        if umax > 0:
+            signal = np.abs(g) > 1e-3 * scale
+            bad = (np.abs(du_p - du_j) > 1e-2 * umax) & signal
+            assert not bad.any(), (path, int(bad.sum()))
+        else:
+            assert np.abs(du_p).max() <= 1e-9, path
+    assert worst and float(np.median(worst)) < 1e-4, np.median(worst)
+    return grads
+
+
+# the refinement leaves with a gradient in JAX's step, and the two without
+# (they reach the loss only through the tracer, which runs without
+# gradients, and the 'latent' colour pose encoder reads no joint position)
+MOVED = (('smpl_params', 'root_orient'), ('smpl_params', 'pose_body'),
+         ('smpl_params', 'pose_hand'), ('betas',), ('cam_rots',))
+STILL = (('smpl_params', 'trans'), ('cam_trans',))
+
+
+def port_smpl(jmodel):
+    """A JAX SmplModel -> the port's, on the CPU."""
+    from arah_tpu_torch.core.smpl import SmplModel, smpl_to_device
+    return smpl_to_device(SmplModel(*(np.asarray(a) for a in jmodel)),
+                          'cpu')
+
+
+def jax_step(cfg, params, batch, loss_w, key, n_blocks, **opts):
+    """(losses, gradients, parameters after one update) of the JAX step
+    with the options `opts` of `make_train_step` (smpl_model,
+    refine_smpl, refine_cameras, per_block_frame): its loss, the mean
+    over blocks of `_block_loss` with the step's split of `key` and its
+    perceptual loss, under `jax.value_and_grad`; then one update of the
+    flagship optimizer groups."""
+    import optax
+    from arah_tpu.parallel.train_step import _block_loss
+    from arah_tpu.train.optim import OptimConfig, make_optimizer
+    from arah_tpu.utils.lpips_jax import make_perceptual_loss
+    per_block = opts.get('per_block_frame', False)
+    perceptual_fn = make_perceptual_loss() if loss_w.perceptual > 0 \
+        else None
+
+    def loss_fn(p):
+        keys = jax.random.split(key, n_blocks)
+        ls = []
+        for b in range(n_blocks):
+            idx = batch.latent_idx[b] if per_block else batch.latent_idx
+            ls.append(_block_loss(p, cfg, loss_w, batch, p['latent'][idx],
+                                  b, keys[b], perceptual_fn=perceptual_fn,
+                                  **opts))
+        ls = jax.tree.map(lambda *xs: jnp.mean(jnp.stack(xs)), *ls)
+        return ls['loss'], ls
+    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params)
+    opt, _ = make_optimizer(OptimConfig(train_skinning_net=True), params)
+    updates, _ = jax.jit(opt.update)(grads, opt.init(params), params)
+    return losses, grads, optax.apply_updates(params, updates)
+
+
+def port_step(cfg, params, batch, loss_w, key, n_blocks, n_rays, **opts):
+    """The port's step on the JAX step's inputs (its draws replayed from
+    `key`): (losses, parameters after the step, leaves before it by path,
+    the optimizer's labels)."""
+    from arah_tpu_torch.parallel.train_step import (TrainState,
+                                                    make_train_step,
+                                                    trainable)
+    from arah_tpu_torch.train.loss import LossWeights
+    from arah_tpu_torch.train.optim import (OptimConfig, make_optimizer,
+                                            tree_leaves_with_path)
+    pp = trainable(port_params(params))
+    before = {p: l.detach().clone() for p, l in tree_leaves_with_path(pp)}
+    opt, labels = make_optimizer(OptimConfig(train_skinning_net=True), pp)
+    step = make_train_step(port_cfg(cfg), LossWeights(**loss_w._asdict()),
+                           opt, **opts)
+    _, pl = step(TrainState(pp, opt, 0), port_batch(batch),
+                 jax_draws(cfg, key, n_blocks, n_rays))
+    return pl, pp, before, labels
+
+
+def refine_scene(cfg, rng, n_frames):
+    """(JAX SmplModel, params with per-frame SMPL leaves, FrameData of
+    each frame): the synthetic body in n_frames random poses of one
+    shape, the leaves holding those poses."""
+    from arah_tpu.data.synthetic import synthetic_smpl
+    from arah_tpu.model import init_model_params, prepare_frame
+    model = synthetic_smpl(n_verts=512)
+    params = init_model_params(jax.random.PRNGKey(0), cfg,
+                               n_latent_frames=n_frames)
+    betas = jnp.asarray((rng.randn(10) * 0.3).astype(np.float32))
+    poses = (rng.randn(n_frames, 72) * 0.2).astype(np.float32)
+    trans = np.tile(np.asarray([0.1, 0.0, 0.2], np.float32), (n_frames, 1))
+    params['smpl_params'] = {
+        'root_orient': jnp.asarray(poses[:, :3]),
+        'pose_body': jnp.asarray(poses[:, 3:66]),
+        'pose_hand': jnp.asarray(poses[:, 66:]),
+        'trans': jnp.asarray(trans)}
+    params['betas'] = betas
+    fds = [prepare_frame(model, betas, jnp.asarray(p), jnp.asarray(tr))
+           for p, tr in zip(poses, trans)]
+    return model, params, fds
+
+
+def patch_labels(n_blocks, n_loss, ps):
+    """(n_blocks, n_loss + ps * ps) mask labels: 1 on the loss rays; on
+    each block's patch 1, then 100 (boundary, which the RGB loss skips)
+    and 0 (background)."""
+    label = np.ones((n_blocks, n_loss + ps * ps), np.int32)
+    label[:, n_loss + 20:n_loss + 60] = 100
+    label[:, n_loss + 200:] = 0
+    return jnp.asarray(label)
