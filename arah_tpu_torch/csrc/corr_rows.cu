@@ -35,6 +35,31 @@
 // 16. A point that converges, diverges or reaches max_steps
 // writes its outputs (and its own iteration count) and frees its slot, so
 // its values depend neither on its neighbours nor on the launch shape.
+//
+// B's options (the TPU kernel's; variants of shapes 0 and 1, a skinning MLP
+// up to 128 wide):
+// - precision (PM): every skinning layer after the first takes split3 or
+//   bf16 products (tile_mlp.cuh:PREC_*) from the pack's weight halves or
+//   rounded weights (ops/corr.py:pack_corr): split3 splits a layer's input
+//   where it reads it (stream_mlp.cuh:chunk_fma), bf16 rounds it where the
+//   previous layer writes it (run_layer's epilogue).
+// - want_jac (JAC): the exact J = d fwd_skin / d x_hat at each returned
+//   point (the best iterate; x0 for a masked point), written by this
+//   launch in an epilogue: a retiring slot pushes its point and x onto a
+//   per-CTA list of pending points; whenever JT of them wait, the CTA (the
+//   cluster's leader) runs csrc/skin_tangent.cuh's tangent tile on them
+//   (three tangent chains beside the primal, the precision's products
+//   too), using the pass's two activation buffers as its shared memory
+//   (free between a pass's softmax and the next pass) and the pack's
+//   weights from L2; the last ones go when the queue runs dry. A masked
+//   point then takes a slot too, for its one pass (at x0), and retires at
+//   once with x0 and T0. The list and the tile's per-point scratch sit in
+//   dynamic shared memory after the ring (~13 KB at shape 0); the tile
+//   runs on all the CTA's threads.
+// Bound of the want_jac epilogue: operations, the MLP's multiply-adds four
+// times a returned point (G's work, without G's launch or its reads of
+// x_hat).
+#include "skin_tangent.cuh"
 #include "stream_mlp.cuh"
 
 struct CorrArgs {
@@ -49,9 +74,47 @@ struct CorrArgs {
   float *x_out, *t_out;
   unsigned char *valid_out, *active_out;   // active_out may be null (L)
   int* iters_out;         // may be null
+  float* jac_out;         // (n, 9) under want_jac, else null
 };
 
+// want_jac's state of a CTA of shape S, in dynamic shared memory after the
+// ring: the points waiting for their J (index and x) and the tangent
+// tile's scratch; JT points a tile, as many as the pass's activation
+// buffers hold.
 template <class S>
+struct CorrJac {
+  static constexpr int JT =
+      2 * S::ABUF >= sj_act_floats<16>() ? 16 : 8;
+  static_assert(2 * S::ABUF >= sj_act_floats<JT>() && S::NT / JT >= 8
+                && (SJ_MAXW * JT / S::NT) % 4 == 0,
+                "the tangent tile's activations and thread groups");
+  int npend, pt[S::R + JT], masked[S::R];
+  float x[S::R + JT][3];
+  SjScratch<JT> tile;
+};
+
+// J of the last np <= JT pending points of the CTA (all threads call it;
+// the leader CTA of a cluster computes and writes, the others wait at the
+// next cluster barrier).
+template <class S, int PM>
+__device__ void corr_jac_flush(CorrJac<S>& js, int np, float* act,
+                               const float* bones, const CorrArgs& a,
+                               const FrameAffine& fa) {
+  constexpr int JT = CorrJac<S>::JT;
+  const int j = threadIdx.x, base = js.npend - np;
+  if (j < JT * 3) {
+    const int p = j / 3, c = j % 3;
+    js.tile.xs[p][c] = p < np ? js.x[base + p][c] : 0.f;
+  }
+  if (j < JT) js.tile.idx[j] = j < np ? js.pt[base + j] : -1;
+  __syncthreads();
+  skin_jac_tile<JT, S::NT, PM, false>(act, nullptr, js.tile, bones, a.P,
+                                      a.m, fa, a.softmax_scale, a.jac_out);
+  if (j == 0) js.npend = base;
+  __syncthreads();
+}
+
+template <class S, int PM, bool JAC>
 __global__ void __launch_bounds__(S::NT, S::MINB)
 corr_kernel(const CorrArgs a) {
   constexpr int R = S::R, C = S::C;
@@ -59,6 +122,8 @@ corr_kernel(const CorrArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* act = smem;                       // [2][MAXW][LDA]
   float* ring = smem + 2 * S::ABUF;        // [ST][KC][CU]
+  // want_jac's state (JAC only), after the ring
+  CorrJac<S>& js = *reinterpret_cast<CorrJac<S>*>(ring + S::RING);
   __shared__ PassTable pt;
   __shared__ float bones[N_BONES * 16];
   __shared__ int s_ray[R], s_new[R], s_it[R], s_init[R];
@@ -78,6 +143,7 @@ corr_kernel(const CorrArgs a) {
   if (j == 0) {
     s_exhausted = 0;
     pass_table(pt, m, true, C, S::KC);
+    if constexpr (JAC) js.npend = 0;
   }
   if constexpr (C > 1) cg::this_cluster().sync();
   else __syncthreads();
@@ -98,7 +164,8 @@ corr_kernel(const CorrArgs a) {
 
   for (;;) {
     // ---- refill: the leader takes the next unmasked points for the empty
-    // slots (masked points keep x0 and T0)
+    // slots (masked points keep x0 and T0; under want_jac they take a slot
+    // too, for their J at x0)
     if (rank == 0 && j < R && s_ray[j] < 0) {
       int r = -1;
       while (!*(volatile int*)&s_exhausted) {
@@ -107,7 +174,7 @@ corr_kernel(const CorrArgs a) {
           s_exhausted = 1;
           break;
         }
-        if (a.mask[c]) {
+        if (JAC || a.mask[c]) {
           r = c;
           break;
         }
@@ -130,6 +197,7 @@ corr_kernel(const CorrArgs a) {
         for (int c = 0; c < 16; ++c) s_topt[j][c] = a.t0[16 * r + c];
         s_init[j] = 1;
         s_it[j] = 0;
+        if constexpr (JAC) js.masked[j] = !a.mask[r];
       }
     }
     if (!__syncthreads_or(j < R && s_ray[j] >= 0)) break;
@@ -145,8 +213,8 @@ corr_kernel(const CorrArgs a) {
         act[cur * S::ABUF + c * S::LDA + j] =
             j < nl ? s_xn[p][c] * fa.nscale + fa.noff[c] : 0.f;
     }
-    const int lg = run_layers<S>(pt, 0, pt.n, act, cur, ring, g, a.P, m,
-                                 a.softmax_scale, rank, nl);
+    const int lg = run_layers<S, PM>(pt, 0, pt.n, act, cur, ring, g, a.P, m,
+                                     a.softmax_scale, rank, nl);
     cur = lg;
     // the hierarchical softmax of a position on one thread, its weights
     // into the free buffer lg ^ 1 (k-major, by position); then the bone
@@ -191,6 +259,12 @@ corr_kernel(const CorrArgs a) {
         s_gnopt[j] = broyden_init(s_T[j], s_gx[j], s_J[j], s_upd[j]);
         s_init[j] = 0;
         done = a.max_steps <= 0;
+        if constexpr (JAC)
+          if (js.masked[j]) {
+            done = true;
+            active = false;
+            s_gnopt[j] = a.cvg;              // never valid
+          }
       } else {
         bool better;
         active = broyden_step(s_J[j], s_gx[j], s_upd[j], s_gnopt[j], better,
@@ -209,6 +283,13 @@ corr_kernel(const CorrArgs a) {
         if (rank == 0)
           write(s_ray[j], s_xopt[j], s_topt[j], s_gnopt[j] < a.cvg, active,
                 s_it[j]);
+        if constexpr (JAC)
+          if (rank == 0) {                 // the leader computes the Js
+            const int k = atomicAdd(&js.npend, 1);
+            js.pt[k] = s_ray[j];
+#pragma unroll
+            for (int c = 0; c < 3; ++c) js.x[k][c] = s_xopt[j][c];
+          }
         s_ray[j] = -1;
       } else {
 #pragma unroll
@@ -218,7 +299,16 @@ corr_kernel(const CorrArgs a) {
         }
       }
     }
+    if constexpr (JAC) {
+      // J of the retired points, JT at a time, in the free activations
+      __syncthreads();
+      while (js.npend >= CorrJac<S>::JT && rank == 0)
+        corr_jac_flush<S, PM>(js, CorrJac<S>::JT, act, bones, a, fa);
+    }
   }
+  if constexpr (JAC)
+    if (rank == 0 && js.npend > 0)
+      corr_jac_flush<S, PM>(js, js.npend, act, bones, a, fa);
   cp_async_wait_all();
   if constexpr (C > 1) cg::this_cluster().sync();
 }
@@ -233,18 +323,43 @@ using CorrShape0 = TileShape<128, 512, 1, 32, 1, 2, 128, 4>;
 using CorrShape1 = TileShape<16, 256, 2, 64, 2, 3, 128>;
 using CorrShape2 = TileShape<64, 512, 1, 32, 1, 2>;
 
-template <class S>
+template <class S, int PM, bool JAC>
 static int corr_launch(const CorrArgs& a, cudaStream_t st, int* shape,
                        bool run) {
-  return launch_tile<S>(corr_kernel<S>, a, a.n, true, st, shape, run);
+  return launch_tile<S>(corr_kernel<S, PM, JAC>, a, a.n, true, st, shape,
+                        run, JAC ? sizeof(CorrJac<S>) : 0);
 }
 
-static int corr_dispatch(int variant, const CorrArgs& a, cudaStream_t st,
-                         int* shape, bool run) {
+// A launch shape's variants: its precision and want_jac (ops/corr.py:
+// VARIANTS: both on shapes 0 and 1).
+template <class S>
+static int corr_options(int prec, bool jac, const CorrArgs& a,
+                        cudaStream_t st, int* shape, bool run) {
+  switch (prec * 2 + (int)jac) {
+    case 0: return corr_launch<S, PREC_F32, false>(a, st, shape, run);
+    case 1: return corr_launch<S, PREC_F32, true>(a, st, shape, run);
+    case 2: return corr_launch<S, PREC_SPLIT3, false>(a, st, shape, run);
+    case 3: return corr_launch<S, PREC_SPLIT3, true>(a, st, shape, run);
+    case 4: return corr_launch<S, PREC_BF16, false>(a, st, shape, run);
+    case 5: return corr_launch<S, PREC_BF16, true>(a, st, shape, run);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// A launch shape without the options (a skinning MLP wider than 128).
+template <class S>
+static int corr_f32_only(int prec, bool jac, const CorrArgs& a,
+                         cudaStream_t st, int* shape, bool run) {
+  if (prec != PREC_F32 || jac) return (int)cudaErrorInvalidValue;
+  return corr_launch<S, PREC_F32, false>(a, st, shape, run);
+}
+
+static int corr_dispatch(int variant, int prec, bool jac, const CorrArgs& a,
+                         cudaStream_t st, int* shape, bool run) {
   switch (variant) {
-    case 0: return corr_launch<CorrShape0>(a, st, shape, run);
-    case 1: return corr_launch<CorrShape1>(a, st, shape, run);
-    case 2: return corr_launch<CorrShape2>(a, st, shape, run);
+    case 0: return corr_options<CorrShape0>(prec, jac, a, st, shape, run);
+    case 1: return corr_options<CorrShape1>(prec, jac, a, st, shape, run);
+    case 2: return corr_f32_only<CorrShape2>(prec, jac, a, st, shape, run);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -253,23 +368,25 @@ static int corr_dispatch(int variant, const CorrArgs& a, cudaStream_t st,
 extern "C" int arah_corr_shape(int variant, int n, int* shape) {
   CorrArgs a = {};
   a.n = n;
-  return corr_dispatch(variant, a, 0, shape, false);
+  return corr_dispatch(variant, PREC_F32, false, a, 0, shape, false);
 }
 
 // B (active != null) and L (active == null). `params`: the skinning
 // blocks of ops/march.py:pack_trace (each layer's (in, pad32(out))
 // transposed weights and padded bias, 16-byte aligned); the pack's SIREN,
-// if any, is not read. `counters`: 2 ints of scratch (zeroed here);
-// `iters_out` may be null.
+// if any, is not read; under a precision other than f32 (`prec`: PREC_*)
+// it is ops/corr.py:pack_corr's at that precision. `counters`: 2 ints of
+// scratch (zeroed here); `iters_out` may be null; `jac_out` (n, 9), null
+// without want_jac.
 extern "C" int arah_corr(const float* xbar, const float* x0, const float* t0,
                          const unsigned char* mask, int n,
                          const float* bones16, const float* frame,
                          const float* params, NetMeta m, int max_steps,
                          float cvg, float dvg, float eps, float softmax_scale,
-                         int variant, int* counters, float* x_out,
+                         int variant, int prec, int* counters, float* x_out,
                          float* t_out, unsigned char* valid,
                          unsigned char* active, int* iters_out,
-                         void* stream) {
+                         float* jac_out, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(counters, 0, 2 * sizeof(int), st);
@@ -277,6 +394,7 @@ extern "C" int arah_corr(const float* xbar, const float* x0, const float* t0,
   m.n_layers = 0;                          // the corr pass: skinning only
   CorrArgs a = {xbar, x0, t0, mask, n, bones16, frame, params, m, max_steps,
                 cvg, dvg, eps, softmax_scale, counters, x_out, t_out, valid,
-                active, iters_out};
-  return corr_dispatch(variant, a, st, nullptr, true);
+                active, iters_out, jac_out};
+  return corr_dispatch(variant, prec, jac_out != nullptr, a, st, nullptr,
+                       true);
 }

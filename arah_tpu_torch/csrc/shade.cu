@@ -32,11 +32,15 @@
 //   algebra of unit j over the tile's points in f32 (bias, FiLM, sincosf,
 //   30 f cos) and rounds at the plain version's places: r(h), r(g * df).
 // - The residents. The df = 30 f cos(30 u) factors of sine layers 0..L-3
-//   stay in shared memory (16 KB a layer at H = 256, f32: the TPU kernel's
-//   resid_bf16 is off), each in column j, written and read back by thread
-//   j only. The last sine layer's factor meets its reverse seed right away:
-//   a_{L-2} = r(W_{L-1}[0] * df_{L-2}) waits in thread j's registers while
-//   the output layer reads h_{L-1} from the rows.
+//   stay in shared memory (16 KB a layer at H = 256 in f32), each in
+//   column j, written and read back by thread j only. The last sine
+//   layer's factor meets its reverse seed right away: a_{L-2} =
+//   r(W_{L-1}[0] * df_{L-2}) waits in thread j's registers while the
+//   output layer reads h_{L-1} from the rows.
+// - resid (the TPU kernel's resid_bf16, RES): every df is stored in bf16
+//   (8 KB a layer), the last one rounded too, as the TPU kernel's `st`
+//   stores them; the forward chain, so the SDF and the features, keeps
+//   its f32 bits, and only the normal moves.
 // The features are stored in bf16 under bf16_shading (the eval path's
 // dtype), or in f32 when `feat_f32` asks (the training op,
 // ops/shade_grad.py, as the JAX training op returns them).
@@ -50,7 +54,8 @@
 static_assert(SHADE_TILE % 16 == 0, "prod_mma: whole 16-point fragments");
 
 // BF: the bf16_shading launch (tensor-core products); otherwise f32.
-template <bool BF>
+// RES: the residents in bf16.
+template <bool BF, bool RES>
 __global__ void __launch_bounds__(SHADE_THREADS, 2)   // two blocks an SM
 shade_kernel(const float* __restrict__ x_g, int n,
              const float* __restrict__ P,
@@ -62,7 +67,8 @@ shade_kernel(const float* __restrict__ x_g, int n,
   const int NL = L - 1;                        // sine layers
   const bool film = m.film != 0;
   float* rows = smem;                          // [TILE][LD]
-  float* dfs = smem + SHADE_TILE * SHADE_LD;   // [NL-1][TILE][H]
+  ResT<RES>* dfs = reinterpret_cast<ResT<RES>*>(
+      smem + SHADE_TILE * SHADE_LD);           // [NL-1][TILE][H]
   const int j = threadIdx.x;
   const bool act = j < H;
   const int p0 = blockIdx.x * SHADE_TILE;
@@ -96,7 +102,7 @@ shade_kernel(const float* __restrict__ x_g, int n,
       const float cf = film ? 30.f * f : 30.f;
       const float g_top = __ldg(P + m.w_off[L - 1] + j);
       const bool top = i == NL - 1;
-      float* df = dfs + (long long)i * SHADE_TILE * H;
+      ResT<RES>* df = dfs + (long long)i * SHADE_TILE * H;
 #pragma unroll
       for (int p = 0; p < SHADE_TILE; ++p) {
         float z = rows[p * SHADE_LD + j] + b;
@@ -105,9 +111,9 @@ shade_kernel(const float* __restrict__ x_g, int n,
         sincosf(30.f * z, &s, &c);
         const float d = cf * c;
         if (top)
-          al[p] = rnd_if(g_top * d, BF);
+          al[p] = rnd_if(g_top * rnd_if(d, RES), BF);
         else
-          df[p * H + j] = d;
+          res_put<RES>(df + p * H + j, d);
         rows[p * SHADE_LD + j] = rnd_if(s, BF);
         if (top && p0 + p < n) {
           const long long o = (long long)(p0 + p) * H + j;
@@ -150,11 +156,12 @@ shade_kernel(const float* __restrict__ x_g, int n,
     else
       prod_fma<SHADE_TILE>(rows, SHADE_LD, H, P + m.w_off[i], H, H);
     if (act) {
-      const float* df = dfs + (long long)(i - 1) * SHADE_TILE * H;
+      const ResT<RES>* df = dfs + (long long)(i - 1) * SHADE_TILE * H;
 #pragma unroll
-      for (int p = 0; p < SHADE_TILE; ++p)
-        rows[p * SHADE_LD + j] =
-            rnd_if(rows[p * SHADE_LD + j] * df[p * H + j], BF);
+      for (int p = 0; p < SHADE_TILE; ++p) {
+        const float dv = res_get<RES>(df + p * H + j);
+        rows[p * SHADE_LD + j] = rnd_if(rows[p * SHADE_LD + j] * dv, BF);
+      }
     }
     __syncthreads();
   }
@@ -162,11 +169,28 @@ shade_kernel(const float* __restrict__ x_g, int n,
                       grad_out);
 }
 
-// Shared memory of a block: the rows, then the df of sine layers 0..L-3.
+// Shared memory of a block: the rows, then the df of sine layers 0..L-3
+// (bf16 under resid).
 static size_t shade_smem(const ShadeMeta& m) {
-  return ((size_t)SHADE_TILE * SHADE_LD
-          + (size_t)(m.n_layers - 2) * SHADE_TILE * m.hidden)
-         * sizeof(float);
+  return (size_t)SHADE_TILE * SHADE_LD * sizeof(float)
+         + (size_t)(m.n_layers - 2) * SHADE_TILE * m.hidden
+               * (m.resid ? sizeof(__nv_bfloat16) : sizeof(float));
+}
+
+template <bool BF, bool RES>
+static int shade_launch(const float* x, int n, const float* params,
+                        const __nv_bfloat16* wb, const ShadeMeta& m,
+                        float* sdf, void* feat, int feat_f32, float* grad,
+                        cudaStream_t st) {
+  const size_t smem = shade_smem(m);
+  const cudaError_t e = cudaFuncSetAttribute(
+      shade_kernel<BF, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + SHADE_TILE - 1) / SHADE_TILE;
+  shade_kernel<BF, RES><<<blocks, SHADE_THREADS, smem, st>>>(
+      x, n, params, wb, m, sdf, feat, feat_f32, grad);
+  return launch_status();
 }
 
 // Bytes of dynamic shared memory a block of kernel C takes for m.
@@ -182,25 +206,15 @@ extern "C" int arah_shade(const float* x, int n, const float* params,
                           void* feat, int feat_f32, float* grad,
                           void* stream) {
   if (n <= 0) return 0;
-  const size_t smem = shade_smem(m);
-  const int blocks = (n + SHADE_TILE - 1) / SHADE_TILE;
   const cudaStream_t st = (cudaStream_t)stream;
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wbf16);
-  cudaError_t e;
-  if (m.bf16) {
-    e = cudaFuncSetAttribute(shade_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    shade_kernel<true><<<blocks, SHADE_THREADS, smem, st>>>(
-        x, n, params, wb, m, sdf, feat, feat_f32, grad);
-  } else {
-    e = cudaFuncSetAttribute(shade_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    shade_kernel<false><<<blocks, SHADE_THREADS, smem, st>>>(
-        x, n, params, wb, m, sdf, feat, feat_f32, grad);
-  }
-  return launch_status();
+  if (m.bf16)
+    return m.resid ? shade_launch<true, true>(x, n, params, wb, m, sdf, feat,
+                                              feat_f32, grad, st)
+                   : shade_launch<true, false>(x, n, params, wb, m, sdf,
+                                               feat, feat_f32, grad, st);
+  return m.resid ? shade_launch<false, true>(x, n, params, wb, m, sdf, feat,
+                                             feat_f32, grad, st)
+                 : shade_launch<false, false>(x, n, params, wb, m, sdf, feat,
+                                              feat_f32, grad, st);
 }

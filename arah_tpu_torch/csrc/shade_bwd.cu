@@ -20,9 +20,12 @@
 //      dx = hbar.
 // Under bf16_shading every product's operands are rounded to bf16 at the
 // places _shade_bwd_kernel rounds them (_dot, _dot_nt) and accumulated in
-// f32; chain values and residents stay f32. The bf16 residents of the TPU
-// kernel (shade_resid_bf16) are not ported: the C -> H op raises on a CUDA
-// tensor when they are asked for (ops/shade.py:siren_shade).
+// f32; chain values and residents stay f32. Under resid (the TPU kernel's
+// resid_bf16, RES) every value the TPU kernel stores through its `st` is
+// rounded to bf16 where that store is read: h_{i+1} (the workspace rows of
+// dW_{i+1} and, as the features, of dW_{L-1}), cos(30 u), z, 30 f cos, g,
+// a and ubar_c; the running chain (the products' inputs under f32), t and
+// every cotangent product stay f32.
 //
 // Bound on the H100: operations. A point costs ~2.9x C's multiply-adds:
 // the forward and reverse chains again, the adjoint and primal-backward
@@ -51,7 +54,10 @@
 //   per point, unit and sine layer, in a per-block scratch that the block
 //   reuses tile after tile; u, sin(30 u) and cos(30 u) are recomputed from
 //   z by one expression (unit_sc), so every recomputation has the primal
-//   chain's bits.
+//   chain's bits. Under resid g and ubar_c, which the TPU kernel stores in
+//   bf16, are kept in bf16; z stays f32, the source the chain's sines are
+//   recomputed from (the TPU kernel computes them from the f32 z before it
+//   stores any), and is rounded where the TPU kernel reads its z.
 // - The hidden layers' weight gradients: dW_i sums a_i (x) t_i + zbar_i
 //   (x) h_i over all points. Float atomics across blocks would change from
 //   run to run, so the kernel writes each point's four operand rows to a
@@ -95,8 +101,8 @@ __device__ __forceinline__ void unit_sc(float z, float f, float ph,
 }
 
 // BF: the bf16_shading launch (tensor-core products, bf16 workspace rows);
-// otherwise f32 throughout.
-template <bool BF>
+// otherwise f32 throughout. RES: the residents in bf16 (resid).
+template <bool BF, bool RES>
 __global__ void __launch_bounds__(SB_THREADS, 2)
 shade_bwd_kernel(const float* __restrict__ x_g, int n,
                  const float* __restrict__ P,
@@ -117,8 +123,9 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
   float* part = partial + (long long)blockIdx.x * gsize;
   // this block's residents of its current tile: z_i and g_{i+1}, later
   // ubar_c_i, of every sine layer i, point p and unit j
-  float* Zs = scratch + (long long)blockIdx.x * 2 * NL * SB_TILE * H;
-  float* Gs = Zs + (long long)NL * SB_TILE * H;
+  const long long nres = (long long)NL * SB_TILE * H;
+  float* Zs = scratch + blockIdx.x * (RES ? 3 : 4) * (nres / 2);
+  ResT<RES>* Gs = reinterpret_cast<ResT<RES>*>(Zs + nres);
   auto rs = [&](int i, int p) {
     return ((long long)i * SB_TILE + p) * H + j;
   };
@@ -179,7 +186,8 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
           Zs[rs(i, p)] = z;
           const float h = rnd_if(s, BF);
           if (i + 1 < NL && p0 + p < n)   // h_{i+1}: B_{i+1}'s second half
-            put(ws + lay.b[i + 1] + (long long)(n + p0 + p) * H + j, h);
+            put(ws + lay.b[i + 1] + (long long)(n + p0 + p) * H + j,
+                rnd_if(h, RES));
           rows[p * SB_LD + j] = h;
         }
       }
@@ -203,9 +211,12 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
             const float g = i == NL - 1 ? g_top : rows[p * SB_LD + j];
             float s, c;
             unit_sc(zv[q], f, ph, film, s, c);
-            const float a = live ? rnd_if(g * (cf * c), BF) : 0.f;
-            Gs[rs(i, p)] = g;
-            if (live) put(ws + lay.a[i] + (long long)(p0 + p) * H + j, a);
+            const float af = live ? g * rnd_if(cf * c, RES) : 0.f;
+            const float a = rnd_if(af, BF);
+            res_put<RES>(Gs + rs(i, p), g);
+            if (live)
+              put(ws + lay.a[i] + (long long)(p0 + p) * H + j,
+                  rnd_if(a, RES));
             rows[p * SB_LD + j] = a;
           }
         }
@@ -238,7 +249,7 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
 #pragma unroll
           for (int q = 0; q < SB_PF; ++q) {
             zv[q] = Zs[rs(i, q0 + q)];
-            gv[q] = Gs[rs(i, q0 + q)];
+            gv[q] = res_get<RES>(Gs + rs(i, q0 + q));
           }
 #pragma unroll
           for (int q = 0; q < SB_PF; ++q) {
@@ -247,9 +258,10 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
             float s, c;
             unit_sc(zv[q], f, ph, film, s, c);
             const float cbar = gv[q] * abar;
-            if (film) s_fr += (30.f * c) * cbar;
-            Gs[rs(i, p)] = (-900.f * f) * s * cbar;     // ubar_c_i
-            const float tv = (cf * c) * abar;
+            if (film) s_fr += (30.f * rnd_if(c, RES)) * cbar;
+            s = rnd_if(s, RES);
+            res_put<RES>(Gs + rs(i, p), (-900.f * f) * s * cbar);  // ubar_c
+            const float tv = rnd_if(cf * c, RES) * abar;
             if (i == NL - 1) {         // the rows take h_{L-1} for step 4
               st += tv;
               rows[p * SB_LD + j] = s;
@@ -300,17 +312,18 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
 #pragma unroll
           for (int q = 0; q < SB_PF; ++q) {
             zv[q] = Zs[rs(i, q0 + q)];
-            gv[q] = Gs[rs(i, q0 + q)];
+            gv[q] = res_get<RES>(Gs + rs(i, q0 + q));
           }
 #pragma unroll
           for (int q = 0; q < SB_PF; ++q) {
             const int p = q0 + q;
             float s, c;
             unit_sc(zv[q], f, ph, film, s, c);
-            const float ub = (30.f * c) * rows[p * SB_LD + j] + gv[q];
+            const float ub =
+                (30.f * rnd_if(c, RES)) * rows[p * SB_LD + j] + gv[q];
             float zb = ub;
             if (film) {
-              s_fr += zv[q] * ub;
+              s_fr += rnd_if(zv[q], RES) * ub;
               s_ph += ub;
               zb = f * ub;
             }
@@ -340,13 +353,19 @@ shade_bwd_kernel(const float* __restrict__ x_g, int n,
 // The persistent grid for n points: as many blocks as fit on the card at
 // once (more would run after the first ones, each with a share of the
 // tiles), at most one per tile of the first chunk.
+template <bool BF, bool RES>
+static cudaError_t bwd_per_sm(int* per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, shade_bwd_kernel<BF, RES>, SB_THREADS, 0);
+}
+
 extern "C" int arah_shade_bwd_blocks(int n, ShadeMeta m) {
   int per_sm = 0, dev = 0, sms = 0;
   const cudaError_t e =
-      m.bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &per_sm, shade_bwd_kernel<true>, SB_THREADS, 0)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &per_sm, shade_bwd_kernel<false>, SB_THREADS, 0);
+      m.bf16 ? (m.resid ? bwd_per_sm<true, true>(&per_sm)
+                        : bwd_per_sm<true, false>(&per_sm))
+             : (m.resid ? bwd_per_sm<false, true>(&per_sm)
+                        : bwd_per_sm<false, false>(&per_sm));
   if (e != cudaSuccess || cudaGetDevice(&dev) != cudaSuccess
       || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
              != cudaSuccess)
@@ -382,8 +401,11 @@ static long long rows_floats(long long nc, const ShadeMeta& m) {
   return m.bf16 ? e / 2 : e;
 }
 
+// Floats of the blocks' residents: z in f32, g / ubar_c in f32 (bf16, two
+// to a float, under resid).
 static long long scratch_floats(int nblocks, const ShadeMeta& m) {
-  return (long long)nblocks * 2 * (m.n_layers - 1) * SB_TILE * m.hidden;
+  return (long long)nblocks * (m.resid ? 3 : 4)
+         * ((long long)(m.n_layers - 1) * SB_TILE * m.hidden / 2);
 }
 
 // Floats of the workspace for n points on nblocks blocks: one chunk's A and
@@ -426,12 +448,20 @@ extern "C" int arah_shade_bwd(const float* x, int n, const float* params,
     const float* gfc = gfeat + (long long)c0 * H;
     const float* gnc = gn + (long long)c0 * din;
     float* dxc = dx + (long long)c0 * din;
-    if (bf)
-      shade_bwd_kernel<true><<<nblocks, SB_THREADS, 0, st>>>(
+    if (bf && m.resid)
+      shade_bwd_kernel<true, true><<<nblocks, SB_THREADS, 0, st>>>(
           xc, nc, params, wb, m, goc, gfc, gnc, dxc, partial, gm, gsize, wsh,
           lay, scratch);
+    else if (bf)
+      shade_bwd_kernel<true, false><<<nblocks, SB_THREADS, 0, st>>>(
+          xc, nc, params, wb, m, goc, gfc, gnc, dxc, partial, gm, gsize, wsh,
+          lay, scratch);
+    else if (m.resid)
+      shade_bwd_kernel<false, true><<<nblocks, SB_THREADS, 0, st>>>(
+          xc, nc, params, wb, m, goc, gfc, gnc, dxc, partial, gm, gsize, ws,
+          lay, scratch);
     else
-      shade_bwd_kernel<false><<<nblocks, SB_THREADS, 0, st>>>(
+      shade_bwd_kernel<false, false><<<nblocks, SB_THREADS, 0, st>>>(
           xc, nc, params, wb, m, goc, gfc, gnc, dxc, partial, gm, gsize, ws,
           lay, scratch);
     const cudaError_t e = cudaGetLastError();

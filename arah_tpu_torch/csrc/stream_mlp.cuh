@@ -209,8 +209,9 @@ __device__ __forceinline__ void ring_start(float* ring, const PassTable& pt,
 // acc[i][q] += sum over the chunk's rows k, in order, of a[k][i] times
 // the lane's unit q of row k, units VW ul + LG VW v + e of the lane's
 // index ul in its group of LG lanes (a: the lane's first ray position; w:
-// the chunk at the lane's first unit).
-template <class S, int RN, int LG>
+// the chunk at the lane's first unit); SPLIT3: the products of split3
+// (tile_mlp.cuh:split3_fma; the corr pass's layers after the first).
+template <class S, int RN, int LG, bool SPLIT3 = false>
 __device__ __forceinline__ void chunk_fma(float (&acc)[RN][S::UB],
                                           const float* a, const float* w,
                                           int wl, int rows) {
@@ -224,10 +225,21 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[RN][S::UB],
 #pragma unroll
       for (int e = 0; e < S::VW; ++e) wv[S::VW * v + e] = t[e];
     }
+    if constexpr (!SPLIT3) {
 #pragma unroll
-    for (int i = 0; i < RN; ++i)
+      for (int i = 0; i < RN; ++i)
 #pragma unroll
-      for (int q = 0; q < S::UB; ++q) acc[i][q] = fmaf(av[i], wv[q], acc[i][q]);
+        for (int q = 0; q < S::UB; ++q)
+          acc[i][q] = fmaf(av[i], wv[q], acc[i][q]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < RN; ++i) {
+        const float hi = bf16r(av[i]), lo = bf16r(av[i] - hi);
+#pragma unroll
+        for (int q = 0; q < S::UB; ++q)
+          acc[i][q] = split3_fma(wv[q], hi, lo, acc[i][q]);
+      }
+    }
   };
   if (rows == S::KC) {
 #pragma unroll
@@ -243,8 +255,10 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[RN][S::UB],
 // warp's (LG = 32, RN = RB: one group, the warp's RB positions; a layer
 // whose share is at most CU / NG units takes LG = 32 / NG, RN = RB / NG,
 // so no lane computes units past the layer's width). Reads buffer in,
-// writes and returns in ^ 1.
-template <class S, int RN, int LG>
+// writes and returns in ^ 1. PM: the corr pass's precision of every layer
+// but the first (tile_mlp.cuh:PREC_*; E, F and J take f32): split3's
+// products, or bf16's rounded softplus outputs (the next layer's inputs).
+template <class S, int RN, int LG, int PM = PREC_F32>
 __device__ __forceinline__ int run_layer(const PassTable& pt, int l,
                                          float* act, int in, float* ring,
                                          int& g, const float* __restrict__ P,
@@ -266,9 +280,14 @@ __device__ __forceinline__ int run_layer(const PassTable& pt, int l,
     ring_issue<S>(ring, pt, P, g + S::ST - 1, rank);
     const float* ws = ring + (g % S::ST) * (S::KC * S::CU);
     ++g;
-    if (live)
-      chunk_fma<S, RN, LG>(acc, a_in + k0 * S::LDA, ws + S::VW * ul, wl,
-                           min(S::KC, din - k0));
+    if (live) {
+      if (PM == PREC_SPLIT3 && l > 0)
+        chunk_fma<S, RN, LG, true>(acc, a_in + k0 * S::LDA, ws + S::VW * ul,
+                                   wl, min(S::KC, din - k0));
+      else
+        chunk_fma<S, RN, LG>(acc, a_in + k0 * S::LDA, ws + S::VW * ul, wl,
+                             min(S::KC, din - k0));
+    }
   }
   const int out = in ^ 1;
   if (live) {
@@ -292,8 +311,11 @@ __device__ __forceinline__ int run_layer(const PassTable& pt, int l,
         if (kind == EPI_SINE) {
           if (film >= 0) z = f * z + ph;
           v[i] = sinf(30.f * z);
+        } else if (kind == EPI_LOGITS) {
+          v[i] = z * scale;
         } else {
-          v[i] = kind == EPI_LOGITS ? z * scale : softplus100(z);
+          v[i] = softplus100(z);
+          if constexpr (PM == PREC_BF16) v[i] = bf16r(v[i]);
         }
       }
       float* dst = act + out * S::ABUF + u * S::LDA + pos0;
@@ -316,8 +338,8 @@ __device__ __forceinline__ int run_layer(const PassTable& pt, int l,
 // first chunk's barrier); returns the buffer that holds the last layer's
 // output, published to every thread. g: the ring's next chunk. A warp
 // whose positions are all past nl skips the products (the ring still
-// streams every chunk).
-template <class S>
+// streams every chunk). PM: as run_layer's.
+template <class S, int PM = PREC_F32>
 __device__ int run_layers(const PassTable& pt, int l0, int l1, float* act,
                           int in, float* ring, int& g,
                           const float* __restrict__ P, const NetMeta& m,
@@ -325,12 +347,12 @@ __device__ int run_layers(const PassTable& pt, int l0, int l1, float* act,
   for (int l = l0; l < l1; ++l) {
     if constexpr (S::NG > 1)
       if (pt.l[l].wl * S::NG <= S::CU) {
-        in = run_layer<S, S::RBN, 32 / S::NG>(pt, l, act, in, ring, g, P, m,
-                                               scale, rank, nl);
+        in = run_layer<S, S::RBN, 32 / S::NG, PM>(pt, l, act, in, ring, g, P,
+                                                   m, scale, rank, nl);
         continue;
       }
-    in = run_layer<S, S::RB, 32>(pt, l, act, in, ring, g, P, m, scale, rank,
-                                 nl);
+    in = run_layer<S, S::RB, 32, PM>(pt, l, act, in, ring, g, P, m, scale,
+                                     rank, nl);
   }
   if constexpr (S::C == 1) __syncthreads();
   return in;
@@ -400,17 +422,19 @@ __device__ __forceinline__ int scan_lanes(int nl) {
 // as many CTAs (clusters) as fit on the card at once, at most one a
 // ray-slot set's worth of rays; skin: the pass holds the skinning MLP
 // (pass_table). shape (if not null): blocks, cluster size, R, dynamic
-// shared memory a CTA, CTAs resident an SM.
+// shared memory a CTA, CTAs resident an SM. extra: bytes of dynamic shared
+// memory the kernel takes after the pass's (S::smem_bytes()).
 template <class S, class A>
 static int launch_tile(void (*kernel)(A), const A& args, int n, bool skin,
-                       cudaStream_t stream, int* shape, bool run) {
+                       cudaStream_t stream, int* shape, bool run,
+                       size_t extra = 0) {
   // the pass's widest layer fits the shape, and every CTA of a cluster
   // takes whole warps' lanes of each SIREN layer (a skinning layer's
   // width is a multiple of 32: each CTA's share, a multiple of 4 floats)
   const int hidden = args.m.n_layers > 1 ? args.m.hidden : 0;
   if (pass_widest(args.m, skin) > S::MAXW || hidden % (32 * S::C))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = S::smem_bytes();
+  const size_t smem = S::smem_bytes() + extra;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -147,6 +147,28 @@ __device__ __forceinline__ bool broyden_step(float Ji[9], float g[3],
   return active;
 }
 
+// The corr kernel's precisions of the skinning layers after the first
+// (corr_kernel_t.py:layer_dot, precision.py). A product of two bf16 values
+// is exact in f32, so FMAs on the CUDA cores compute the bf16 products.
+// PREC_BF16: the weights are stored rounded (ops/corr.py:pack_corr) and
+// each such layer's input is rounded where it is written (the previous
+// layer's epilogue), so the products run the f32 code. PREC_SPLIT3: each
+// weight's bf16 halves come in one 32-bit word of the pack (hi in the upper
+// 16 bits, so the word's bits with the lower half cleared are hi; lo in the
+// lower 16), the activation is split the same way where it is read, and
+// split3_fma sums hi*hi + hi*lo_act + lo_w*hi in f32.
+enum { PREC_F32 = 0, PREC_SPLIT3 = 1, PREC_BF16 = 2 };
+
+// acc + the split3 product of weight word w and activation halves (hi, lo
+// = bf16(h), bf16(h - hi)).
+__device__ __forceinline__ float split3_fma(float w, float hi, float lo,
+                                            float acc) {
+  const float wh = __uint_as_float(__float_as_uint(w) & 0xffff0000u);
+  acc = fmaf(wh, hi, acc);
+  acc = fmaf(wh, lo, acc);
+  return fmaf(__uint_as_float(__float_as_uint(w) << 16), hi, acc);
+}
+
 // The canonical normalisation and SDF scale of the Pallas kernels:
 // x_norm = x * nscale + noff, metric sdf = raw * mscale
 // (march_kernel.py:56-63, the form of ops/march.py:kernel_affine).

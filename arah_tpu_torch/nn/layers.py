@@ -80,6 +80,51 @@ def wn_linear(params, x, bf16: bool = False):
     return mm_t(x, wn_weight(params), bf16) + params['b']
 
 
+def geometric_init_mlp(gen: torch.Generator, dims, *, skip_in=(),
+                       cond_in=(), cond_dim: int = 0, bias: float = 1.0,
+                       inside_outside: bool = False, multires: int = 0,
+                       weight_norm: bool = True, device='cpu'):
+    """IDR/SAL geometric initialisation of a softplus MLP (`dims` holds
+    the input and output widths), the law of the JAX
+    `geometric_init_mlp`: the last layer's weights ~ sqrt(pi)/sqrt(in)
+    (negated with `inside_outside`) plus N(0, 1e-4) and its bias -bias
+    (+bias with `inside_outside`); hidden weights N(0, 2/out), zero
+    biases; with positional encoding, layer 0 reads only the raw xyz
+    columns and a skip layer's encoding columns start at zero. Returns a
+    list of layer dicts, weight-normed if `weight_norm`."""
+    n_layers = len(dims) - 1
+    layers = []
+    for l in range(n_layers):
+        in_dim = dims[l] + (cond_dim if l in cond_in else 0)
+        out_dim = dims[l + 1] - (dims[0] if l + 1 in skip_in else 0)
+        std = math.sqrt(2) / math.sqrt(out_dim)
+        if l == n_layers - 1:
+            mean = math.sqrt(math.pi) / math.sqrt(in_dim)
+            if inside_outside:
+                mean, b_val = -mean, bias
+            else:
+                b_val = -bias
+            w = _normal(gen, (out_dim, in_dim)) * 1e-4 + mean
+            b = torch.full((out_dim,), float(b_val))
+        elif multires > 0 and l == 0:
+            w = torch.zeros((out_dim, in_dim))
+            w[:, :3] = _normal(gen, (out_dim, 3)) * std
+            b = torch.zeros((out_dim,))
+        else:
+            w = _normal(gen, (out_dim, in_dim)) * std
+            if multires > 0 and l in skip_in:
+                w[:, -(dims[0] - 3):] = 0.0
+            b = torch.zeros((out_dim,))
+        if weight_norm:
+            layers.append({'v': w.to(device),
+                           'g': torch.linalg.norm(w, dim=1,
+                                                  keepdim=True).to(device),
+                           'b': b.to(device)})
+        else:
+            layers.append({'w': w.to(device), 'b': b.to(device)})
+    return layers
+
+
 def softplus100(x: torch.Tensor) -> torch.Tensor:
     """Softplus with beta=100 and the linear region above 20/beta. The
     exponent is clamped at the threshold, which leaves every value as it

@@ -6,7 +6,7 @@ from typing import NamedTuple
 
 import torch
 
-from arah_tpu_torch.nn.layers import mm_t
+from arah_tpu_torch.nn.layers import init_linear, mm_t
 
 
 class GeneratedMLP(NamedTuple):
@@ -38,3 +38,36 @@ def siren_apply(gen: GeneratedMLP, x: torch.Tensor,
     if return_features:
         return out, h
     return out
+
+
+def init_plain_siren(gen: torch.Generator, dims, device='cpu'):
+    """A trainable (not generated) SIREN, the `single_bvp` decoder
+    variant: linear layers with the SIREN init ('sine_first' for layer 0,
+    'sine' after), drawn from `gen`."""
+    return [init_linear(gen, dims[i], dims[i + 1],
+                        'sine_first' if i == 0 else 'sine', device)
+            for i in range(len(dims) - 1)]
+
+
+def plain_siren_as_generated(layers) -> GeneratedMLP:
+    """The layers of `init_plain_siren` as a GeneratedMLP without FiLM."""
+    return GeneratedMLP(weights=tuple(l['w'] for l in layers),
+                        biases=tuple(l['b'] for l in layers),
+                        freqs=(), phases=())
+
+
+def fold_film(gen: GeneratedMLP):
+    """The layers of a plain SIREN (`init_plain_siren`'s form) that
+    computes what the generated SIREN `gen` computes: each FiLM layer
+    sin(30 (f (W h + b) + p)) folds into the linear layer W' = diag(f) W,
+    b' = f b + p (equal up to rounding)."""
+    L = len(gen.weights)
+    film = len(gen.freqs) > 0
+    layers = []
+    for i in range(L):
+        w, b = gen.weights[i], gen.biases[i]
+        if film and i < L - 1:
+            f, p = gen.freqs[i], gen.phases[i]
+            w, b = f[:, None] * w, f * b + p
+        layers.append({'w': w, 'b': b})
+    return layers

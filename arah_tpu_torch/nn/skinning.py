@@ -10,8 +10,9 @@ import torch
 
 from arah_tpu_torch.core.body import hierarchical_softmax
 from arah_tpu_torch.core.embedder import embedding_dim, positional_encoding
-from arah_tpu_torch.nn.layers import (init_linear, init_wn_linear, linear,
-                                      softplus100, wn_linear, wn_weight)
+from arah_tpu_torch.nn.layers import (geometric_init_mlp, init_linear,
+                                      init_wn_linear, linear, softplus100,
+                                      wn_linear, wn_weight)
 
 
 class SkinningConfig(NamedTuple):
@@ -36,10 +37,12 @@ def _dims(cfg: SkinningConfig):
 
 
 def init_skinning(gen: torch.Generator, cfg: SkinningConfig, device='cpu'):
-    if cfg.geometric_init:
-        raise NotImplementedError(
-            'geometric_init skinning nets are not ported yet')
     dims = _dims(cfg)
+    if cfg.geometric_init:
+        return {'layers': geometric_init_mlp(
+            gen, dims, skip_in=cfg.skip_in, cond_in=cfg.cond_in,
+            cond_dim=cfg.cond_dim, bias=cfg.bias, multires=cfg.multires,
+            weight_norm=cfg.weight_norm, device=device)}
     layers = []
     for l in range(len(dims) - 1):
         in_dim = dims[l] + (cfg.cond_dim if l in cfg.cond_in else 0)

@@ -12,7 +12,8 @@ tens of radians, softplus100 and the hierarchical softmax need exact
 expf/log1pf, and the solvers converge at 1e-5.
 
 Each kernel wrapper adds one to `COUNTS[name]` per launch and nowhere
-else, so a run can show that its path went through the kernels.
+else, so a run can show that its path went through the kernels; a
+launch of an option's variant counts under the variant's name.
 """
 from __future__ import annotations
 
@@ -33,7 +34,13 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 COUNTS = {'knn': 0, 'corr': 0, 'shade': 0, 'color_fwd': 0, 'march': 0,
           'iso': 0, 'skin_jac': 0, 'shade_bwd': 0, 'color_bwd': 0,
-          'siren': 0, 'knn_rows': 0, 'corr_rows': 0}
+          'siren': 0, 'knn_rows': 0, 'corr_rows': 0,
+          # the launches of the kernel variants that options select, each
+          # counted under its own name only (C and H with bf16 residents;
+          # B with want_jac and at a precision other than f32)
+          'shade_resid': 0, 'shade_bwd_resid': 0, 'corr_jac': 0,
+          'corr_split3': 0, 'corr_bf16': 0, 'corr_jac_split3': 0,
+          'corr_jac_bf16': 0}
 BUILD_SECONDS = None     # wall time of this process's build, None if cached
 
 _LIB = None
@@ -106,7 +113,7 @@ _F = ctypes.c_float
 class ShadeMeta(ctypes.Structure):
     """`struct ShadeMeta` of csrc/shade_meta.cuh."""
     _fields_ = [('n_layers', _I), ('din', _I), ('hidden', _I),
-                ('dout', _I), ('film', _I), ('bf16', _I),
+                ('dout', _I), ('film', _I), ('bf16', _I), ('resid', _I),
                 ('wt_off', ctypes.c_longlong * 8),
                 ('w_off', ctypes.c_longlong * 8),
                 ('b_off', ctypes.c_longlong * 8),
@@ -160,8 +167,8 @@ def load():
     lib.arah_knn_shape.argtypes = [_I, _I, _I, _P]
     lib.arah_siren.argtypes = [_P, _I, _P, NetMeta, _I, _I, _P, _P]
     lib.arah_corr.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, NetMeta, _I,
-                              _F, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P,
-                              _P]
+                              _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P,
+                              _P, _P]
     lib.arah_shade.argtypes = [_P, _I, _P, _P, ShadeMeta, _P, _P, _I, _P,
                                 _P]
     lib.arah_color_fwd.argtypes = [_P, _P, _P, _I, _P, _P, ColorMeta, _P,

@@ -6,7 +6,10 @@ tensors and computes `siren_shade_plain` for CPU tensors. Both return
 the SDF, the penultimate features and d(sdf)/dx from an explicit forward
 pass (keeping the 30 f cos(30 z) factors) and reverse chain, with the
 kernel's bf16 rounding points under `bf16`: every dot operand, including
-g * df before each reverse product, with f32 accumulation.
+g * df before each reverse product, with f32 accumulation. Under
+`resid_bf16` the kernel keeps those factors (its residents) in bf16, as
+the TPU kernel's `st` stores them: the normal moves, the SDF and the
+features do not.
 """
 from __future__ import annotations
 
@@ -16,9 +19,10 @@ from arah_tpu_torch.nn.siren import GeneratedMLP
 from arah_tpu_torch.ops import _build
 
 
-def pack_shade(gen: GeneratedMLP, bf16: bool):
+def pack_shade(gen: GeneratedMLP, bf16: bool, resid_bf16: bool = False):
     """(parameter buffer, ShadeMeta) of a generated SIREN for kernels C
-    and H; raises on a shape they do not take."""
+    and H (`resid_bf16`: their residents in bf16); raises on a shape they
+    do not take."""
     L = len(gen.weights)
     din = gen.weights[0].shape[1]
     H = gen.weights[0].shape[0]
@@ -42,8 +46,9 @@ def pack_shade(gen: GeneratedMLP, bf16: bool):
     pad = [0] * (8 - L)
     LL = _build.ctypes.c_longlong * 8
     meta = _build.ShadeMeta(L, din, H, dout, int(film), int(bf16),
-                            LL(*(wt_off + pad)), LL(*(w_off + pad)),
-                            LL(*(b_off + pad)), f_off, p_off)
+                            int(resid_bf16), LL(*(wt_off + pad)),
+                            LL(*(w_off + pad)), LL(*(b_off + pad)), f_off,
+                            p_off)
     return pack.tensor(), meta
 
 
@@ -60,12 +65,20 @@ def pack_shade_bf16(gen: GeneratedMLP):
     return torch.stack([torch.stack([w, w.T]) for w in ws]).contiguous()
 
 
+def _rounder(on: bool):
+    """t -> t rounded through bf16 (back in f32) if `on`, else t."""
+    return (lambda t: t.bfloat16().float()) if on else (lambda t: t)
+
+
 def siren_shade_plain(gen: GeneratedMLP, x: torch.Tensor,
-                      bf16: bool = False, feat_f32: bool = False):
+                      bf16: bool = False, feat_f32: bool = False,
+                      resid_bf16: bool = False):
     """(N, 3) points -> (sdf (N, out), feats (N, hidden), grad (N, 3));
     feats are bf16 under `bf16` (the eval path's dtype contract) unless
-    `feat_f32` (the training op's)."""
-    r = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
+    `feat_f32` (the training op's). `resid_bf16` stores each sine
+    derivative factor through bf16 (`shade_kernel.py:81, 86-93`); the
+    forward chain stays f32."""
+    r, st = _rounder(bf16), _rounder(resid_bf16)
     use_film = len(gen.freqs) > 0
     L = len(gen.weights)
     h = x
@@ -75,9 +88,9 @@ def siren_shade_plain(gen: GeneratedMLP, x: torch.Tensor,
         if use_film:
             f = gen.freqs[i]
             z = f * z + gen.phases[i]
-            dfs.append(30.0 * f * torch.cos(30.0 * z))
+            dfs.append(st(30.0 * f * torch.cos(30.0 * z)))
         else:
-            dfs.append(30.0 * torch.cos(30.0 * z))
+            dfs.append(st(30.0 * torch.cos(30.0 * z)))
         h = torch.sin(30.0 * z)
     out = r(h) @ r(gen.weights[-1]).T + gen.biases[-1]
     g = gen.weights[-1][0:1, :].expand(x.shape[0], -1)
@@ -91,15 +104,12 @@ def siren_shade(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
     """Kernel C: (N, 3) points -> (sdf, feats, d(sdf)/dx) as
     `siren_shade_plain`."""
     if not x.is_cuda:
-        return siren_shade_plain(gen, x, bf16, feat_f32)
-    if resid_bf16:
-        raise NotImplementedError('shade kernel resid_bf16 (a TPU A/B) is '
-                                  'not ported')
+        return siren_shade_plain(gen, x, bf16, feat_f32, resid_bf16)
     n, din = x.shape
     H = gen.weights[0].shape[0]
     dout = gen.weights[-1].shape[0]
     _build.require(x, 'x', torch.float32, (n, din))
-    params, meta = pack_shade(gen, bf16)
+    params, meta = pack_shade(gen, bf16, resid_bf16)
     if bf16 and H % 32:
         raise ValueError('shade kernel: its bf16 tensor-core products take '
                          f'a hidden width divisible by 32, not {H}')
@@ -115,5 +125,5 @@ def siren_shade(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
                                 int(feat_f32), grad.data_ptr(),
                                 _build.stream_ptr(x)),
                  'shade')
-    _build.COUNTS['shade'] += 1
+    _build.COUNTS['shade_resid' if resid_bf16 else 'shade'] += 1
     return sdf, feat, grad

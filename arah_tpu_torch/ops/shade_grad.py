@@ -21,38 +21,40 @@ import torch
 
 from arah_tpu_torch.nn.siren import GeneratedMLP
 from arah_tpu_torch.ops import _build
-from arah_tpu_torch.ops.shade import (pack_shade, pack_shade_bf16,
-                                      siren_shade)
-
-
-def _rounder(bf16: bool):
-    return (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
+from arah_tpu_torch.ops.shade import (_rounder, pack_shade,
+                                      pack_shade_bf16, siren_shade)
 
 
 def shade_bwd_plain(gen: GeneratedMLP, x, g_out, g_feat, g_n,
-                    bf16: bool = False):
+                    bf16: bool = False, resid_bf16: bool = False):
     """Plain version of kernel H. Returns (dx (N, 3), GeneratedMLP of the
-    leaves' gradients)."""
-    r = _rounder(bf16)
+    leaves' gradients). `resid_bf16` rounds every resident where the TPU
+    kernel's `st` stores it (`shade_grad_kernel.py:90-170`): h_{i+1}, C,
+    z, c, g, a and ubar_c (so the features, h_{L-1}, that feed dW_{L-1}
+    too); the running chain, t and every cotangent product stay f32."""
+    r, st = _rounder(bf16), _rounder(resid_bf16)
     W, B = gen.weights, gen.biases
     L = len(W)
     film = len(gen.freqs) > 0
     h, C, z, c = [x], [], [], []
+    hcur = x
     for i in range(L - 1):
-        zi = r(h[i]) @ r(W[i]).T + B[i]
+        zi = r(hcur) @ r(W[i]).T + B[i]
         u = gen.freqs[i] * zi + gen.phases[i] if film else zi
-        z.append(zi)
+        z.append(st(zi))
         Ci = torch.cos(30.0 * u)
-        C.append(Ci)
-        c.append(30.0 * gen.freqs[i] * Ci if film else 30.0 * Ci)
-        h.append(torch.sin(30.0 * u))
+        C.append(st(Ci))
+        c.append(st(30.0 * gen.freqs[i] * Ci if film else 30.0 * Ci))
+        hcur = torch.sin(30.0 * u)
+        h.append(st(hcur))
     # the reverse normal chain, keeping g_{i+1} and a_i
     g_list, a_list = [None] * (L - 1), [None] * (L - 1)
     gcur = W[L - 1][0:1, :].expand(x.shape[0], -1)
     for i in range(L - 2, -1, -1):
-        g_list[i] = gcur
-        a_list[i] = gcur * c[i]
-        gcur = r(a_list[i]) @ r(W[i])
+        g_list[i] = st(gcur)
+        ai = gcur * c[i]
+        a_list[i] = st(ai)
+        gcur = r(ai) @ r(W[i])
     dW, db = [None] * L, [None] * L
     dfr, dph = [None] * (L - 1), [None] * (L - 1)
     # adjoint of the reverse chain: a forward sweep seeded with g_n
@@ -64,9 +66,9 @@ def shade_bwd_plain(gen: GeneratedMLP, x, g_out, g_feat, g_n,
         cbar = g_list[i] * abar
         if film:
             dfr[i] = torch.sum(30.0 * C[i] * cbar, dim=0)
-            ubar_c[i] = -900.0 * gen.freqs[i] * h[i + 1] * cbar
+            ubar_c[i] = st(-900.0 * gen.freqs[i] * h[i + 1] * cbar)
         else:
-            ubar_c[i] = -900.0 * h[i + 1] * cbar
+            ubar_c[i] = st(-900.0 * h[i + 1] * cbar)
         t = c[i] * abar
     dWl = r(g_out).T @ r(h[L - 1])
     dWl = torch.cat([dWl[:1] + t.sum(dim=0, keepdim=True), dWl[1:]])
@@ -90,16 +92,17 @@ def shade_bwd_plain(gen: GeneratedMLP, x, g_out, g_feat, g_n,
                               tuple(dph) if film else ())
 
 
-def shade_bwd(gen: GeneratedMLP, x, g_out, g_feat, g_n, bf16: bool = False):
+def shade_bwd(gen: GeneratedMLP, x, g_out, g_feat, g_n, bf16: bool = False,
+              resid_bf16: bool = False):
     """Kernel H: the backward of the shading op (see `shade_bwd_plain`)."""
     if not x.is_cuda:
-        return shade_bwd_plain(gen, x, g_out, g_feat, g_n, bf16)
+        return shade_bwd_plain(gen, x, g_out, g_feat, g_n, bf16, resid_bf16)
     n, din = x.shape
     L = len(gen.weights)
     H = gen.weights[0].shape[0]
     dout = gen.weights[-1].shape[0]
     film = len(gen.freqs) > 0
-    params, meta = pack_shade(gen, bf16)
+    params, meta = pack_shade(gen, bf16, resid_bf16)
     if bf16 and H % 32:
         raise ValueError('shade_bwd kernel: its bf16 tensor-core products '
                          f'take a hidden width divisible by 32, not {H}')
@@ -121,7 +124,8 @@ def shade_bwd(gen: GeneratedMLP, x, g_out, g_feat, g_n, bf16: bool = False):
     LL = _build.ctypes.c_longlong * 8
     pad = [0] * (8 - L)
     gmeta = _build.ShadeMeta(
-        L, din, H, dout, int(film), int(bf16), LL(*([0] * 8)),
+        L, din, H, dout, int(film), int(bf16), int(resid_bf16),
+        LL(*([0] * 8)),
         LL(*(offs[:L] + pad)), LL(*(offs[L:2 * L] + pad)),
         offs[2 * L] if film else 0, offs[2 * L + 1] if film else 0)
     lib = _build.load()
@@ -140,7 +144,7 @@ def shade_bwd(gen: GeneratedMLP, x, g_out, g_feat, g_n, bf16: bool = False):
         g_feat.data_ptr(), g_n.data_ptr(), dx.data_ptr(), partial.data_ptr(),
         nblocks, gmeta, size, grads.data_ptr(), ws.data_ptr(),
         _build.stream_ptr(x)), 'shade_bwd')
-    _build.COUNTS['shade_bwd'] += 1
+    _build.COUNTS['shade_bwd_resid' if resid_bf16 else 'shade_bwd'] += 1
 
     def take(i, shp):
         end = offs[i + 1] if i + 1 < len(offs) else size
@@ -156,7 +160,8 @@ class _ShadeGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, bf16, resid_bf16, n_layers, film, x, *leaves):
         gen = _unflatten(leaves, n_layers, film)
-        ctx.bf16, ctx.n_layers, ctx.film = bf16, n_layers, film
+        ctx.bf16, ctx.resid_bf16 = bf16, resid_bf16
+        ctx.n_layers, ctx.film = n_layers, film
         ctx.save_for_backward(x, *leaves)
         return siren_shade(gen, x.detach().contiguous(), bf16=bf16,
                            resid_bf16=resid_bf16, feat_f32=True)
@@ -170,7 +175,8 @@ class _ShadeGrad(torch.autograd.Function):
         g_out = zeros(gen.weights[-1].shape[0]) if g_out is None else g_out
         g_feat = zeros(gen.weights[-1].shape[1]) if g_feat is None else g_feat
         g_n = zeros(x.shape[1]) if g_n is None else g_n
-        dx, d = shade_bwd(gen, x, g_out, g_feat, g_n, ctx.bf16)
+        dx, d = shade_bwd(gen, x, g_out, g_feat, g_n, ctx.bf16,
+                          ctx.resid_bf16)
         return (None, None, None, None, dx, *d.weights, *d.biases,
                 *d.freqs, *d.phases)
 
@@ -187,9 +193,10 @@ def siren_shade_grad(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
                      resid_bf16: bool = False):
     """The C -> H op: (sdf, features, normal) of the generated SIREN at
     (N, 3) points, f32, differentiable in every leaf of `gen` and in x.
-    `resid_bf16` (the TPU kernels' bf16 residents) reaches C, which raises
-    on a CUDA tensor (not ported) and, like JAX's CPU twin, ignores it on
-    a CPU tensor."""
+    `resid_bf16` keeps C's and H's residents in bf16 as the TPU kernels
+    do, on the card and on the CPU alike (the plain versions round where
+    the kernels do). JAX's own CPU twin of the op ignores the flag; its
+    Pallas kernels in interpret mode honour it."""
     film = len(gen.freqs) > 0
     return _ShadeGrad.apply(bool(bf16), bool(resid_bf16), len(gen.weights),
                             film, x, *gen.weights, *gen.biases, *gen.freqs,

@@ -22,10 +22,13 @@ from arah_tpu_torch.solver.root_find import CanonicalFrame
 
 @torch.no_grad()
 def skinning_jac_plain(x_hat, skin_weights, skin_biases,
-                       frame: CanonicalFrame, softmax_scale: float = 20.0):
-    """Plain version of kernel G: three `torch.func.jvp` tangents."""
+                       frame: CanonicalFrame, softmax_scale: float = 20.0,
+                       precision: str = 'f32'):
+    """Plain version of kernel G: three `torch.func.jvp` tangents; with a
+    `precision` other than 'f32', the Jacobian that kernel B's `want_jac`
+    gives, through B's rounded products (`ops/corr.py:dense_skin_fn`)."""
     nscale, noffset, _ = kernel_affine(frame)
-    skin = dense_skin_fn(skin_weights, skin_biases, softmax_scale)
+    skin = dense_skin_fn(skin_weights, skin_biases, softmax_scale, precision)
 
     def fwd(x):
         return skinning(x, skin(x * nscale + noffset),

@@ -55,9 +55,9 @@ class RayTracerConfig(NamedTuple):
     JAX package; the port keeps the fields and always solves densely.
     `corr_coarse_stride` > 1 runs the coarse-to-fine warm start of
     `canonicalize_samples`, as in JAX (different roots from 0, within
-    solver tolerance). `pallas_*_tile` and `pallas_precision` size and
-    tune the TPU kernels and are not read here, except that the corr
-    kernel takes only precision 'f32'.
+    solver tolerance). `pallas_*_tile` size the TPU kernels and are not
+    read here; `pallas_precision` is the corr kernel's (B's products,
+    'f32', 'split3' or 'bf16', on the card and in its plain version).
     """
     root_finding_threshold: float = 1e-5
     sphere_tracing_iters: int = 50
@@ -236,6 +236,17 @@ def trace_pack(cfg: RayTracerConfig, sdf_gen=None, skin_dense=None):
     return None
 
 
+def corr_pack(cfg: RayTracerConfig, skin_dense, packed):
+    """Kernel B's pack: the trace's `packed` at precision 'f32', else the
+    skinning MLP's own `pack_corr` at `cfg.pallas_precision` (its weight
+    halves made once a trace); None where B does not run."""
+    if not cfg.use_pallas_corr or skin_dense is None:
+        return None
+    if cfg.pallas_precision == 'f32':
+        return packed
+    return pack_corr(skin_dense[0], skin_dense[1], cfg.pallas_precision)
+
+
 def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
                  frame: CanonicalFrame, smpl: SmplRef, cam_loc, ray_dirs,
                  near, far, eval_mode: bool = False, sdf_gen=None,
@@ -311,6 +322,8 @@ class SamplerResult(NamedTuple):
     points_norm: torch.Tensor     # (N, S, 3) canonical samples
     transforms: torch.Tensor      # (N, S, 4, 4) forward transforms
     converge_mask: torch.Tensor   # (N, S) root-finding convergence
+    jac: torch.Tensor = None      # (N, S, 3, 3) metric d fwd_skin / d x_hat
+    #                               at the roots (kernel B's want_jac)
 
 
 def jitter_shapes(cfg: RayTracerConfig, n_rays: int):
@@ -370,11 +383,13 @@ def sample_z_vals(cfg: RayTracerConfig, body_mask, surface_depth, near, far,
 
 def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,
                 frame: CanonicalFrame, skin_dense, x_bar, x0, T0, mask,
-                max_steps: int | None = None, packed=None):
+                max_steps: int | None = None, packed=None,
+                want_jac: bool = False):
     """Flat canonical-correspondence solve: kernel B when
-    `use_pallas_corr` (`packed`: the trace's `trace_pack`), the dense
+    `use_pallas_corr` (`packed`: the trace's `corr_pack`), the dense
     plain Broyden otherwise. Returns (x_hat (N, 3), T_fwd (N, 4, 4), valid
-    (N,), active (N,))."""
+    (N,), active (N,), jac): jac (N, 3, 3) from B's own launch under
+    `want_jac`, None from the plain Broyden (as JAX's XLA solve)."""
     n = x_bar.shape[0]
     if max_steps is None:
         max_steps = cfg.corr_max_steps
@@ -386,44 +401,49 @@ def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,
                     'skips or cond inputs); set use_pallas_corr=False')
         else:
             wts, bs, softmax_scale = skin_dense
-            x_hat, T16, valid, active = corr_search(
+            out = corr_search(
                 x_bar, x0, T0.reshape(n, 16).contiguous(), mask, wts, bs,
                 frame.bone_transforms.reshape(24, 16).contiguous(),
                 frame.coord_min, frame.coord_max, frame.center,
                 max_steps=max_steps, cvg_thresh=cfg.root_finding_threshold,
                 softmax_scale=softmax_scale,
-                precision=cfg.pallas_precision, packed=packed)
-            return x_hat, T16.reshape(n, 4, 4), valid & mask, active
+                precision=cfg.pallas_precision, want_jac=want_jac,
+                packed=packed)
+            return (out[0], out[1].reshape(n, 4, 4), out[2] & mask, out[3],
+                    out[4] if want_jac else None)
     res = search_canonical_corr(skin_fn, frame, x_bar, x0, T0,
                                 max_steps=max_steps,
                                 cvg_thresh=cfg.root_finding_threshold,
                                 active_init=mask)
-    return res.x_hat, res.T_fwd, res.valid & mask, res.active
+    return res.x_hat, res.T_fwd, res.valid & mask, res.active, None
 
 
 def _corr_solve_split(cfg: RayTracerConfig, skin_fn: Callable,
                       frame: CanonicalFrame, skin_dense, x_bar, x0, T0,
-                      mask, packed=None):
+                      mask, packed=None, want_jac: bool = False):
     """Straggler-resolve split of the corr solve: phase 1 caps every point
     at `corr_phase1_steps`; the first `corr_resolve_cap` still-active
     points are re-solved from scratch at `corr_max_steps` (a point's
     trajectory does not depend on the others), and only their rows are
-    written back. Actives beyond the cap keep their phase-1 result."""
+    written back, J's too. Returns `_corr_solve`'s five. Actives beyond
+    the cap keep their phase-1 result."""
     p1 = cfg.corr_phase1_steps
     if p1 <= 0 or p1 >= cfg.corr_max_steps:
         return _corr_solve(cfg, skin_fn, frame, skin_dense, x_bar, x0, T0,
-                           mask, packed=packed)
-    x1, T1, v1, act = _corr_solve(cfg, skin_fn, frame, skin_dense, x_bar,
-                                  x0, T0, mask, max_steps=p1, packed=packed)
+                           mask, packed=packed, want_jac=want_jac)
+    x1, T1, v1, act, J1 = _corr_solve(cfg, skin_fn, frame, skin_dense,
+                                      x_bar, x0, T0, mask, max_steps=p1,
+                                      packed=packed, want_jac=want_jac)
     idx = _resolve_idx(act, cfg.corr_resolve_cap)
     if idx.numel() == 0:
-        return x1, T1, v1, torch.zeros_like(act)
-    x2, T2, v2, _ = _corr_solve(cfg, skin_fn, frame, skin_dense, x_bar[idx],
-                                x0[idx], T0[idx],
-                                torch.ones_like(idx, dtype=torch.bool),
-                                packed=packed)
+        return x1, T1, v1, torch.zeros_like(act), J1
+    x2, T2, v2, _, J2 = _corr_solve(
+        cfg, skin_fn, frame, skin_dense, x_bar[idx], x0[idx], T0[idx],
+        torch.ones_like(idx, dtype=torch.bool), packed=packed,
+        want_jac=want_jac)
     return (_split_write_back(x1, idx, x2), _split_write_back(T1, idx, T2),
-            _split_write_back(v1, idx, v2), torch.zeros_like(act))
+            _split_write_back(v1, idx, v2), torch.zeros_like(act),
+            None if J1 is None else _split_write_back(J1, idx, J2))
 
 
 def corr_init(cfg: RayTracerConfig, frame: CanonicalFrame, smpl: SmplRef,
@@ -482,11 +502,13 @@ def _warm_start_inits(cfg: RayTracerConfig, z_vals, x_hat_c, T_c, valid_c,
 def canonicalize_samples(cfg: RayTracerConfig, skin_fn: Callable,
                          frame: CanonicalFrame, smpl: SmplRef, cam_loc,
                          ray_dirs, z_vals, sample_mask, skin_dense=None,
-                         packed=None):
+                         packed=None, want_jac: bool = False):
     """Backward-map all ray samples to canonical space: nearest-vertex
     init (`corr_init`) then the Broyden correspondence search (kernel B,
-    `packed` the trace's `trace_pack`); masked samples are frozen and
-    report converge=False. With
+    `packed` the trace's `corr_pack`); masked samples are frozen and
+    report converge=False. Returns (points_norm (n, S, 3), T_fwd (n, S,
+    4, 4), converged (n, S), jac): jac (n, S, 3, 3) from kernel B under
+    `want_jac`, else None. With
     `corr_coarse_stride` = C > 1 (and S a multiple of C above C) the
     search runs coarse to fine: slot 0 of every block of C samples solves
     from the nearest-vertex init, the other C-1 from
@@ -506,32 +528,37 @@ def canonicalize_samples(cfg: RayTracerConfig, skin_fn: Callable,
         def flat(a):
             return a.reshape((-1,) + a.shape[3:]).contiguous()
         xb_b, x0_b, T0_b, m_b = blk(x_bar), blk(x0), blk(T0), blk(flat_mask)
-        xc, Tc, vc, _ = _corr_solve_split(
+        xc, Tc, vc, _, Jc = _corr_solve_split(
             cfg, skin_fn, frame, skin_dense, flat(xb_b[:, :, :1]),
             flat(x0_b[:, :, :1]), flat(T0_b[:, :, :1]), flat(m_b[:, :, :1]),
-            packed)
+            packed, want_jac)
         xc, Tc, vc = xc.reshape(n, Sc, 3), Tc.reshape(n, Sc, 4, 4), \
             vc.reshape(n, Sc)
         x_init, T_init = _warm_start_inits(
             cfg, z_vals.reshape(n, Sc, C), xc, Tc, vc, x0_b[:, :, 1:],
             T0_b[:, :, 1:])
-        xf, Tf, vf, _ = _corr_solve_split(
+        xf, Tf, vf, _, Jf = _corr_solve_split(
             cfg, skin_fn, frame, skin_dense, flat(xb_b[:, :, 1:]),
-            flat(x_init), flat(T_init), flat(m_b[:, :, 1:]), packed)
+            flat(x_init), flat(T_init), flat(m_b[:, :, 1:]), packed,
+            want_jac)
         x_hat = torch.cat([xc[:, :, None], xf.reshape(n, Sc, C - 1, 3)],
                           dim=2).reshape(-1, 3)
         T_fwd = torch.cat([Tc[:, :, None], Tf.reshape(n, Sc, C - 1, 4, 4)],
                           dim=2).reshape(-1, 4, 4)
         valid = torch.cat([vc[:, :, None], vf.reshape(n, Sc, C - 1)],
                           dim=2).reshape(-1)
+        jac = None if Jc is None else torch.cat(
+            [Jc.reshape(n, Sc, 1, 3, 3), Jf.reshape(n, Sc, C - 1, 3, 3)],
+            dim=2)
     else:
-        x_hat, T_fwd, valid, _ = _corr_solve_split(
+        x_hat, T_fwd, valid, _, jac = _corr_solve_split(
             cfg, skin_fn, frame, skin_dense, x_bar, x0, T0, flat_mask,
-            packed)
+            packed, want_jac)
     x_norm = normalize_canonical_points(
         x_hat, frame.coord_min, frame.coord_max, frame.center)
     return (x_norm.reshape(n, S, 3), T_fwd.reshape(n, S, 4, 4),
-            (valid & flat_mask).reshape(n, S))
+            (valid & flat_mask).reshape(n, S),
+            None if jac is None else jac.reshape(n, S, 3, 3))
 
 
 class TraceOutput(NamedTuple):
@@ -542,12 +569,14 @@ class TraceOutput(NamedTuple):
 def trace_and_sample(cfg: RayTracerConfig, sdf_fn: Callable,
                      skin_fn: Callable, frame: CanonicalFrame, smpl: SmplRef,
                      cam_loc, ray_dirs, near, far, eval_mode: bool = True,
-                     skin_dense=None, sdf_gen=None,
-                     jitter=None) -> TraceOutput:
+                     skin_dense=None, sdf_gen=None, jitter=None,
+                     want_jac: bool = False) -> TraceOutput:
     """Sphere trace + sample + canonicalize (no gradients). Training
     (`eval_mode=False`) keeps every ray valid at the iso refinement and
     jitters the samples with `jitter` (see `sample_z_vals`). Kernels E, F
-    and B share one parameter pack (`trace_pack`), built once here."""
+    and B share one parameter pack (`trace_pack`), built once here; B
+    reads its own (`corr_pack`) at a `pallas_precision` other than f32.
+    `want_jac`: the samples carry kernel B's Jacobians (`jac`)."""
     packed = trace_pack(cfg, sdf_gen, skin_dense)
     surf = sphere_trace(cfg, sdf_fn, skin_fn, frame, smpl, cam_loc,
                         ray_dirs, near, far, eval_mode=eval_mode,
@@ -556,8 +585,8 @@ def trace_and_sample(cfg: RayTracerConfig, sdf_fn: Callable,
     z_vals, sample_mask = sample_z_vals(cfg, ~surf.unconverged,
                                         surf.start_dis, near, far, eval_mode,
                                         jitter)
-    pts, tfs, cvg = canonicalize_samples(cfg, skin_fn, frame, smpl, cam_loc,
-                                         ray_dirs, z_vals, sample_mask,
-                                         skin_dense=skin_dense, packed=packed)
-    return TraceOutput(surf, SamplerResult(z_vals, sample_mask, pts, tfs,
-                                           cvg))
+    out = canonicalize_samples(
+        cfg, skin_fn, frame, smpl, cam_loc, ray_dirs, z_vals, sample_mask,
+        skin_dense=skin_dense, packed=corr_pack(cfg, skin_dense, packed),
+        want_jac=want_jac)
+    return TraceOutput(surf, SamplerResult(z_vals, sample_mask, *out))

@@ -34,7 +34,8 @@ from arah_tpu_torch.nn.deviation import deviation_value
 from arah_tpu_torch.nn.hypernet import (HypernetConfig, hypernet_cond,
                                         hypernet_flat_params,
                                         hypernet_generate)
-from arah_tpu_torch.nn.siren import GeneratedMLP, siren_apply
+from arah_tpu_torch.nn.siren import (GeneratedMLP,
+                                     plain_siren_as_generated, siren_apply)
 from arah_tpu_torch.nn.skinning import (SkinningConfig,
                                         skinning_dense_params,
                                         skinning_weights)
@@ -56,9 +57,11 @@ class ModelConfig(NamedTuple):
     the draws (`data/batch.py:draw_train_draws`). Of the implicit-diff
     options, `idiff_standalone_jac` takes J from kernel G and otherwise
     three forward-mode tangents give the same J (`idiff_linearize` and
-    the JAX per-point jacfwd form compute one function);
-    `idiff_kernel_jac` (J from the corr kernel, a TPU A/B) is not
-    ported."""
+    the JAX per-point jacfwd form compute one function), and
+    `idiff_kernel_jac` takes J from the corr kernel B's own launch
+    (`want_jac`), so G does not run. `shade_pack` shades only the first
+    K valid samples, K = `shade_pack_frac` of the dense count rounded up
+    to `shade_pack_align`."""
     hypernet: HypernetConfig = HypernetConfig()
     skinning: SkinningConfig = SkinningConfig()
     color: ColorConfig = ColorConfig()
@@ -107,9 +110,11 @@ def make_sdf_fn(gen: GeneratedMLP, stop_grad: bool = False):
 
 def generate_sdf(params, cfg: ModelConfig, rots, Jtrs, geo_latent=None):
     """Per-frame hypernetwork pass -> generated SIREN weights.
-    rots: (1, 24, 9); Jtrs: (1, 24, 3)."""
+    rots: (1, 24, 9); Jtrs: (1, 24, 3). The `single_bvp` variant (a
+    `params['sdf_plain']` SIREN, `nn/siren.py:init_plain_siren`) returns
+    its trainable weights as they are, without FiLM."""
     if 'sdf_plain' in params:
-        raise NotImplementedError('the single_bvp SDF variant is not ported')
+        return plain_siren_as_generated(params['sdf_plain'])
     cond = hypernet_cond(params['hypernet'], cfg.hypernet, rots, Jtrs)[0]
     latent = None
     if cfg.hypernet.use_film and geo_latent is not None:
@@ -174,12 +179,14 @@ def _shade_sdf(cfg: ModelConfig, gen: GeneratedMLP, flat_p,
     return out[:, 0].detach(), feats.detach(), grads
 
 
-def _idiff_correct(params, cfg: ModelConfig, frame: CanonicalFrame, flat_p):
+def _idiff_correct(params, cfg: ModelConfig, frame: CanonicalFrame, flat_p,
+                   jac=None):
     """The implicit-differentiation correction p - J^-1 (f - sg(f)), f =
     fwd_skin(unnormalize(p)): the value of p unchanged, its gradient
-    reaching the skinning net as -J^-1 df/dtheta. J from kernel G
-    (`idiff_standalone_jac`, a collapsible skinning MLP) or from three
-    forward-mode tangents; no gradient flows through J."""
+    reaching the skinning net as -J^-1 df/dtheta. J (metric) is `jac`
+    when the tracer's corr kernel gave it (`idiff_kernel_jac`), else from
+    kernel G (`idiff_standalone_jac`, a collapsible skinning MLP), else
+    from three forward-mode tangents; no gradient flows through J."""
     skin_fn = make_skin_fn(params, cfg)
 
     def fwd_batched(p_norm):
@@ -188,13 +195,14 @@ def _idiff_correct(params, cfg: ModelConfig, frame: CanonicalFrame, flat_p):
         return forward_skinning(skin_fn, frame, x_hat)[0]
 
     sd = skinning_dense_params(params['skinning'], cfg.skinning) \
-        if cfg.idiff_standalone_jac else None
+        if cfg.idiff_standalone_jac and jac is None else None
     if sd is not None:
         with torch.no_grad():
             x_hat = unnormalize_canonical_points(
                 flat_p, frame.coord_min, frame.coord_max, frame.center)
             jac = skinning_jac(x_hat, sd[0], sd[1], frame,
                                cfg.skinning.softmax_scale)
+    if jac is not None:
         # unnormalize scales each axis by s_u, so J_norm = J_metric * s_u
         J = jac * (1.1 * (frame.coord_max - frame.coord_min) / 2.0)
     else:
@@ -211,19 +219,42 @@ def _idiff_correct(params, cfg: ModelConfig, frame: CanonicalFrame, flat_p):
                                  f - f.detach())
 
 
+def pack_index(mask: torch.Tensor, K: int) -> torch.Tensor:
+    """The first K True positions of a flat (N,) mask in order, padded
+    with N: JAX's `jnp.nonzero(mask, size=K, fill_value=N)`, built on the
+    device with no host sync (a running count places each True position;
+    the rest land in a spare slot K that is dropped)."""
+    n = mask.shape[0]
+    pos = torch.cumsum(mask.to(torch.int32), 0) - 1
+    dest = torch.where(mask & (pos < K), pos, K).long()
+    out = torch.full((K + 1,), n, dtype=torch.long, device=mask.device)
+    out.scatter_(0, dest, torch.arange(n, device=mask.device))
+    return out[:K]
+
+
+def _unpack(vals: torch.Tensor, pack_idx: torch.Tensor, n: int):
+    """(K, ...) packed values back to n dense rows, zeros elsewhere; pad
+    slots (index n) land in a spare row that is dropped, so they take no
+    cotangent."""
+    out = vals.new_zeros((n + 1,) + vals.shape[1:])
+    return out.index_copy(0, pack_idx, vals)[:n]
+
+
 def shade_samples(params, cfg: ModelConfig, gen: GeneratedMLP,
                   frame: CanonicalFrame, points_norm, z_vals,
                   transforms_fwd, converge_mask, view_dirs, view_dirs_orig,
                   pose_feature, training: bool = False,
-                  ray_augm: bool = False):
-    """SDF + colour + VolSDF compositing over dense (n_rays, S) samples.
-    Returns (rgb (n_rays, 3), weights_sum (n_rays,))."""
-    if cfg.shade_pack:
-        raise NotImplementedError('shade_pack (a TPU A/B) is not ported')
-    if training and cfg.idiff_kernel_jac:
-        raise NotImplementedError('idiff_kernel_jac (J from the corr '
-                                  'kernel, a TPU A/B) is not ported')
+                  ray_augm: bool = False, jac=None):
+    """SDF + colour + VolSDF compositing over dense (n_rays, S) samples;
+    `jac` (n_rays, S, 3, 3): the corr kernel's metric Jacobians at the
+    samples (`idiff_kernel_jac`), or None. Under `cfg.shade_pack` the
+    implicit-diff correction, the shading and the colour run on the
+    first K valid samples in ray-major order (the static budget K of
+    `ModelConfig`; pad slots repeat the last sample and are dropped), as
+    JAX's pack does. Returns (rgb (n_rays, 3), weights_sum (n_rays,),
+    {'n_samples_shaded', 'n_samples_overflow'})."""
     n_rays, S, _ = points_norm.shape
+    N = n_rays * S
     flat_p = points_norm.reshape(-1, 3).contiguous()
     flat_T = transforms_fwd.reshape(-1, 4, 4)
     vd = view_dirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
@@ -234,9 +265,30 @@ def shade_samples(params, cfg: ModelConfig, gen: GeneratedMLP,
         in_vd_orig = torch.einsum('nab,nb->na', R_bwd, -vd_orig)
     else:
         in_vd, in_vd_orig = -vd, -vd_orig
+    if jac is not None:
+        jac = jac.reshape(-1, 3, 3)
+
+    aux = {'n_samples_shaded': N, 'n_samples_overflow': 0}
+    if cfg.shade_pack:
+        align = max(int(cfg.shade_pack_align), 1)
+        K = min(N, -(-int(cfg.shade_pack_frac * N) // align) * align)
+        mask_flat = converge_mask.reshape(-1)
+        pack_idx = pack_index(mask_flat, K)
+        gather_idx = torch.clamp(pack_idx, max=N - 1)
+
+        def take(a):
+            return a.index_select(0, gather_idx)
+        flat_p, in_vd = take(flat_p), take(in_vd)
+        in_vd_orig = take(in_vd_orig)
+        if jac is not None:
+            jac = take(jac)
+        if not cfg.cano_view_dirs:
+            flat_T = take(flat_T)
+        aux = {'n_samples_shaded': K, 'n_samples_overflow': torch.clamp(
+            mask_flat.sum() - K, min=0)}
 
     if training and cfg.train_skinning_net:
-        flat_p = _idiff_correct(params, cfg, frame, flat_p)
+        flat_p = _idiff_correct(params, cfg, frame, flat_p, jac)
     sdf_norm, feats, normal = _shade_sdf(cfg, gen, flat_p, training)
     if not cfg.cano_view_dirs:
         normal = torch.einsum('nab,nb->na', flat_T[:, :3, :3], normal)
@@ -251,11 +303,14 @@ def shade_samples(params, cfg: ModelConfig, gen: GeneratedMLP,
     density = volsdf_density(
         sdf_to_metric(sdf_norm, frame.coord_min, frame.coord_max),
         deviation_value(params['deviation']))
+    if cfg.shade_pack:
+        rgb = _unpack(rgb, pack_idx, N)
+        density = _unpack(density, pack_idx, N)
     out = composite_masked(rgb.reshape(n_rays, S, 3),
                            density.reshape(n_rays, S), z_vals,
                            converge_mask, cfg.tracer.n_steps,
                            render_last_pt=cfg.render_last_pt)
-    return out.rgb, out.weights_sum
+    return out.rgb, out.weights_sum, aux
 
 
 def render(params, cfg: ModelConfig, inp: RenderInputs, key=None,
@@ -290,12 +345,15 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
                               cfg.skinning.softmax_scale)
         sdf_gen = gen_ng if (cfg.tracer.use_pallas_march
                              or cfg.tracer.use_pallas_iso) else None
+        want_jac = (training and cfg.train_skinning_net
+                    and cfg.idiff_kernel_jac and skin_dense is not None)
         trace = trace_and_sample(
             cfg.tracer, make_sdf_fn(gen_ng, stop_grad=True),
             make_skin_fn(params, cfg),
             inp.frame, inp.smpl, inp.cam_loc.expand(inp.ray_dirs.shape),
             inp.ray_dirs, inp.near, inp.far, eval_mode=not training,
-            skin_dense=skin_dense, sdf_gen=sdf_gen, jitter=jitter)
+            skin_dense=skin_dense, sdf_gen=sdf_gen, jitter=jitter,
+            want_jac=want_jac)
     samples = trace.samples
 
     ray_dirs, ray_augm = inp.ray_dirs, False
@@ -309,10 +367,10 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
     pose_cond.update({'rots_full': inp.rots_full,
                       'Jtrs_posed': inp.Jtrs_posed})
     pose_feature = color_pose_feature(params['color'], cfg.color, pose_cond)
-    rgb_values, weights_sum = shade_samples(
+    rgb_values, weights_sum, shade_aux = shade_samples(
         params, cfg, gen, inp.frame, samples.points_norm, samples.z_vals,
         samples.transforms, samples.converge_mask, ray_dirs, inp.ray_dirs,
-        pose_feature, training, ray_augm)
+        pose_feature, training, ray_augm, jac=samples.jac)
     n_dense = samples.converge_mask.numel()
     out = {
         'rgb_values': rgb_values,
@@ -320,8 +378,8 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
         'network_body_mask': samples.converge_mask.any(dim=-1),
         'n_samples_valid': samples.converge_mask.sum(),
         'n_samples_dense': n_dense,
-        'n_samples_shaded': n_dense,
-        'n_samples_overflow': 0,
+        'n_samples_shaded': shade_aux['n_samples_shaded'],
+        'n_samples_overflow': shade_aux['n_samples_overflow'],
         'surface_depth': trace.surface.start_dis,
         'surface_converged': ~trace.surface.unconverged,
         'surface_points_norm': trace.surface.points_norm,

@@ -17,8 +17,10 @@ Variants:
   chunked       the same in 16,384-point chunks (plain);
   pallas        kernel L (`ops/corr_rows.py`, the row layout);
   pallas_t_f32  kernel B (`ops/corr.py`, f32);
-  pallas_t, pallas_t_bf16  kernel B at precision 'split3' / 'bf16', which
-                the port does not take: B's wrapper raises on the card.
+  pallas_t      kernel B at precision 'split3' (the JAX bench's kernel
+                variant, in its default set `dense,chunked,pallas_t`);
+  pallas_t_bf16 kernel B at precision 'bf16' (give it `--cvg 5e-3`: its
+                residual floors near 1e-3).
 
 Prints ms per call (the host clock around synchronised calls, after one
 warm-up) and the valid share of each variant, then each kernel variant's

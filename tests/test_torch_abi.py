@@ -99,7 +99,7 @@ def stub_lib(monkeypatch):
 def test_sources_parse():
     assert len(C_FUNCTIONS) >= 15, sorted(C_FUNCTIONS)
     assert C_FUNCTIONS['arah_shade_bwd_ws'][1] == 'long long'
-    assert len(C_FUNCTIONS['arah_corr'][2]) == 22
+    assert len(C_FUNCTIONS['arah_corr'][2]) == 24
     assert _kind('const unsigned char* mask') is ctypes.c_void_p
     assert _kind('NetMeta m') is _build.NetMeta
     assert _kind('long long gsize') is ctypes.c_longlong

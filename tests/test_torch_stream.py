@@ -116,7 +116,7 @@ def test_packed_argument_changes_nothing_on_the_cpu(rng, wrapper, monkeypatch):
     bones16, cmin, cmax, center = frame
     cf = CanonicalFrame(bones16.reshape(24, 4, 4), torch.zeros(3), cmin,
                         cmax, center)
-    x, _, v, _ = rt._corr_solve_split(
+    x, _, v, _, _ = rt._corr_solve_split(
         cfg, dense_skin_fn(ws, bs, 20.0), cf, (ws, bs, 20.0), x_bar, x0,
         T0.reshape(-1, 4, 4), mask, packed=packed)
     assert len(seen) == 2 and all(q is packed for q in seen)

@@ -137,7 +137,7 @@ def test_shade_samples_training(rng, cano):
     pc['latent_code'] = pp['latent'][0][None]
     gen = prend.generate_sdf(pp, pcfg, t(inp.rots), t(inp.Jtrs),
                              pp['latent'][0])
-    rgb, ws = prend.shade_samples(
+    rgb, ws, _ = prend.shade_samples(
         pp, pcfg, gen, fr, t(s.points_norm), t(s.z_vals), t(s.transforms),
         torch.as_tensor(np.asarray(s.converge_mask)), t(dirs),
         t(inp.ray_dirs), color_pose_feature(pp['color'], pcfg.color, pc),
@@ -165,10 +165,12 @@ def test_shade_samples_training(rng, cano):
 def test_shade_resid_bf16_reaches_the_op(rng, monkeypatch):
     """`shade_resid_bf16` reaches kernel C through the C -> H op in a
     training render: the shading call gets `resid_bf16=True`, the f32
-    eikonal call `False` (JAX hands its eikonal op neither flag). On a CPU
-    tensor C's plain version ignores the flag, as JAX's CPU twin does, so
-    every output equals the flag-off render's; on a CUDA tensor C raises
-    (bf16 residents are not ported)."""
+    eikonal call `False` (JAX hands its eikonal op neither flag). The
+    plain versions honour the flag, as the kernels do: what depends on
+    the SDF alone (weights, masks, the eikonal normals) equals the
+    flag-off render's bit for bit, and the colour, which reads the
+    normals, moves, within JAX's resid bound (2e-2 of its largest
+    magnitude, `tests/test_pallas.py::test_resid_bf16_film`)."""
     from arah_tpu_torch.data.batch import draw_train_draws
     from arah_tpu_torch.ops import shade_grad
     from arah_tpu_torch.parallel.train_step import trainable
@@ -201,8 +203,12 @@ def test_shade_resid_bf16_reaches_the_op(rng, monkeypatch):
         assert calls[0][0] != n_eik
     assert outs[False].keys() == outs[True].keys()
     for k, v in outs[False].items():
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, torch.Tensor) and k != 'rgb_values':
             assert torch.equal(v, outs[True][k]), k
+    rgb0, rgb1 = outs[False]['rgb_values'], outs[True]['rgb_values']
+    assert not torch.equal(rgb0, rgb1)
+    assert float((rgb1 - rgb0).abs().max()) \
+        <= 2e-2 * float(rgb0.abs().max())
 
 
 def test_loss_vs_jax(rng):
