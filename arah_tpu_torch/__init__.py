@@ -1,5 +1,6 @@
-"""arah_tpu_torch — the ARAH eval renderer in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""arah_tpu_torch — ARAH in PyTorch (the CLIs, training, validation and
+the renderer), with hand-written CUDA kernels for NVIDIA Hopper
+(sm_90a).
 
 A port of the `arah_tpu` JAX package, which stays the reference. The
 layout mirrors it module for module (`core/`, `nn/`, `solver/`,
@@ -10,6 +11,8 @@ Entry points run on `cuda` unless the caller passes `device='cpu'`.
 Each kernel wrapper in `ops/` launches its CUDA kernel for a CUDA tensor
 and computes its plain PyTorch version only for a CPU tensor; the
 kernels build from `csrc/` with `nvcc` at first use (`ops/_build.py`).
-This package imports torch and numpy, never JAX and nothing of
-`arah_tpu`.
+This package imports torch, numpy and scipy, never JAX and nothing of
+`arah_tpu`, and neither PyYAML nor OpenCV: it reads its YAML configs and
+its images with its own code (`config/yaml_lite.py`, `utils/image.py`).
+The CLIs are `python -m arah_tpu_torch.cli.train` and `.cli.validate`.
 """

@@ -95,6 +95,27 @@ def rotation_z(degrees: float) -> np.ndarray:
                     dtype=np.float64)
 
 
+def get_02v_bone_transforms(Jtr) -> np.ndarray:
+    """(24, 4, 4) float32 A-pose -> Vitruvian leg-chain transforms from
+    (24, 3) rest joints, in numpy (float64 inside), for the data path: the
+    two leg chains rotated by +-45 degrees about z, translations
+    accumulated down each chain. The port's copy of
+    `arah_tpu/core/body.py:get_02v_bone_transforms`."""
+    Jtr = np.asarray(Jtr, dtype=np.float64)
+    out = np.tile(np.eye(4), (24, 1, 1))
+    for chain, rot in (([1, 4, 7, 10], rotation_z(45.0)),
+                       ([2, 5, 8, 11], rotation_z(-45.0))):
+        for i, j_idx in enumerate(chain):
+            out[j_idx, :3, :3] = rot
+            t = Jtr[j_idx].copy()
+            if i > 0:
+                parent = chain[i - 1]
+                t = rot @ (t - Jtr[parent]) + out[parent, :3, 3]
+            out[j_idx, :3, 3] = t
+        out[chain, :3, 3] -= Jtr[chain] @ rot.T
+    return out.astype(np.float32)
+
+
 def get_02v_bone_transforms_jnp(Jtr: torch.Tensor) -> torch.Tensor:
     """(24, 4, 4) A-pose -> Vitruvian leg-chain transforms from (24, 3)
     rest joints (the name keeps the JAX package's, for the reader)."""

@@ -85,6 +85,40 @@ def vertices2joints(J_regressor: torch.Tensor, vertices: torch.Tensor):
     return torch.einsum('bik,ji->bjk', vertices, J_regressor)
 
 
+class LbsOutput(NamedTuple):
+    verts: torch.Tensor           # (B, V, 3) posed vertices (no trans)
+    joints_posed: torch.Tensor    # (B, J, 3)
+    joints_rest: torch.Tensor     # (B, J, 3)
+    rel_transforms: torch.Tensor  # (B, J, 4, 4) bone transforms "A"
+    abs_transforms: torch.Tensor  # (B, J, 4, 4)
+    v_posed: torch.Tensor         # (B, V, 3) shaped + pose-blend-shaped
+
+
+def lbs(model: SmplModel, betas: torch.Tensor, pose: torch.Tensor,
+        apply_pose_blendshapes: bool = True) -> LbsOutput:
+    """SMPL linear blend skinning of betas (B, n_betas) and axis-angle
+    pose (B, 72), root first, on the model's device (`smpl_to_device`).
+    Port of `arah_tpu/core/smpl.py:lbs`."""
+    B = betas.shape[0]
+    v_shaped = model.v_template[None] + blend_shapes(betas, model.shapedirs)
+    J = vertices2joints(model.J_regressor, v_shaped)
+    rot_mats = batch_rodrigues(pose.reshape(-1, 3)).reshape(B, -1, 3, 3)
+    v_posed = v_shaped
+    if apply_pose_blendshapes:
+        ident = torch.eye(3, dtype=pose.dtype, device=pose.device)
+        pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)
+        v_posed = v_shaped + (pose_feature @ model.posedirs).reshape(
+            B, -1, 3)
+    parents = model.parents.cpu() if torch.is_tensor(model.parents) \
+        else model.parents
+    J_transformed, A, abs_A = batch_rigid_transform(rot_mats, J, parents)
+    T = (model.lbs_weights[None] @ A.reshape(B, NUM_JOINTS, 16)).reshape(
+        B, -1, 4, 4)
+    verts = torch.einsum('bvij,bvj->bvi', T[..., :3, :3], v_posed) \
+        + T[..., :3, 3]
+    return LbsOutput(verts, J_transformed, J, A, abs_A, v_posed)
+
+
 def smpl_to_device(model: SmplModel, device='cuda') -> SmplModel:
     """The model's arrays as tensors on `device` (float32, faces int32),
     so that `prepare_frame` copies nothing per call. `parents` stays a

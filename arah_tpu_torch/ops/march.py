@@ -52,7 +52,8 @@ def nn_weights_tied(points: torch.Tensor, verts: torch.Tensor,
         tie = d <= dmin[:, None]
         cnt = tie.sum(-1, keepdim=True)
         # a tied row's sum of 1.0 * row + 0.0 * others is exact
-        mean = (tie.float() @ skin_weights) / cnt.clamp(min=1)
+        mean = (tie.to(skin_weights.dtype) @ skin_weights) \
+            / cnt.clamp(min=1)
         out.append(torch.where(cnt > 1, mean, skin_weights[idx]))
     if not out:
         return skin_weights.new_zeros((0, skin_weights.shape[1]))

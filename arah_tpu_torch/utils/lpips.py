@@ -160,6 +160,44 @@ def make_perceptual_loss():
     return lambda p, g: torch.mean(msdssim(p, g))
 
 
+_DEFAULT = None
+
+
+def get_default_lpips():
+    """The eval perceptual metric, (a (1, H, W, 3), b) numpy in [0, 1] ->
+    float: LPIPS on the CPU when the converted weights exist, else JAX's
+    multi-scale DSSIM proxy (`metric_key` names which; the proxy is never
+    to be reported as LPIPS)."""
+    global _DEFAULT
+    if _DEFAULT is not None:
+        return _DEFAULT
+    if lpips_available():
+        params = load_lpips_params(weights_path(), device='cpu')
+
+        def fn(a, b):
+            with torch.no_grad():
+                d = lpips_distance(
+                    params, torch.as_tensor(a, dtype=torch.float32),
+                    torch.as_tensor(b, dtype=torch.float32))
+            return float(d.mean())
+        _DEFAULT = fn
+    else:
+        _warn_proxy('the eval perceptual metric')
+        from arah_tpu_torch.utils.metrics import ssim
+
+        def proxy(a, b):
+            a = np.asarray(a)[0]
+            b = np.asarray(b)[0]
+            vals = []
+            for scale in (1, 2, 4):
+                aa, bb = a[::scale, ::scale], b[::scale, ::scale]
+                if min(aa.shape[:2]) >= 8:
+                    vals.append(1.0 - ssim(aa, bb))
+            return float(np.mean(vals)) if vals else 0.0
+        _DEFAULT = proxy
+    return _DEFAULT
+
+
 def _to(params, device):
     return {'convs': [{k: v.to(device) for k, v in c.items()}
                       for c in params['convs']],

@@ -109,9 +109,36 @@
    frame against the hypernet frame by the render gate, E and F on it, a
    step on every kernel with C and H held against their plain versions
    without FiLM, and against its plain-path twin).
+9. Drives the CLIs, the port's normal entry points, on the fake ZJU
+   dataset (`run_clis`): writes the fixture with the port's writer (4
+   frames, views 1 and 7, 1024 x 1024 JPEGs and PNG masks); writes a
+   config that inherits `configs/fake/FAKE-ZJU-flagship.yaml` (2 epochs,
+   a checkpoint and a validation each epoch, the phase-2 fitted SIREN and
+   skinning net given as pretrained MetaAvatar and SNARF checkpoints, so
+   that the avatar has a surface); runs `cli.train.main` in this process
+   with the launch counts set to 0 just before and read just after (A-I
+   each launched, no plain version called: every one is spied on),
+   checks its files and that every logged loss is finite; reruns it for
+   a third epoch (it must print "resumed from step N"); runs it as a
+   subprocess with `--exit-after 1 --epochs-per-run 50` (exit code 2);
+   runs `cli.validate.main([... '--novel-view'])` counted (A-F launched,
+   a finite psnr, ssim and perceptual metric in `metrics.json`); holds
+   A-F against their plain versions on what `evaluate_frame` hands them
+   on the validation's first frame and the trained checkpoint, its
+   first chunk (the eval chunk, 32,768 rays, with the eval path's mask),
+   as phase 7 does on a block, except that E's and F's flags and
+   iteration counts are held to floors that the same plain solves in
+   float64 set (`witness_floor`: at a trained checkpoint roundoff sets
+   which grazing rays finish); prints the CLI layer's times (ms/step
+   between step starts, the loader's seconds per item with its JPEG
+   decode, validation seconds per frame on the checkpoint, peak memory);
+   and holds A-I against their plain versions on what a warm-up step of
+   the CLI's own batch (2 blocks x 1,024 rays) hands them, as phase 7
+   does, then times and traces that step.
 
-Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line, and as its
-last line `{"ok": true, "device": {...}}`. Any failed check exits
+Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line (A-I also
+carry `launches_cli_train`, phase 9's counts), and as its last line
+`{"ok": true, "device": {...}}`. Any failed check exits
 non-zero before those lines. Without a CUDA device it exits non-zero.
 """
 import contextlib
@@ -254,23 +281,57 @@ def shape_sweep(tag, kernel, n, launch, ref, card, shapes=(0, 1)):
     check(same, f'{tag}: the launch shapes give different bits')
 
 
-def iters_check(tag, it_k, it_p, held=None, why='', gate=True):
+def f64(x):
+    """x with every floating tensor in float64 (a tensor, or tuples,
+    named tuples and lists of them)."""
+    import torch
+    if torch.is_tensor(x):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, tuple):
+        vals = [f64(v) for v in x]
+        return type(x)(*vals) if hasattr(x, '_fields') else tuple(vals)
+    if isinstance(x, list):
+        return [f64(v) for v in x]
+    return x
+
+
+def witness_floor(differ):
+    """The floor of a kernel's agreement with its plain version on a flag,
+    a count or a root, where the same plain solve in float64 (the witness)
+    shows how far roundoff sets it: `differ` (bool, one a ray) marks the
+    rays where the witness departs from the float32 plain version. The
+    usual 0.99, or, where the witness departs on d of the n rays, 1 - 2 d
+    / n, as B's stragglers are held. Returns (floor, d)."""
+    d, n = int(differ.sum()), differ.numel()
+    # (n - 2 d) / n, one rounding as the agreement (n - k) / n has: at
+    # k = 2 d the two are equal
+    return max(0.0, min(0.99, (n - 2 * d) / max(n, 1))), d
+
+
+def iters_check(tag, it_k, it_p, held=None, why='', gate=True, it_w=None):
     """The kernel's per-ray iteration counts (iters_out) against the plain
     version's: equal on >= 0.99 of the rays (a flip may differ), or of the
     rays `held` (a bool mask, for the reason `why`) where a solve's
     stopping step is set by roundoff; the share over all rays is printed
-    beside it. With `gate` False the shares are printed only."""
+    beside it. With `gate` False the shares are printed only. With the
+    float64 witness's counts `it_w` the floor is `witness_floor`'s."""
     same = it_k == it_p
-    agree = float(same.float().mean()) if it_k.numel() else 1.0
+    agree = float(same.double().mean()) if it_k.numel() else 1.0
     msg = (f'  {tag}: iterations executed {int(it_k.sum())} (kernel, per-ray '
            f'counts), needed {int(it_p.sum())} (plain); per-ray agreement '
            f'{agree:.6f}')
     if held is not None:
-        agree = float(same[held].float().mean()) if bool(held.any()) else 1.0
+        agree = float(same[held].double().mean()) if bool(held.any()) else 1.0
         msg += (f' over all rays; {agree:.6f} over the {int(held.sum())} '
                 f'rays {why}')
-    print(msg + (' (bound >= 0.99)' if gate else ' (not bound)'), flush=True)
-    check(agree >= 0.99 or not gate, f'{tag}: per-ray iteration counts '
+    floor = 0.99
+    if it_w is not None:
+        floor, d = witness_floor(
+            (it_w != it_p) if held is None else (it_w != it_p)[held])
+        msg += f'; the float64 witness\'s counts differ on {d} of those rays'
+    print(msg + (f' (bound >= {floor:.6f})' if gate else ' (not bound)'),
+          flush=True)
+    check(agree >= floor or not gate, f'{tag}: per-ray iteration counts '
           'disagree with the plain version')
 
 
@@ -847,6 +908,8 @@ def main():
                corr_jac='in the idiff_kernel_jac step',
                corr_split3='in the split3 eval frame',
                corr_bf16='in the bf16 eval frame')
+    torch.cuda.empty_cache()
+    cli_launches = run_clis(card, no_tf32, params)
 
     out = []
     for name, r in records.items():
@@ -858,7 +921,8 @@ def main():
                     **{k: r[k] for k in ('phase2_ms', 'phase2_plain_ms',
                                          'phase2_bound_ms', 'graph_ms')
                        if k in r},
-                    **({'launches_refined_step': refined_launches[name]}
+                    **({'launches_refined_step': refined_launches[name],
+                        'launches_cli_train': cli_launches[name]}
                        if name in TRAIN_KERNELS else {})})
         print(f'{name}: {r["ms"]:.3f} ms kernel, {r["plain_ms"]:.3f} ms '
               f'plain, bound {r["bound"][0]:.4f} ms ({r["bound"][1]}), '
@@ -1160,9 +1224,10 @@ def check_corr(cfg, frame, fd, pts, flat_mask, wts, bs, card):
                 rep='arah_tpu/ops/pallas/corr_kernel_t.py:291')
 
 
-def march_compare(tag, out_k, out_p, gen, mscale, thresh):
+def march_compare(tag, out_k, out_p, gen, mscale, thresh, out_w=None):
     """Hold kernel E's march (out_k) against the plain one (out_p):
-    unfinished and diverged agreement >= 0.99, median |dt| < 1e-5 on rays
+    unfinished and diverged agreement >= 0.99 (with the float64 witness's
+    march `out_w`, `witness_floor`'s floors), median |dt| < 1e-5 on rays
     both sides finished on a surface, and >= 0.9 of the rays that differ
     (a flag, or |dt| > 1e-4) and that the kernel finished on a surface
     hold it: plain |sdf| at the kernel's x_norm < 2 x thresh. Returns the
@@ -1171,8 +1236,15 @@ def march_compare(tag, out_k, out_p, gen, mscale, thresh):
     from arah_tpu_torch.nn.siren import siren_apply
     t_k, unf_k, div_k, xn_k = out_k[:4]
     t_p, unf_p, div_p, xn_p = out_p[:4]
-    a_unf = float((unf_k == unf_p).float().mean())
-    a_div = float((div_k == div_p).float().mean())
+    a_unf = float((unf_k == unf_p).double().mean())
+    a_div = float((div_k == div_p).double().mean())
+    f_unf = f_div = 0.99
+    wit = ''
+    if out_w is not None:
+        (f_unf, d_unf), (f_div, d_div) = (witness_floor(out_w[1] != unf_p),
+                                          witness_floor(out_w[2] != div_p))
+        wit = (f'; the float64 witness differs on {d_unf} unfinished and '
+               f'{d_div} diverged flags')
     fin = ~unf_k & ~div_k & ~unf_p & ~div_p
     dt_all = (t_k - t_p).abs()
     dt = dt_all[fin]
@@ -1188,25 +1260,28 @@ def march_compare(tag, out_k, out_p, gen, mscale, thresh):
         with torch.no_grad():
             sdf = siren_apply(gen, xn_k[sel])[:, 0] * mscale
         share = float((sdf.abs() < 2 * thresh).float().mean())
-    print(f'{tag}: unfinished agreement {a_unf:.6f}, diverged agreement '
-          f'{a_div:.6f} (bounds >= 0.99); on {int(fin.sum())} rays both '
+    print(f'{tag}: unfinished agreement {a_unf:.6f} (bound >= {f_unf:.6f}), '
+          f'diverged agreement {a_div:.6f} (bound >= {f_div:.6f}); on '
+          f'{int(fin.sum())} rays both '
           f'finished: |dt| median {med_t:.3e} (bound 1e-5) max {max_t:.3e}, '
           f'|dx_norm| median {med_x:.3e} max {max_x:.3e}; {int(differ.sum())}'
           f' rays differ, {int(sel.sum())} of them kernel-finished, share '
           f'on the surface {share:.4f} (bound >= 0.9); unfinished kernel '
-          f'{int(unf_k.sum())} plain {int(unf_p.sum())}', flush=True)
-    check(a_unf >= 0.99 and a_div >= 0.99 and med_t < 1e-5 and share >= 0.9,
+          f'{int(unf_k.sum())} plain {int(unf_p.sum())}{wit}', flush=True)
+    check(a_unf >= f_unf and a_div >= f_div and med_t < 1e-5
+          and share >= 0.9,
           f'{tag}: march kernel disagrees with its plain version')
     return max_t
 
 
-def check_march(cfg, fd, inp, gen, card, tag='E march '):
+def check_march(cfg, fd, inp, gen, card, tag='E march ', witness=False):
     """Kernel E against `sphere_march_plain` at the main path's two
     shapes (iterations per ray too, from `iters_out`; two calls
     bit-equal) on the rays of `inp` (cam_loc, ray_dirs, near, far) in the
     frame and body of `fd` (frame, smpl); its record (times and bounds
     of both phases, each bound from the plain run's per-ray
-    iterations)."""
+    iterations). With `witness`, the plain march also runs in float64,
+    and the flags' and counts' floors are `witness_floor`'s."""
     import torch
     from arah_tpu_torch.ops.march import (kernel_affine, launch_march,
                                           launch_shape, pack_trace,
@@ -1241,15 +1316,21 @@ def check_march(cfg, fd, inp, gen, card, tag='E march '):
     def phase(tag, args, o):
         n = args[1].shape[0]
         k = run(sphere_march, *args)
+        w = None
+        if witness:
+            w = sphere_march_plain(
+                *f64(args[:4]), *f64((smpl.verts_posed, smpl.skinning_weights,
+                                      frame, gen)), n_iters=args[4],
+                thresh=tr.root_finding_threshold, clamp_dist=tr.clamp_dist)
         err = march_compare(tag, k, o, gen, mscale,
-                            tr.root_finding_threshold)
+                            tr.root_finding_threshold, w)
         k2, it_k, ties = kernel_iters(*args)
         same = all(torch.equal(x, y) for x, y in zip(k, k2))
         print(f'  two calls bit-equal {same}; nearest-vertex ties '
               f're-scanned {ties}; {shape_line("march", launch_shape(n), n)}'
               f' [{card}]', flush=True)
         check(same, f'{tag}: two calls of the march kernel differ')
-        iters_check(tag, it_k, o[5])
+        iters_check(tag, it_k, o[5], it_w=None if w is None else w[5])
         shape_sweep(tag, 'march', n, lambda sh: launch_march(
             *args[:4], smpl.verts_posed, smpl.skinning_weights, frame,
             packed, args[4], tr.root_finding_threshold, tr.clamp_dist,
@@ -1293,32 +1374,55 @@ def check_march(cfg, fd, inp, gen, card, tag='E march '):
     return rec
 
 
-def iso_compare(tag, out_k, out_p, resid):
+def iso_compare(tag, out_k, out_p, resid, out_w=None):
     """Hold kernel F's solve (out_k) against the plain one (out_p): valid
     agreement >= 0.99, median |dx_hat| < 1e-5 on commonly valid rays, and
     every kernel-valid ray a root of the plain residual (|g(u)| < 5e-5).
-    resid(sel, u) -> |g(u)| of rays sel. Returns the max |dx_hat| on
-    commonly valid rays."""
+    With the float64 witness's solve `out_w`, the valid agreement's floor
+    is `witness_floor`'s, and in place of the median: the share of
+    commonly valid rays on the plain version's root (|dx_hat| <= 1e-4)
+    at `witness_floor`'s floor from the witness's roots, and the median
+    over those rays < 1e-5. resid(sel, u) -> |g(u)| of rays sel. Returns
+    the max |dx_hat| on commonly valid rays."""
     import torch
     u_k, _, v_k, a_k = out_k[:4]
     u_p, _, v_p, a_p = out_p[:4]
-    agree = float((v_k == v_p).float().mean())
+    agree = float((v_k == v_p).double().mean())
+    floor, wit = 0.99, ''
+    if out_w is not None:
+        floor, d = witness_floor(out_w[2] != v_p)
+        bw = out_w[2] & v_p
+        f_root, d_root = witness_floor(torch.linalg.norm(
+            out_w[0][bw, :3] - u_p[bw, :3].double(), dim=-1) > 1e-4)
+        wit = (f'; the float64 witness differs on {d} valid flags and, of '
+               f'{int(bw.sum())} rays valid in both, lands {d_root} on '
+               f'another root')
     both = v_k & v_p
     dx = torch.linalg.norm(u_k[:, :3] - u_p[:, :3], dim=-1)[both]
     dz = (u_k[:, 3] - u_p[:, 3]).abs()[both]
     med_x = float(dx.median()) if dx.numel() else 0.0
     max_x = float(dx.max()) if dx.numel() else 0.0
     med_z = float(dz.median()) if dz.numel() else 0.0
+    held = med_x < 1e-5
+    if out_w is not None:
+        same = dx <= 1e-4
+        a_root = float(same.double().mean()) if dx.numel() else 1.0
+        med_s = float(dx[same].median()) if bool(same.any()) else 0.0
+        held = a_root >= f_root and med_s < 1e-5
+        wit += (f'; on the plain root {a_root:.6f} of the commonly valid '
+                f'rays (bound >= {f_root:.6f}), their |dx_hat| median '
+                f'{med_s:.3e} (bound 1e-5)')
     sel = torch.nonzero(v_k).flatten()
     r_max = float(resid(sel, u_k[sel]).max()) if sel.numel() else 0.0
-    print(f'{tag}: valid agreement {agree:.6f} (bound >= 0.99); on '
+    print(f'{tag}: valid agreement {agree:.6f} (bound >= {floor:.6f}); on '
           f'{int(both.sum())} commonly valid rays |dx_hat| median '
-          f'{med_x:.3e} (bound 1e-5) max {max_x:.3e}, |dz| median '
+          f'{med_x:.3e}{"" if out_w is not None else " (bound 1e-5)"} max '
+          f'{max_x:.3e}, |dz| median '
           f'{med_z:.3e}; max |g(u)| over kernel-valid rays {r_max:.3e} '
           f'(bound 5e-5); valid kernel {int(v_k.sum())} plain '
           f'{int(v_p.sum())}, active kernel {int(a_k.sum())} plain '
-          f'{int(a_p.sum())}', flush=True)
-    check(agree >= 0.99 and med_x < 1e-5 and r_max < 5e-5,
+          f'{int(a_p.sum())}{wit}', flush=True)
+    check(agree >= floor and held and r_max < 5e-5,
           f'{tag}: iso kernel disagrees with its plain version')
     return max_x
 
@@ -1361,6 +1465,12 @@ def iso_count_witness(tag, rays, wts, bs, frame, gen, steps, cvg, scale,
     dev = rays[1].device
     it32, g32 = solve(torch.float32, dev)
     it64, g64 = solve(torch.float64, dev)
+    # the two solves may stop after different numbers of evaluations
+    # (all rays done): pad the shorter record with NaN
+    n_ev = max(g32.shape[0], g64.shape[0])
+    g32, g64 = (torch.cat([g, torch.full((n_ev - g.shape[0],) + g.shape[1:],
+                                         float('nan'), dtype=g.dtype)])
+                for g in (g32, g64))
     itc = solve(torch.float32, torch.device('cpu'))[0]
     itk = it_k.cpu()
 
@@ -1402,13 +1512,15 @@ def iso_count_witness(tag, rays, wts, bs, frame, gen, steps, cvg, scale,
 
 
 def check_iso(cfg, skin_fn, wts, bs, fd, inp, gen, card, train=False,
-              tag='F iso '):
+              tag='F iso ', witness=False):
     """Kernel F against `iso_refine_plain` at the main path's two shapes,
     from the main path's march (kernel E with its split) of the rays of
     `inp` in the frame and body of `fd`, with the skinning net `skin_fn`
     and its collapsed layers (wts, bs); phase 1 on the rays the march
     left undiverged (the eval path's mask) or, `train`, on every ray (the
-    training path's); its record."""
+    training path's); its record. With `witness`, the plain solve also
+    runs in float64, and the valid flags' and counts' floors are
+    `witness_floor`'s."""
     import torch
     from arah_tpu_torch.core.body import unnormalize_canonical_points
     from arah_tpu_torch.ops.iso import (iso_refine, iso_refine_plain,
@@ -1458,7 +1570,12 @@ def check_iso(cfg, skin_fn, wts, bs, fd, inp, gen, card, train=False,
     def phase(tag, rays, steps, o):
         n = rays[1].shape[0]
         k = run(iso_refine, rays, steps)
-        err = iso_compare(tag, k, o, resid_of(rays))
+        w = None
+        if witness:
+            w = iso_refine_plain(
+                *f64(rays), *f64((wts, bs, frame, gen)), max_steps=steps,
+                cvg_thresh=tr.root_finding_threshold, softmax_scale=scale)
+        err = iso_compare(tag, k, o, resid_of(rays), w)
         it_k = torch.zeros((n,), dtype=torch.int32, device=dev)
         shape = launch_shape(n)
         k2 = launch_iso(*rays, frame, packed, steps,
@@ -1477,7 +1594,8 @@ def check_iso(cfg, skin_fn, wts, bs, fd, inp, gen, card, train=False,
             # or still active at the cap
             held = (k2[2] & o[2]) | (k2[3] & o[3])
         iters_check(tag, it_k, o[4], held,
-                    'both versions end converged or active at the cap')
+                    'both versions end converged or active at the cap',
+                    it_w=None if w is None else w[4])
         if held is not None:
             iso_count_witness(tag, rays, wts, bs, frame, gen, steps,
                               tr.root_finding_threshold, scale, it_k, o[4],
@@ -1559,7 +1677,7 @@ def corr_compare(tag, xk, vk, xp, vp, x_bar, frame, skin_fn,
             xb, _ = lbs(x_hat, skin_fn(xn), frame.bone_transforms)
         return torch.linalg.norm(xb - target, dim=-1)
 
-    agree = float((vk == vp).float().mean())
+    agree = float((vk == vp).double().mean())
     both = vk & vp
     dist = torch.linalg.norm(xk - xp, dim=-1)
     dx = dist[both]
@@ -1577,7 +1695,8 @@ def corr_compare(tag, xk, vk, xp, vp, x_bar, frame, skin_fn,
     if stragglers is None:
         floor, why, ok = 0.99, '', True
     else:
-        floor = 1.0 - 2.0 * stragglers / max(vk.numel(), 1)
+        # (N - 2 d) / N, rounded once as the agreement is
+        floor = (vk.numel() - 2 * stragglers) / max(vk.numel(), 1)
         why = (f'; valid kernel bound >= plain - {stragglers} (the float64 '
                f'witness flips {stragglers}); plain residual over '
                f'kernel-valid points bound {2 * cvg + noise:g}')
@@ -2084,17 +2203,19 @@ def capture_train_kernels():
 
 @contextlib.contextmanager
 def capture_trace():
-    """Record what the train step hands kernels A-F (the calls still
-    run): {'trace': `renderer.trace_and_sample`, inside which A, B, E and
-    F run; 'shade': C's wrapper as `ops/shade_grad.py` calls it;
-    'color_fwd': D's as `nn/color.py` calls it}, one (args, kwargs,
-    result) a call, in call order."""
+    """Record what a train step or an eval render hands kernels A-F (the
+    calls still run): {'trace': `renderer.trace_and_sample`, inside which
+    A, B, E and F run; 'shade': C's wrapper as `ops/shade_grad.py` (train)
+    or `render/renderer.py` (eval) calls it; 'color_fwd': D's as
+    `nn/color.py` calls it}, one (args, kwargs, result) a call, in call
+    order."""
     from arah_tpu_torch.nn import color as ncolor
     from arah_tpu_torch.ops import shade_grad as oshade
     from arah_tpu_torch.render import renderer as rend
     seen = {'trace': [], 'shade': [], 'color_fwd': []}
     patched = [(rend, 'trace_and_sample', 'trace'),
                (oshade, 'siren_shade', 'shade'),
+               (rend, 'siren_shade', 'shade'),
                (ncolor, 'color_mlp_fused', 'color_fwd')]
     saved = [getattr(mod, attr) for mod, attr, _ in patched]
     for (mod, attr, name), real in zip(patched, saved):
@@ -2110,21 +2231,25 @@ def capture_trace():
             setattr(mod, attr, real)
 
 
-def check_block_kernels(cfg, params, seen, card, no_tf32):
+def check_block_kernels(cfg, params, seen, card, no_tf32,
+                        tag='refined', train=True, witness=False):
     """Kernels A-F held against their plain versions, by step 3's checks,
-    on what the refined warm-up step's first block handed them (`seen`
-    of `capture_trace`): A (and every launch shape of its body) and B at
-    both phases on the block's samples, C on its two shading calls, D on
-    its colour call, E and F at both phases on its rays (F with the
-    training path's mask, every ray). `params`: the skinning net that B
-    and F solve with (the step's collapsed layers)."""
+    on what a warm-up step's first block, or an eval render's first chunk
+    (`train` False), handed them (`seen` of `capture_trace`; `tag` names
+    the run, 'refined', 'cli' or 'cli validate'): A (and every launch
+    shape of its body) and B at both phases on the block's samples, C on
+    its first two shading calls, D on its colour call, E and F at both
+    phases on its rays (F with the training path's mask, every ray, or
+    the eval path's; with `witness`, their flags and counts held to a
+    float64 witness's floors, `witness_floor`). `params`: the skinning
+    net that B and F solve with (the step's collapsed layers)."""
     import torch
     from types import SimpleNamespace
     from arah_tpu_torch.nn.skinning import skinning_dense_params
     from arah_tpu_torch.ops.knn import nn_idx, nn_idx_plain
     from arah_tpu_torch.render.renderer import make_skin_fn
     args, kw, out = seen['trace'][0]
-    # the refined frame and rays carry the step's graph: the checks take
+    # a refined frame and rays carry the step's graph: the checks take
     # them detached
     frame, smpl = (type(t)(*(a.detach() for a in t)) for t in args[3:5])
     cam, dirs, near, far = (a.detach() for a in args[5:9])
@@ -2134,18 +2259,19 @@ def check_block_kernels(cfg, params, seen, card, no_tf32):
         .reshape(-1, 3).contiguous()
     flat_mask = smask.reshape(-1).contiguous()
     n, verts = pts.shape[0], smpl.verts_posed
-    print(f'A-F on the refined warm-up step\'s block 0: {dirs.shape[0]} rays '
+    where = "warm-up step's block" if train else "render's chunk"
+    print(f'A-F on the {tag} {where} 0: {dirs.shape[0]} rays '
           f'({int((near >= far).sum())} of them outside the box), {n} '
           f'samples ({int(flat_mask.sum())} active)', flush=True)
     no_tf32()
     with torch.no_grad():
         idx_k, idx_p = nn_idx(pts, verts), nn_idx_plain(pts, verts)
     same = bool(torch.equal(idx_k, idx_p))
-    print(f'A knn (refined, {n} samples): indices equal at every point '
+    print(f'A knn ({tag}, {n} samples): indices equal at every point '
           f'{same} ({int((idx_k != idx_p).sum())} differ)', flush=True)
-    check(same, 'knn kernel disagrees with its plain version (refined)')
+    check(same, f'knn kernel disagrees with its plain version ({tag})')
     del idx_k, idx_p
-    knn_sweep(f'A/K knn (refined, {n} samples)', pts, verts, card)
+    knn_sweep(f'A/K knn ({tag}, {n} samples)', pts, verts, card)
     with torch.no_grad():
         wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
     no_tf32()
@@ -2154,19 +2280,20 @@ def check_block_kernels(cfg, params, seen, card, no_tf32):
     del pts, flat_mask
     for i, (a, k, _) in enumerate(seen['shade'][:2]):
         no_tf32()
-        compare_shade(f'C shade (refined, call {i}, bf16={k["bf16"]})', a[0],
+        compare_shade(f'C shade ({tag}, call {i}, bf16={k["bf16"]})', a[0],
                       a[1], k['bf16'])
     a, k, _ = seen['color_fwd'][0]
     no_tf32()
-    compare_color_fwd(f'D color_fwd (refined, bf16={k["bf16"]}, feats '
+    compare_color_fwd(f'D color_fwd ({tag}, bf16={k["bf16"]}, feats '
                       f'{a[3].dtype})', *a[:5], k['skips'], k['bf16'])
     fd = SimpleNamespace(frame=frame, smpl=smpl)
     inp = SimpleNamespace(cam_loc=cam, ray_dirs=dirs, near=near, far=far)
     no_tf32()
-    check_march(cfg, fd, inp, gen, card, tag='E march (refined) ')
+    check_march(cfg, fd, inp, gen, card, tag=f'E march ({tag}) ',
+                witness=witness)
     no_tf32()
     check_iso(cfg, make_skin_fn(params, cfg), wts, bs, fd, inp, gen, card,
-              train=True, tag='F iso (refined) ')
+              train=train, tag=f'F iso ({tag}) ', witness=witness)
 
 
 def off_box_step(s, state, draws, card):
@@ -3465,6 +3592,365 @@ def run_options(cfg, params, fd, card, no_tf32):
     hold_steps('single_bvp step, kernels against its plain-path twin', b_k,
                b_p, 1e-2, 0.99, card)
     return records, launches
+
+
+# ---- phase 9: the CLIs on the fake ZJU dataset
+
+CLI_FRAMES = 4          # fixture frames, views 1 and 7, 1024 x 1024
+CLI_KERNELS_EVAL = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso')
+# the plain versions of A-I (and the tracer's plain loops): none may run
+# on the card's path
+PLAIN_FNS = ('nn_idx_plain', 'corr_search_plain', 'siren_shade_plain',
+             'color_mlp_plain', 'color_mlp_bwd_plain', 'sphere_march_plain',
+             'iso_refine_plain', 'skinning_jac_plain', 'shade_bwd_plain',
+             '_march_plain', 'search_iso_surface_depth')
+
+
+@contextlib.contextmanager
+def count_plain():
+    """Count the calls of every plain version (PLAIN_FNS), wherever a
+    module of the port holds one, while the block runs: {name: calls}."""
+    calls = {n: 0 for n in PLAIN_FNS}
+    saved = []
+    for mod in [m for k, m in list(sys.modules.items())
+                if k.startswith('arah_tpu_torch') and m is not None]:
+        for name in PLAIN_FNS:
+            real = getattr(mod, name, None)
+            if real is None:
+                continue
+
+            def spy(*a, _real=real, _name=name, **k):
+                calls[_name] += 1
+                return _real(*a, **k)
+            saved.append((mod, name, real))
+            setattr(mod, name, spy)
+    try:
+        yield calls
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def cli_config(path, base, data, out, model=None, **training):
+    """A config that inherits `base` with the fixture's paths, the given
+    `model` keys (a dict) and `training` keys."""
+    lines = [f'inherit_from: {base}', 'data:', f'  path: {data}',
+             f'  smpl_misc: {data}/body_models/misc', 'model:'] + [
+        f'  {k}: {v}' for k, v in (model or {}).items()] + [
+        'training:', f'  out_dir: {out}'] + [f'  {k}: {v}'
+                                             for k, v in training.items()]
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return path
+
+
+@contextlib.contextmanager
+def time_steps():
+    """The host-clock seconds between the starts of consecutive steps of
+    the train steps `train/trainer.py` makes while the block runs (the
+    loader's and the validation's waits included): a list."""
+    from arah_tpu_torch.train import trainer
+    gaps, real = [], trainer.make_train_step
+
+    def spy(*a, **k):
+        step, last = real(*a, **k), []
+
+        def timed_step(*sa):
+            now = time.perf_counter()
+            if last:
+                gaps.append(now - last[0])
+            last[:] = [now]
+            return step(*sa)
+        return timed_step
+    trainer.make_train_step = spy
+    try:
+        yield gaps
+    finally:
+        trainer.make_train_step = real
+
+
+def run_cli(fn, argv):
+    """fn(argv) in this process with its standard output captured (and
+    printed, indented); returns the output."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f'    | {line}')
+    return out
+
+
+def write_pretrained(tmp, scene, cfg):
+    """The fitted scene's SIREN and skinning net as the reference's
+    pretrained checkpoints (a MetaAvatar `decoder.net.net.<i>.0` state
+    dict and a SNARF `skinning_decoder_fwd.lin<l>` one), which the
+    config's `model.geometry_net` and `model.skinning_net2` load through
+    `train/checkpoints.py`'s converters. Returns their model keys."""
+    import torch
+    from arah_tpu_torch.nn.hypernet import siren_layer_dims
+    geo = {}
+    for i, ((d_in, d_out), h) in enumerate(zip(
+            siren_layer_dims(cfg.hypernet), scene['hypernet']['hypo_init'])):
+        h = h.detach().cpu()
+        geo[f'decoder.net.net.{i}.0.weight'] = h[:d_in * d_out].reshape(
+            d_out, d_in)
+        geo[f'decoder.net.net.{i}.0.bias'] = h[d_in * d_out:]
+    skin = {}
+    for l, lyr in enumerate(scene['skinning']['layers']):
+        pre = f'skinning_decoder_fwd.lin{l}.'
+        names = {'v': 'weight_v', 'g': 'weight_g', 'w': 'weight', 'b': 'bias'}
+        for k, v in lyr.items():
+            skin[pre + names[k]] = v.detach().cpu()
+    paths = {'geometry_net': os.path.join(tmp, 'metaavatar.pt'),
+             'skinning_net2': os.path.join(tmp, 'snarf.pt')}
+    torch.save({'model': geo}, paths['geometry_net'])
+    torch.save({'model': skin}, paths['skinning_net2'])
+    return paths
+
+
+def run_clis(card, no_tf32, scene):
+    """Phase 9 of the module docstring: the fixture, `cli.train` (2
+    epochs, a resumed third, a job-chained subprocess that must exit with
+    code 2), `cli.validate --novel-view`, A-F against their plain
+    versions on the validation render's first chunk and A-I at the CLI
+    step's shapes, and the CLI layer's times. The model starts from
+    `scene`'s fitted SIREN and skinning net (phase 2), given to the
+    config as pretrained checkpoints, so that the avatar has a surface.
+    Returns {kernel: launches in the 2-epoch train run}."""
+    import tempfile
+    import numpy as np
+    import torch
+    from arah_tpu_torch.cli import train as cli_train
+    from arah_tpu_torch.cli import validate as cli_validate
+    from arah_tpu_torch.config.factory import (get_dataset,
+                                               init_params_from_cfg)
+    from arah_tpu_torch.config.loader import (default_config_path,
+                                              load_config,
+                                              loss_weights_from_cfg,
+                                              model_config_from_cfg,
+                                              optim_config_from_cfg)
+    from arah_tpu_torch.data.batch import draw_train_draws
+    from arah_tpu_torch.data.fake_dataset import make_fake_zju_dataset
+    from arah_tpu_torch.data.loader import collate_train_batch
+    from arah_tpu_torch.eval.evaluator import evaluate_frame
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.parallel.train_step import (TrainState,
+                                                    make_train_step,
+                                                    trainable)
+    from arah_tpu_torch.train import checkpoints as ckpt_lib
+    from arah_tpu_torch.train.optim import make_optimizer
+    from arah_tpu_torch.utils.image import read_image
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(repo, 'configs', 'fake', 'FAKE-ZJU-flagship.yaml')
+    img_size = 1024
+    with tempfile.TemporaryDirectory(prefix='arah_cli_') as tmp:
+        data = os.path.join(tmp, 'data')
+        t0 = time.perf_counter()
+        make_fake_zju_dataset(data, n_frames=CLI_FRAMES, views=('1', '7'),
+                              img_size=img_size)
+        print(f'phase 9: fake ZJU fixture ({CLI_FRAMES} frames, views 1 and '
+              f'7, {img_size} x {img_size}, 1,024 vertices) written in '
+              f'{time.perf_counter() - t0:.2f} s', flush=True)
+        out = os.path.join(tmp, 'out')
+        pre = write_pretrained(tmp, scene, model_config_from_cfg(
+            load_config(base, default_config_path())))
+        cfg_path = cli_config(os.path.join(tmp, 'cfg.yaml'), base, data, out,
+                              pre, max_epochs=2, checkpoint_every_n_epochs=1,
+                              validate_every_n_epochs=1)
+
+        # ---- cli.train, 2 epochs, counted
+        no_tf32()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        with count_plain() as plain, time_steps() as step_s:
+            run_cli(cli_train.main, [cfg_path])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(_build.COUNTS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f'cli.train (2 epochs): {train_s:.2f} s, launches '
+              f'{ {k: launches[k] for k in TRAIN_KERNELS} }, plain calls '
+              f'{plain}, peak memory {peak:.2f} GiB [{card}]', flush=True)
+        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+              f'cli.train: a kernel of A-I was not launched: {launches}')
+        check(not any(plain.values()), f'cli.train: plain versions ran: '
+              f'{plain}')
+        ck = os.path.join(out, 'checkpoints')
+        for f in ('metrics.tsv', 'val_metrics.tsv', 'checkpoints/LAST',
+                  'checkpoints/META.json', 'checkpoints/BEST.json'):
+            check(os.path.exists(os.path.join(out, f)),
+                  f'cli.train did not write {f}')
+        with open(os.path.join(out, 'metrics.tsv')) as f:
+            rows = [ln.rstrip('\n').split('\t') for ln in f]
+        vals = [float(v) for r in rows if r[0] != 'step' for v in r]
+        check(len(vals) > 0 and all(np.isfinite(vals)),
+              f'cli.train: logged losses not finite: {rows}')
+        with open(os.path.join(ck, 'META.json')) as f:
+            meta = json.load(f)
+        check(meta['epoch'] == 2, f'cli.train META.json {meta}')
+
+        # ---- the rerun resumes and trains one more epoch
+        more = cli_config(os.path.join(tmp, 'more.yaml'), base, data, out,
+                          pre, max_epochs=3, checkpoint_every_n_epochs=1)
+        text = run_cli(cli_train.main, [more])
+        check(f'resumed from step {meta["step"]} (epoch 2)' in text,
+              'cli.train rerun did not resume')
+        with open(os.path.join(ck, 'META.json')) as f:
+            meta3 = json.load(f)
+        check(meta3['epoch'] == 3 and meta3['step'] > meta['step'],
+              f'cli.train rerun META.json {meta3}')
+
+        # ---- job chaining in a subprocess: --exit-after gives code 2
+        chain = cli_config(os.path.join(tmp, 'chain.yaml'), base, data,
+                           os.path.join(tmp, 'out_chain'), pre,
+                           max_epochs=50)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, '-m', 'arah_tpu_torch.cli.train', chain,
+             '--exit-after', '1', '--epochs-per-run', '50'],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        print(f'cli.train --exit-after 1 --epochs-per-run 50 (subprocess): '
+              f'exit code {r.returncode} in {time.perf_counter() - t0:.1f} s; '
+              f'{r.stdout.strip().splitlines()[-1:]}', flush=True)
+        check(r.returncode == 2, f'cli.train --exit-after: exit code '
+              f'{r.returncode}, not 2: {r.stderr[-2000:]}')
+
+        # ---- cli.validate --novel-view, counted
+        no_tf32()
+        _build.reset_counts()
+        with count_plain() as plain:
+            run_cli(cli_validate.main, [cfg_path, '--novel-view'])
+        torch.cuda.synchronize()
+        vl = dict(_build.COUNTS)
+        with open(os.path.join(out, 'val', 'metrics.json')) as f:
+            mean = json.load(f)['mean']
+        print(f'cli.validate --novel-view: {mean}; launches '
+              f'{ {k: vl[k] for k in CLI_KERNELS_EVAL} }, plain calls '
+              f'{plain} [{card}]', flush=True)
+        check(all(vl[k] > 0 for k in CLI_KERNELS_EVAL),
+              f'cli.validate: a kernel of A-F was not launched: {vl}')
+        check(not any(plain.values()), f'cli.validate: plain versions ran: '
+              f'{plain}')
+        check(all(np.isfinite(mean[k]) for k in ('psnr', 'ssim'))
+              and any(k.startswith('lpips') and np.isfinite(v)
+                      for k, v in mean.items()),
+              f'cli.validate: metrics not finite: {mean}')
+
+        # ---- the CLI layer's times: loader s/item, validation s/frame
+        cfg = load_config(cfg_path, default_config_path())
+        model_cfg = model_config_from_cfg(cfg)
+        ds = get_dataset('train', cfg)
+        n_ray = ds.num_fg_samples + ds.num_bg_samples
+        jpg = ds.data[0]['img_file']
+        dec = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            read_image(jpg)
+            dec.append(time.perf_counter() - t0)
+        item_s = []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            ds[i]
+            item_s.append(time.perf_counter() - t0)
+        # the validation's frames and trained parameters, as
+        # `cli/validate.py` makes them (every frame's latent in range)
+        val_ds = get_dataset('val', cfg, subsampling_rate=30)
+        vparams = init_params_from_cfg(0, cfg, model_cfg, ds, mode='val',
+                                       device='cuda')
+        _, vstep = ckpt_lib.restore_checkpoint(
+            os.path.join(out, 'checkpoints'), TrainState(vparams, None, 0))
+        check(vstep == meta3['step'], f'validation restored step {vstep}')
+        val_items = [val_ds[i] for i in range(len(val_ds))]
+
+        def latent(item):
+            return vparams['latent'][int(item['inputs.data_idx'])]
+
+        # ---- A-F against their plain versions on what the validation
+        # render's first chunk hands them (its own chunk of rays)
+        no_tf32()
+        with capture_trace() as seen:
+            evaluate_frame(vparams, model_cfg, val_items[0],
+                           latent(val_items[0]))
+        torch.cuda.synchronize()
+        check_block_kernels(model_cfg, vparams, seen, card, no_tf32,
+                            tag='cli validate', train=False, witness=True)
+        del seen
+        torch.cuda.empty_cache()
+        val_s = []     # each frame three times
+        for item in val_items * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate_frame(vparams, model_cfg, item, latent(item))
+            torch.cuda.synchronize()
+            val_s.append(time.perf_counter() - t0)
+        v0 = val_ds[0]
+        n_box = int(v0['inputs.image_mask'].sum())
+        hw = f'{int(v0["inputs.img_height"])} x {int(v0["inputs.img_width"])}'
+        ms = np.asarray(step_s) * 1e3
+        print(f'CLI layer: ms/step median {np.median(ms):.1f} (min '
+              f'{ms.min():.1f}, max {ms.max():.1f}; wall time between '
+              f'step starts over {len(ms) + 1} steps of 2 blocks x '
+              f'{n_ray} rays, loading and validation waits included); loader '
+              f'{np.median(item_s):.3f} s/item median (min '
+              f'{min(item_s):.3f}, max {max(item_s):.3f}; {len(item_s)} '
+              f'train items, one thread), of which JPEG decode of a '
+              f'{img_size} x {img_size} frame {np.median(dec) * 1e3:.1f} ms; '
+              f'validation {np.median(val_s):.3f} s/frame median (min '
+              f'{min(val_s):.3f}, max {max(val_s):.3f}; {len(val_items)} '
+              f'frames x 3 of {n_box} box rays at {hw}) [{card}]', flush=True)
+
+        # ---- A-I against their plain versions at the CLI step's shapes,
+        # and one traced step
+        params = init_params_from_cfg(0, cfg, model_cfg, ds, device='cuda')
+        loss_w = loss_weights_from_cfg(cfg)
+        tparams = trainable(params)
+        optimizer, _ = make_optimizer(optim_config_from_cfg(cfg), tparams)
+        step = make_train_step(model_cfg, loss_w, optimizer)
+        idxs = [i for i, rec in enumerate(ds.data) if rec['frame_idx'] == 0]
+        batch = collate_train_batch([ds[i] for i in idxs], device='cuda')
+        B, R = batch.ray_dirs.shape[:2]
+        rng = np.random.RandomState(9)
+        draws = [draw_train_draws(rng, model_cfg, B, R, 'cuda')
+                 for _ in range(2)]
+        state = TrainState(tparams, optimizer, 0)
+        print(f'A-I at the CLI step\'s shapes: {B} blocks x {R} rays '
+              f'({R * model_cfg.tracer.n_steps:,} samples a block)',
+              flush=True)
+        no_tf32()
+        with capture_train_kernels() as calls, capture_trace() as seen:
+            state, losses = step(state, batch, draws[0])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(losses['loss'])),
+              'CLI warm-up step: loss not finite')
+        check_block_kernels(model_cfg, params, seen, card, no_tf32,
+                            tag='cli')
+        del seen
+        no_tf32()
+        check_skin_jac(calls['skin_jac'][0], card)
+        no_tf32()
+        check_shade_bwd(max(calls['shade_bwd'],
+                            key=lambda a: a[1].shape[0]), card, 5e-3)
+        no_tf32()
+        check_color_bwd(calls['color_bwd'][0], card, 5e-3)
+        del calls
+        torch.cuda.empty_cache()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, losses = step(state, batch, draws[1])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f'CLI step alone (a fixed batch, no loader): '
+              f'{[round(t, 1) for t in times]} ms [{card}]', flush=True)
+        profile_frame(lambda: step(state, batch, draws[1]),
+                      float(np.median(times)), card,
+                      tag='one CLI train step')
+    return launches
 
 
 if __name__ == '__main__':

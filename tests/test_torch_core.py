@@ -196,8 +196,11 @@ class TestConfigs:
 
 class TestPortRules:
     def test_imports_no_jax(self):
-        """Importing every arah_tpu_torch module leaves no jax and no
-        arah_tpu module loaded."""
+        """Importing every arah_tpu_torch module, the CLIs and the data
+        path included, loads no jax and no arah_tpu module, and none of
+        the packages the card's machine lacks: yaml, cv2, PIL, imageio,
+        orbax (the port reads its configs and images with its own
+        code)."""
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         code = (
             'import importlib, pkgutil, sys\n'
@@ -205,18 +208,22 @@ class TestPortRules:
             'for m in pkgutil.walk_packages(arah_tpu_torch.__path__, '
             "'arah_tpu_torch.'):\n"
             '    importlib.import_module(m.name)\n'
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m.startswith('jaxlib') or "
-            "m == 'arah_tpu' or m.startswith('arah_tpu.')]\n"
+            "top = ('jax', 'jaxlib', 'arah_tpu', 'yaml', 'cv2', 'PIL', "
+            "'imageio', 'orbax')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in top]\n"
             'n = sum(m.startswith("arah_tpu_torch") for m in sys.modules)\n'
-            "print(n, ','.join(bad))\n")
+            "cli = all(f'arah_tpu_torch.{m}' in sys.modules for m in "
+            "('cli.train', 'cli.validate', 'data.human_video', "
+            "'utils.image', 'config.yaml_lite', 'train.trainer', "
+            "'eval.evaluator', 'native'))\n"
+            "print(n, cli, ','.join(bad))\n")
         r = subprocess.run([sys.executable, '-c', code], cwd=root,
                            capture_output=True, text=True, timeout=120)
         assert r.returncode == 0, r.stderr
-        n, bad = r.stdout.strip().split(' ', 1) if ' ' in r.stdout.strip() \
-            else (r.stdout.strip(), '')
-        assert int(n) >= 20, r.stdout
-        assert bad == '', bad
+        n, cli, bad = (r.stdout.strip() + ' ').split(' ', 2)
+        assert int(n) >= 30, r.stdout
+        assert cli == 'True', r.stdout
+        assert bad.strip() == '', bad
 
     def test_build_scene_needs_a_device(self, monkeypatch):
         from arah_tpu_torch.scene import build_scene, flagship_config
