@@ -1,6 +1,6 @@
 """Datasets and parameter trees from config dicts. Port of
-`arah_tpu/config/factory.py`: `get_dataset` (the ZJU-MoCap reader; the
-other datasets raise, their readers are not ported) and
+`arah_tpu/config/factory.py`: `get_dataset` (the ZJU-MoCap, H36M,
+People-Snapshot and novel-pose (ODP) readers) and
 `init_params_from_cfg` (the latent table sized to the training frames,
 the pretrained MetaAvatar SDF and SNARF skinning checkpoints, the
 learnable per-frame SMPL and per-camera leaves).
@@ -67,10 +67,18 @@ def get_dataset(mode: str, cfg: dict, view_split=None, subsampling_rate=None,
     if dataset_type == 'zju_mocap':
         from arah_tpu_torch.data.human_video import ZJUMoCapDataset
         return ZJUMoCapDataset(d['path'], **common)
-    if dataset_type in ('h36m', 'people_snapshot', 'zju_mocap_odp'):
-        raise NotImplementedError(
-            f'dataset {dataset_type!r}: its reader is not ported yet '
-            '(ROADMAP.md, the host pipeline)')
+    if dataset_type == 'h36m':
+        from arah_tpu_torch.data.human_video import H36MDataset
+        return H36MDataset(d['path'], **common)
+    if dataset_type == 'people_snapshot':
+        from arah_tpu_torch.data.human_video import PeopleSnapshotDataset
+        return PeopleSnapshotDataset(d['path'], **common)
+    if dataset_type == 'zju_mocap_odp':
+        from arah_tpu_torch.data.odp import ODPDataset
+        for k in ('num_fg_samples', 'num_bg_samples', 'sample_reg_surface',
+                  'sample_inside', 'sample_patch'):
+            common.pop(k)
+        return ODPDataset(d['path'], pose_dir=d.get('pose_dir'), **common)
     raise ValueError(f'unknown dataset {dataset_type}')
 
 

@@ -1,13 +1,18 @@
-"""Write a small on-disk dataset in the ZJU-MoCap layout from the synthetic
-body, so that the whole host data path (image reading, ray sampling,
-regulariser points) and the CLIs run end to end without the real data.
-Port of `arah_tpu/data/fake_dataset.py` (the ZJU layout; the H36M and
-People-Snapshot layouts are not ported). It writes through the port's own
-image writer (`utils/image.py`) and poses the body with `core/smpl.py:
-lbs` on the CPU.
+"""Write a small on-disk dataset in the ZJU-MoCap, H36M or People-Snapshot
+layout from the synthetic body, so that the whole host data path (image
+reading, undistortion, ray sampling, regulariser points) and the CLIs run
+end to end without the real data. Port of `arah_tpu/data/fake_dataset.py`
+(its three layouts; the raw pre-preprocessing trees stay with the JAX
+package's preprocessing scripts). It writes through the port's own image
+writer (`utils/image.py`) and poses the body with `core/smpl.py:lbs` on
+the CPU.
 
     python -m arah_tpu_torch.data.fake_dataset --root data/fake_zju \\
         --frames 4 --views 1,7
+    python -m arah_tpu_torch.data.fake_dataset --layout h36m \\
+        --root data/fake_h36m --frames 4 --views 1,2
+    python -m arah_tpu_torch.data.fake_dataset --layout snapshot \\
+        --root data/fake_snapshot --frames 4
 """
 from __future__ import annotations
 
@@ -141,21 +146,104 @@ def make_fake_zju_dataset(root: str, subject='CoreView_313', n_frames=2,
     return misc_dir, model
 
 
+def make_fake_h36m_dataset(root: str, subject='S9', n_frames=2,
+                           views=('1', '2'), n_verts=1024, seed=0):
+    """H36M (Animatable-NeRF) layout: everything under {subject}/Posing/,
+    1002 x 1000 images with intrinsics expressed at that native
+    resolution (data/human_video.py H36MDataset). Returns (misc_dir,
+    model)."""
+    rng = np.random.RandomState(seed)
+    model = synthetic_smpl(n_verts=n_verts, seed=seed)
+    misc_dir = os.path.join(root, 'body_models', 'misc')
+    write_smpl_misc(misc_dir, model)
+
+    sdir = os.path.join(root, subject, 'Posing')
+    H, W = 1002, 1000
+    cam_params = {'all_cam_names': list(views)}
+    cams = {}
+    for i, v in enumerate(views):
+        K, R, T = _camera(360.0 * i / max(len(views), 1),
+                          c=W / 2, cy=H / 2)
+        cam_params[v] = {'K': K.tolist(), 'R': R.tolist(),
+                         'T': T.tolist(), 'D': [0, 0, 0, 0, 0]}
+        cams[v] = (K, R, T)
+
+    _write_frames(
+        model, rng, n_frames, cams, (H, W),
+        os.path.join(sdir, 'models'),
+        lambda v, f: os.path.join(sdir, v, f'{f:06d}.jpg'),
+        lambda v, f: os.path.join(sdir, v, f'{f:06d}.png'))
+    os.makedirs(sdir, exist_ok=True)
+    with open(os.path.join(sdir, 'cam_params.json'), 'w') as f:
+        json.dump(cam_params, f)
+    return misc_dir, model
+
+
+def make_fake_snapshot_dataset(root: str, subject='female-3-casual',
+                               n_frames=2, img_size=512, n_verts=1024,
+                               seed=0):
+    """People-Snapshot layout: monocular `camera.pkl` (camera_f/c/k,
+    R = I, T = 0), `image/*.jpg`, `mask/*.png`, `models/*.npz`
+    (data/human_video.py PeopleSnapshotDataset). The body is translated
+    in front of the identity camera. Returns (misc_dir, model)."""
+    import pickle
+    rng = np.random.RandomState(seed)
+    model = synthetic_smpl(n_verts=n_verts, seed=seed)
+    misc_dir = os.path.join(root, 'body_models', 'misc')
+    write_smpl_misc(misc_dir, model)
+
+    sdir = os.path.join(root, subject)
+    os.makedirs(sdir, exist_ok=True)
+    f = 1000.0
+    c = img_size / 2.0
+    with open(os.path.join(sdir, 'camera.pkl'), 'wb') as fh:
+        pickle.dump({'camera_f': np.array([f, f]),
+                     'camera_c': np.array([c, c]),
+                     'camera_k': np.zeros(5)}, fh)
+    K = np.array([[f, 0, c], [0, f, c], [0, 0, 1.0]])
+    cams = {'0': (K, np.eye(3), np.zeros(3))}
+
+    _write_frames(
+        model, rng, n_frames, cams, (img_size, img_size),
+        os.path.join(sdir, 'models'),
+        lambda v, fi: os.path.join(sdir, 'image', f'{fi:06d}.jpg'),
+        lambda v, fi: os.path.join(sdir, 'mask', f'{fi:06d}.png'),
+        trans=np.array([0.0, 0.0, 2.8], np.float32))
+    return misc_dir, model
+
+
 def main(argv=None):
     import argparse
     p = argparse.ArgumentParser(
-        description='Write an on-disk fake ZJU dataset (see configs/fake/)')
+        description='Write an on-disk fake dataset (see configs/fake/)')
     p.add_argument('--root', default='data/fake_zju')
-    p.add_argument('--layout', choices=('zju',), default='zju')
+    p.add_argument('--layout', choices=('zju', 'h36m', 'snapshot'),
+                   default='zju')
     p.add_argument('--frames', type=int, default=8)
-    p.add_argument('--views', default='1,7')
+    p.add_argument('--views', default='1,7',
+                   help='camera names (zju, h36m; snapshot has one)')
     p.add_argument('--verts', type=int, default=1024)
-    p.add_argument('--img-size', type=int, default=1024)
+    p.add_argument('--img-size', type=int, default=None,
+                   help='square image side: zju 1024, snapshot 512 by '
+                        'default; h36m is 1002 x 1000')
     p.add_argument('--seed', type=int, default=0)
     args = p.parse_args(argv)
-    misc, _ = make_fake_zju_dataset(
-        args.root, n_frames=args.frames, views=tuple(args.views.split(',')),
-        img_size=args.img_size, n_verts=args.verts, seed=args.seed)
+    views = tuple(args.views.split(','))
+    if args.layout == 'zju':
+        misc, _ = make_fake_zju_dataset(
+            args.root, n_frames=args.frames, views=views,
+            img_size=args.img_size or 1024, n_verts=args.verts,
+            seed=args.seed)
+    elif args.layout == 'h36m':
+        if args.img_size is not None:
+            p.error('--img-size: the h36m layout is 1002 x 1000')
+        misc, _ = make_fake_h36m_dataset(
+            args.root, n_frames=args.frames, views=views,
+            n_verts=args.verts, seed=args.seed)
+    else:
+        misc, _ = make_fake_snapshot_dataset(
+            args.root, n_frames=args.frames, img_size=args.img_size or 512,
+            n_verts=args.verts, seed=args.seed)
     print(f'wrote {args.layout} fixture under {args.root} (misc: {misc})')
 
 

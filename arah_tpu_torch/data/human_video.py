@@ -1,10 +1,11 @@
-"""Host-side multi-view human video dataset: one item a (frame, view),
+"""Host-side multi-view human video datasets: one item a (frame, view),
 flat dicts of fixed-size numpy arrays keyed like the reference's
-`image.*` / `inputs.*` fields. Port of `arah_tpu/data/human_video.py`
-(the base class and the ZJU-MoCap reader; the H36M and People-Snapshot
-readers are not ported). Per item, on the host:
+`image.*` / `inputs.*` fields. Port of `arah_tpu/data/human_video.py`:
+the base class and the ZJU-MoCap, H36M and People-Snapshot readers. Per
+item, on the host:
 
-  1. load and resize the image and mask, boundary-label the mask (100),
+  1. load, undistort (a camera with non-zero `D`) and resize the image
+     and mask, boundary-label the mask (100),
   2. rescale K to the target image size,
   3. SMPL npz -> local/full pose rotations, pose-blend-shaped minimal
      shape, posed vertices via the stored bone transforms,
@@ -15,11 +16,10 @@ readers are not ported). Per item, on the host:
   6. regularization point sampling (off-surface / surface skinning /
      inside) via the port's native point-mesh queries.
 
-Images are read and resized by the port's own code (`utils/image.py`),
-which gives OpenCV's bytes, so an item equals JAX's for the same seed:
-the per-item randomness is the same numpy `RandomState` stream. A camera
-with non-zero distortion `D` raises: undistortion is not ported
-(ROADMAP.md, modules still to port, the host pipeline).
+Images are read, undistorted and resized by the port's own code
+(`utils/image.py`), which gives OpenCV's bytes, so an item equals JAX's
+for the same seed: the per-item randomness is the same numpy
+`RandomState` stream.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from arah_tpu_torch import native
 from arah_tpu_torch.core.body import get_02v_bone_transforms
 from arah_tpu_torch.utils.image import (dilate5, erode5, fill_poly,
                                         read_image, resize_linear,
-                                        resize_nearest)
+                                        resize_nearest, undistort)
 
 
 def get_bound_2d_mask(bounds, K, pose, H, W):
@@ -455,10 +455,9 @@ class HumanVideoDataset:
         cam_loc = -R.T @ cam_trans
 
         if np.abs(dist).max() > 0:
-            raise NotImplementedError(
-                f'camera {rec["cam_name"]} has lens distortion D = '
-                f'{dist.tolist()}: undistortion is not ported yet '
-                '(ROADMAP.md, the host pipeline)')
+            image = undistort(image, K, dist)
+            mask = undistort(mask, K, dist)
+            mask_erode = undistort(mask_erode, K, dist)
 
         H, W = self.img_size
         img = resize_linear(image, (W, H)).astype(np.float32)
@@ -557,3 +556,72 @@ class ZJUMoCapDataset(HumanVideoDataset):
                              'img_file': imgf, 'mask_file': maskf,
                              'model_file': modelf})
         return data
+
+
+class H36MDataset(ZJUMoCapDataset):
+    """Human3.6M (Animatable-NeRF layout): the sequence lives under a
+    `Posing/` subdirectory and intrinsics are already expressed at the
+    native (1002, 1000) resolution (reference `data/h36m.py:96-128,265`).
+    """
+
+    def __init__(self, dataset_folder, img_size=(1002, 1000), **kwargs):
+        super().__init__(dataset_folder, img_size=img_size, **kwargs)
+
+    def _load_cameras(self, subject, views):
+        with open(os.path.join(self.dataset_folder, subject, 'Posing',
+                               'cam_params.json')) as f:
+            cameras = json.load(f)
+        names = views if len(views) else cameras['all_cam_names']
+        return {n: cameras[n] for n in names}
+
+    def _index_frames(self, subject, start, end, rate):
+        sub = os.path.join(subject, 'Posing')
+        return super()._index_frames(sub, start, end, rate)
+
+    def _rescale_K(self, K, orig_img_size):
+        # H36M intrinsics are pre-scaled for the target resolution
+        if tuple(self.img_size) == (1002, 1000):
+            return K.copy()
+        return super()._rescale_K(K, (1002, 1000))
+
+
+class PeopleSnapshotDataset(ZJUMoCapDataset):
+    """Monocular People-Snapshot: a single identity camera from
+    `camera.pkl` (intrinsics from camera_f/camera_c, distortion camera_k,
+    R = I, T = 0), images under `image/`, masks under `mask/`
+    (reference `data/people_snapshot.py:94-134,222-232`)."""
+
+    def __init__(self, dataset_folder, img_size=(1080, 1080), **kwargs):
+        super().__init__(dataset_folder, img_size=img_size, **kwargs)
+
+    def _load_cameras(self, subject, views):
+        import pickle
+        with open(os.path.join(self.dataset_folder, subject,
+                               'camera.pkl'), 'rb') as f:
+            cam = pickle.load(f, encoding='latin1')
+        K = np.zeros((3, 3), np.float32)
+        K[0, 0], K[1, 1] = cam['camera_f']
+        K[:2, 2] = cam['camera_c']
+        K[2, 2] = 1.0
+        return {'0': {'K': K.tolist(), 'R': np.eye(3).tolist(),
+                      'T': [0.0, 0.0, 0.0],
+                      'D': np.asarray(cam['camera_k']).ravel().tolist()}}
+
+    def _index_frames(self, subject, start, end, rate):
+        subject_dir = os.path.join(self.dataset_folder, subject)
+        sl = slice(start, end if end > 0 else None, rate)
+        model_files = sorted(
+            glob.glob(os.path.join(subject_dir, 'models/*.npz')))[sl]
+        img_files = sorted(
+            glob.glob(os.path.join(subject_dir, 'image/*.jpg')))
+        frames = list(range(len(img_files)))[sl]
+        img_files = img_files[sl]
+        mask_files = sorted(
+            glob.glob(os.path.join(subject_dir, 'mask/*.png')))[sl]
+        assert len(model_files) == len(img_files) == len(mask_files)
+        return [{'subject': subject, 'gender': 'neutral', 'cam_idx': 0,
+                 'cam_name': '0', 'frame_idx': f_idx, 'data_idx': d_idx,
+                 'img_file': imgf, 'mask_file': maskf,
+                 'model_file': modelf}
+                for d_idx, (f_idx, imgf, maskf, modelf) in enumerate(
+                    zip(frames, img_files, mask_files, model_files))]

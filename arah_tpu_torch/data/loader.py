@@ -1,6 +1,6 @@
 """Dataset items -> training batches, with background prefetching. Port
 of `arah_tpu/data/loader.py`, the numpy half of the data path (the
-datasets that read images are not ported yet).
+datasets that read images are `data/human_video.py`).
 
 Per-view items are collated into a numpy `TrainBatch` (ray blocks
 stacked on the leading dimension), the final bone transforms composed as

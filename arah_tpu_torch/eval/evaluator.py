@@ -4,8 +4,13 @@ device: render every box ray of a frame in fixed-size chunks with
 scatter the rays back into the image by the box mask, derive a normal
 image from finite-difference depth, and compute PSNR/SSIM and the
 perceptual metric; PNGs through the port's writer (`utils/image.py`).
-The sharded chunk path and `write_video` are not ported."""
+`write_video` writes an MP4 of Motion-JPEG samples (`read_video` reads
+it back), where JAX's OpenCV writer encodes MPEG-4 Part 2 (`mp4v`): the
+card's machine has neither OpenCV nor an MPEG-4 encoder. The sharded
+chunk path is not ported."""
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -13,7 +18,7 @@ import torch
 from arah_tpu_torch.data.loader import frame_from_item
 from arah_tpu_torch.render.renderer import ModelConfig, RenderInputs, render
 from arah_tpu_torch.utils import metrics as metrics_lib
-from arah_tpu_torch.utils.image import write_image
+from arah_tpu_torch.utils.image import write_image, write_jpeg
 
 # candidate chunks and their relative eval throughput, from the JAX
 # package's chunk sweep on its TPU (arah_tpu/eval/evaluator.py); only the
@@ -150,3 +155,140 @@ def _to_u8(img):
 def save_image(path, img):
     """A float RGB image in [0, 1] as an 8-bit PNG."""
     write_image(path, _to_u8(img))
+
+
+# ------------------------------------------------------------- the video
+def _box(kind: bytes, *parts: bytes) -> bytes:
+    body = b''.join(parts)
+    return struct.pack('>I', 8 + len(body)) + kind + body
+
+
+def _full_box(kind: bytes, version: int, flags: int, *parts: bytes):
+    return _box(kind, struct.pack('>I', version << 24 | flags), *parts)
+
+
+# the unity transform of mvhd and tkhd (16.16 and 2.30 fixed point)
+_MATRIX = struct.pack('>9I', 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
+                      0x40000000)
+
+
+def write_video(path, frames, fps: int = 20, quality: int = 95):
+    """An ISO-BMFF MP4 of one Motion-JPEG video track (sample entry
+    'jpeg'), one sample a frame, each `utils/image.py:write_jpeg` of the
+    frame: uint8 (H, W, 3) RGB as it is, a float image in [0, 1] as
+    `save_image` quantises it. Writes nothing for no frames."""
+    if not frames:
+        return
+    h, w = frames[0].shape[:2]
+    if any(f.shape[:2] != (h, w) for f in frames):
+        raise ValueError('write_video: frames of different sizes')
+    samples = [write_jpeg(f if f.dtype == np.uint8 else _to_u8(f), quality)
+               for f in frames]
+    n = len(samples)
+    if sum(map(len, samples)) >= 1 << 32:
+        raise ValueError('write_video: over 4 GiB of samples')
+    ftyp = _box(b'ftyp', b'isom', struct.pack('>I', 0x200),
+                b'isom', b'iso2', b'mp41')
+    mvhd = _full_box(b'mvhd', 0, 0, struct.pack('>5I', 0, 0, fps, n,
+                                                0x10000),
+                     struct.pack('>H', 0x100), bytes(10), _MATRIX,
+                     bytes(24), struct.pack('>I', 2))
+    tkhd = _full_box(b'tkhd', 0, 3, struct.pack('>5I', 0, 0, 1, 0, n),
+                     bytes(8), struct.pack('>4H', 0, 0, 0, 0), _MATRIX,
+                     struct.pack('>2I', w << 16, h << 16))
+    mdhd = _full_box(b'mdhd', 0, 0, struct.pack('>4I', 0, 0, fps, n),
+                     struct.pack('>2H', 0x55C4, 0))   # language 'und'
+    hdlr = _full_box(b'hdlr', 0, 0, bytes(4), b'vide', bytes(12),
+                     b'VideoHandler\0')
+    vmhd = _full_box(b'vmhd', 0, 1, bytes(8))
+    dinf = _box(b'dinf', _full_box(b'dref', 0, 0, struct.pack('>I', 1),
+                                   _full_box(b'url ', 0, 1)))
+    name = b'Photo - JPEG'
+    entry = _box(b'jpeg', bytes(6), struct.pack('>H', 1), bytes(16),
+                 struct.pack('>2H2I', w, h, 0x480000, 0x480000), bytes(4),
+                 struct.pack('>H', 1), bytes([len(name)]) + name
+                 + bytes(31 - len(name)), struct.pack('>Hh', 24, -1))
+    stsd = _full_box(b'stsd', 0, 0, struct.pack('>I', 1), entry)
+    stts = _full_box(b'stts', 0, 0, struct.pack('>3I', 1, n, 1))
+    stsc = _full_box(b'stsc', 0, 0, struct.pack('>4I', 1, 1, n, 1))
+    stsz = _full_box(b'stsz', 0, 0, struct.pack('>2I', 0, n),
+                     struct.pack(f'>{n}I', *map(len, samples)))
+
+    def moov(offset):
+        stco = _full_box(b'stco', 0, 0, struct.pack('>2I', 1, offset))
+        stbl = _box(b'stbl', stsd, stts, stsc, stsz, stco)
+        minf = _box(b'minf', vmhd, dinf, stbl)
+        trak = _box(b'trak', tkhd, _box(b'mdia', mdhd, hdlr, minf))
+        return _box(b'moov', mvhd, trak)
+    # the samples start after ftyp, moov and mdat's 8-byte header
+    offset = len(ftyp) + len(moov(0)) + 8
+    with open(path, 'wb') as f:
+        f.write(ftyp + moov(offset))
+        f.write(struct.pack('>I', 8 + sum(map(len, samples))) + b'mdat')
+        for s in samples:
+            f.write(s)
+
+
+def _boxes(data: bytes, pos: int, end: int):
+    """(kind, body start, body end) of each box in data[pos:end]."""
+    while pos < end:
+        size, kind = struct.unpack('>I4s', data[pos:pos + 8])
+        if size < 8 or pos + size > end:
+            raise ValueError(f'MP4 box {kind!r} of size {size} at {pos}')
+        yield kind, pos + 8, pos + size
+        pos += size
+
+
+def read_video(path):
+    """The samples of `write_video`'s file: (list of JPEG bytes, fps,
+    (width, height)). Walks the boxes moov/trak/mdia/minf/stbl and reads
+    the sample table (stsd 'jpeg', stts, stsc, stsz, stco); raises
+    ValueError on anything else."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    top = {k: (a, b) for k, a, b in _boxes(data, 0, len(data))}
+    if data[8:12] != b'isom' or b'moov' not in top or b'mdat' not in top:
+        raise ValueError(f'{path}: not an MP4 of ftyp isom, moov, mdat')
+
+    def child(span, *path_):
+        for name in path_:
+            kids = {k: (a, b) for k, a, b in _boxes(data, *span)}
+            if name not in kids:
+                raise ValueError(f'{path}: no {name!r} box')
+            span = kids[name]
+        return span
+    a, _ = child(top[b'moov'], b'mvhd')
+    fps = struct.unpack('>I', data[a + 12:a + 16])[0]
+    stbl = child(top[b'moov'], b'trak', b'mdia', b'minf', b'stbl')
+    a, _ = child(stbl, b'stsd')
+    kind = data[a + 12:a + 16]
+    w, h = struct.unpack('>2H', data[a + 40:a + 44])
+    if kind != b'jpeg':
+        raise ValueError(f'{path}: sample entry {kind!r}, not jpeg')
+    a, _ = child(stbl, b'stsz')
+    size, n = struct.unpack('>2I', data[a + 4:a + 12])
+    sizes = [size] * n if size else list(
+        struct.unpack(f'>{n}I', data[a + 12:a + 12 + 4 * n]))
+    a, _ = child(stbl, b'stts')
+    deltas = []
+    for e in range(struct.unpack('>I', data[a + 4:a + 8])[0]):
+        cnt, delta = struct.unpack('>2I', data[a + 8 + 8 * e:a + 16 + 8 * e])
+        deltas += [delta] * cnt
+    if len(deltas) != n:
+        raise ValueError(f'{path}: stts counts {len(deltas)} of {n} samples')
+    a, _ = child(stbl, b'stco')
+    n_chunks = struct.unpack('>I', data[a + 4:a + 8])[0]
+    offsets = struct.unpack(f'>{n_chunks}I', data[a + 8:a + 8 + 4 * n_chunks])
+    a, _ = child(stbl, b'stsc')
+    runs = [struct.unpack('>3I', data[a + 8 + 12 * e:a + 20 + 12 * e])
+            for e in range(struct.unpack('>I', data[a + 4:a + 8])[0])]
+    out, s = [], 0
+    for c, off in enumerate(offsets, start=1):
+        per = [r[1] for r in runs if r[0] <= c][-1]
+        for _ in range(per):
+            out.append(data[off:off + sizes[s]])
+            off += sizes[s]
+            s += 1
+    if s != n:
+        raise ValueError(f'{path}: stsc places {s} of {n} samples')
+    return out, fps, (w, h)

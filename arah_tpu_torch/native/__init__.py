@@ -1,6 +1,7 @@
 """ctypes bindings of the port's native host library: the geometry ops of
 `arahx.cpp` (the port's copy of `arah_tpu/native`) and the codec loops of
-`codec.cpp` (JPEG Huffman coding, PNG unfiltering; `utils/image.py`).
+`codec.cpp` (JPEG Huffman coding, PNG unfiltering, undistortion;
+`utils/image.py`).
 
 Built with `g++` at first use into `<repo>/.cache/native/<source hash>/`
 (a process builds into a file of its own and renames it into place, so
@@ -24,6 +25,7 @@ _lock = threading.Lock()
 _lib = None
 
 _FP = ctypes.POINTER(ctypes.c_float)
+_DP = ctypes.POINTER(ctypes.c_double)
 _IP = ctypes.POINTER(ctypes.c_int)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I16P = ctypes.POINTER(ctypes.c_int16)
@@ -50,6 +52,7 @@ _SIGNATURES = {
     'jpeg_encode_scan': (_L, [_I, _IP, _IP, _IP, _IP, _U8P, _U8P, _I, _I,
                               _I16P, _LP, _IP, _U8P, _L]),
     'png_unfilter': (_I, [_U8P, _I, _L, _I, _U8P]),
+    'undistort_u8': (None, [_U8P, _I, _I, _I, _DP, _DP, _U8P]),
 }
 
 
@@ -220,3 +223,17 @@ def jpeg_encode_scan(h, v, dc, ac, bits, vals, mcux, mcuy, coefs, off,
     if n < 0:
         raise ValueError('jpeg_encode_scan: the scan outgrew its buffer')
     return out[:n].tobytes()
+
+
+def undistort_u8(img: np.ndarray, K, D) -> np.ndarray:
+    """`codec.cpp:undistort_u8` of a uint8 (H, W) or (H, W, C) image with
+    the camera matrix K (3, 3) and the coefficients D (k1, k2, p1, p2,
+    k3)."""
+    src = _c(img, np.uint8)
+    h, w = src.shape[:2]
+    cn = 1 if src.ndim == 2 else src.shape[2]
+    k, d = _c(K, np.float64).reshape(9), _c(D, np.float64).reshape(5)
+    out = np.empty_like(src)
+    load().undistort_u8(ptr(src, _U8P), h, w, cn, ptr(k, _DP), ptr(d, _DP),
+                        ptr(out, _U8P))
+    return out

@@ -1,6 +1,7 @@
-// codec: the bit-serial loops of the port's image reader and writer
+// codec: the pixel loops of the port's image reader and writer
 // (`utils/image.py`), which are too slow in Python: baseline JPEG Huffman
-// decoding and encoding of quantised DCT blocks, and PNG row unfiltering.
+// decoding and encoding of quantised DCT blocks, PNG row unfiltering, and
+// lens undistortion (OpenCV's undistort map and bilinear remap).
 // Everything else of the codecs (markers, zlib, the IDCT, upsampling and
 // colour conversion) is numpy in `utils/image.py`.
 //
@@ -8,6 +9,7 @@
 // t = class * 4 + id (class 0 DC, 1 AC), 16 code-length counts at
 // bits[16 t] and the symbols at vals[256 t].
 
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 
@@ -333,6 +335,94 @@ int png_unfilter(const uint8_t* data, int height, long rowbytes, int bpp,
     }
   }
   return 0;
+}
+
+// cv::undistort(src, dst, K, D) on a uint8 image of `cn` channels (1 or
+// 3), with the new camera matrix K: the 5-coefficient model (k1, k2, p1,
+// p2, k3) evaluated in double at each destination pixel, rounded to 1/32
+// pixel (cvRound, half to even), then remap's INTER_LINEAR on 15-bit
+// weights with BORDER_CONSTANT 0. As OpenCV does, the map is made in
+// stripes of max(1, 4096 / W) rows, each with K's cy moved by the
+// stripe's first row, and the inverse of K is the 3x3 cofactor formula.
+// K is row-major (9 doubles), D 5 doubles.
+void undistort_u8(const uint8_t* src, int height, int width, int cn,
+                  const double* K, const double* D, uint8_t* dst) {
+  // the bilinear table: weights (32 - ty)(32 - tx) 32 ... as shorts, the
+  // corner weight 32768 saturated to 32767 and the deficit put on the
+  // fourth tap, as cv::initInterTab2D leaves it
+  static int tab[1024][4];
+  static bool tab_ready = false;
+  if (!tab_ready) {
+    for (int ty = 0; ty < 32; ++ty)
+      for (int tx = 0; tx < 32; ++tx) {
+        int* w = tab[ty * 32 + tx];
+        w[0] = (32 - ty) * (32 - tx) * 32;
+        w[1] = (32 - ty) * tx * 32;
+        w[2] = ty * (32 - tx) * 32;
+        w[3] = ty * tx * 32;
+        int sum = 0;
+        for (int k = 0; k < 4; ++k) {
+          if (w[k] > 32767) w[k] = 32767;
+          sum += w[k];
+        }
+        w[3] += 32768 - sum;
+      }
+    tab_ready = true;
+  }
+  const double fx = K[0], u0 = K[2], fy = K[4], v0 = K[5];
+  const double k1 = D[0], k2 = D[1], p1 = D[2], p2 = D[3], k3 = D[4];
+  int stripe = 4096 / (width > 1 ? width : 1);
+  if (stripe < 1) stripe = 1;
+  if (stripe > height) stripe = height;
+  for (int y0 = 0; y0 < height; y0 += stripe) {
+    // the inverse of Ar = K with Ar(1, 2) = v0 - y0, by cofactors
+    double a[9];
+    for (int k = 0; k < 9; ++k) a[k] = K[k];
+    a[5] = v0 - y0;
+    double det = a[0] * (a[4] * a[8] - a[7] * a[5])
+        - a[1] * (a[3] * a[8] - a[6] * a[5])
+        + a[2] * (a[3] * a[7] - a[6] * a[4]);
+    double d = 1. / det;
+    double ir[9] = {
+        (a[4] * a[8] - a[5] * a[7]) * d, (a[2] * a[7] - a[1] * a[8]) * d,
+        (a[1] * a[5] - a[2] * a[4]) * d, (a[5] * a[6] - a[3] * a[8]) * d,
+        (a[0] * a[8] - a[2] * a[6]) * d, (a[2] * a[3] - a[0] * a[5]) * d,
+        (a[3] * a[7] - a[4] * a[6]) * d, (a[1] * a[6] - a[0] * a[7]) * d,
+        (a[0] * a[4] - a[1] * a[3]) * d};
+    int rows = height - y0 < stripe ? height - y0 : stripe;
+    for (int i = 0; i < rows; ++i) {
+      double _x = i * ir[1] + ir[2], _y = i * ir[4] + ir[5],
+             _w = i * ir[7] + ir[8];
+      uint8_t* out = dst + ((long)(y0 + i) * width) * cn;
+      for (int j = 0; j < width; ++j, _x += ir[0], _y += ir[3],
+               _w += ir[6]) {
+        double w = 1. / _w, x = _x * w, yy = _y * w;
+        double x2 = x * x, y2 = yy * yy;
+        double r2 = x2 + y2, _2xy = 2 * x * yy;
+        // OpenCV's rational and thin-prism terms and its tilt are
+        // exact no-ops at zero coefficients and are left out
+        double kr = 1 + ((k3 * r2 + k2) * r2 + k1) * r2;
+        double xd = x * kr + p1 * _2xy + p2 * (r2 + 2 * x2);
+        double yd = yy * kr + p1 * (r2 + 2 * y2) + p2 * _2xy;
+        long iu = std::lrint((fx * xd + u0) * 32.);
+        long iv = std::lrint((fy * yd + v0) * 32.);
+        int sx = (short)(iu >> 5), sy = (short)(iv >> 5);
+        const int* wt = tab[(iv & 31) * 32 + (iu & 31)];
+        int taps[4][2] = {{sy, sx}, {sy, sx + 1}, {sy + 1, sx},
+                          {sy + 1, sx + 1}};
+        for (int c = 0; c < cn; ++c) {
+          int sum = 0;
+          for (int k = 0; k < 4; ++k) {
+            int ty = taps[k][0], tx = taps[k][1];
+            if (ty >= 0 && ty < height && tx >= 0 && tx < width)
+              sum += src[((long)ty * width + tx) * cn + c] * wt[k];
+          }
+          int v = (sum + (1 << 14)) >> 15;
+          out[j * cn + c] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+        }
+      }
+    }
+  }
 }
 
 }  // extern "C"

@@ -18,6 +18,7 @@ gives OpenCV's bytes on 8-bit images (`tests/test_torch_image.py`):
   resize_nearest            cv2.resize INTER_NEAREST
   erode5 / dilate5          cv2.erode / cv2.dilate with a 5x5 box
   fill_poly                 cv2.fillPoly of one polygon, integer vertices
+  undistort                 cv2.undistort(img, K, D) with 5 coefficients
 
 Images are numpy arrays, RGB channel order (not OpenCV's BGR)."""
 from __future__ import annotations
@@ -711,3 +712,23 @@ def fill_poly(img: np.ndarray, pts, value) -> np.ndarray:
             if x1 < w and x2 >= 0:
                 img[y, max(x1, 0):min(x2, w - 1) + 1] = value
     return img
+
+
+def undistort(img: np.ndarray, K, D) -> np.ndarray:
+    """cv2.undistort(img, K, D, None) of a uint8 (H, W) or (H, W, 3)
+    image: the new camera matrix is K, D is (k1, k2, p1, p2, k3) (fewer
+    are padded with zeros); OpenCV's float64 map at 1/32 pixel and its
+    15-bit bilinear remap with a constant 0 border
+    (`native/codec.cpp:undistort_u8`)."""
+    from arah_tpu_torch import native
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] not in (1, 3)):
+        raise ValueError(f'undistort: uint8 gray or RGB, not {img.dtype} '
+                         f'{img.shape}')
+    d = np.zeros(5, np.float64)
+    dist = np.asarray(D, np.float64).ravel()
+    if dist.size > 5 and np.any(dist[5:]):
+        raise ValueError(f'undistort: the 5-coefficient model only, not '
+                         f'{dist.tolist()}')
+    d[:min(dist.size, 5)] = dist[:5]
+    return native.undistort_u8(img, np.asarray(K, np.float64), d)

@@ -135,9 +135,41 @@
    and holds A-I against their plain versions on what a warm-up step of
    the CLI's own batch (2 blocks x 1,024 rays) hands them, as phase 7
    does, then times and traces that step.
+10. Drives the novel-pose test CLI and the H36M and People-Snapshot
+   readers: (a) `cli.test.main` on phase 9's checkpoint, with the
+   fixture's own SMPL sequence as the novel poses, at `--mesh-res 256`,
+   counted (A-F launched, J 64 times a frame, no plain version called);
+   its PNGs and `vis.mp4` (the boxes parse, each sample decodes to the
+   frame's PNGs as `write_jpeg` encodes them); the seconds a frame by
+   part (render, grid, marching cubes, skinning, rasterizing, writing)
+   and peak memory; a `--free-viewpoint 4 --end-frame 2` run, held to
+   what ROADMAP's recorded fault predicts for one camera (every spiral
+   matrix NaN, the rgb and posed normal PNGs blank, the canonical ones
+   drawn). (b) `mesh_check`: J against its plain version on frame 0's
+   grid, chunk by chunk (262,144 points, timed), and the meshes of the
+   kernel's and the plain grid: faces within 0.5%, the posed normal
+   maps' foreground agreeing on >= 0.99 of the pixels. The trained
+   checkpoint's SIREN crosses zero all through the grid (tens of
+   millions of faces), so `mesh_check` also runs on a body-sized
+   surface, phase 2's fitted SIREN at the bench pose under the bench
+   camera, after one timed frame of its mesh path by part (grid,
+   marching cubes, skinning, rasterizing). (c) The H36M fixture (2 views
+   at 1002 x 1000, 4 frames) and a config inheriting
+   `configs/arah-h36m/H36M_S9.yaml`: `cli.train` for one epoch, counted
+   (A-I launched, no plain version called, the SMPL leaves moved, finite
+   losses), `cli.validate
+   --novel-view` (finite metrics), A-I against their plain versions on
+   that CLI step's block (B's stragglers by `straggler_count_ok`), the
+   ms/step and the loader's s/item with its 1002 x 1000 JPEG decode. (d)
+   The People-Snapshot fixture with a distorted camera (camera_k -0.2,
+   0.05) and a config inheriting
+   `configs/arah-people-snapshot/male-3-casual.yaml`: `cli.train` for
+   one epoch, counted, and the loader's s/item with its undistortion.
 
 Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line (A-I also
-carry `launches_cli_train`, phase 9's counts), and as its last line
+carry `launches_cli_train` and `launches_cli_h36m`, phase 9's and phase
+10's train counts; A-F and J `launches_cli_test`; J its grid time as
+`grid_ms`, `grid_plain_ms`, `grid_bound_ms`), and as its last line
 `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero before those lines. Without a CUDA device it exits non-zero.
 """
@@ -295,26 +327,51 @@ def f64(x):
     return x
 
 
+def straggler_count_ok(k, d):
+    """B's straggler test: the kernel flips the valid flag of k points
+    against the plain float32 solve, where the same plain solve in
+    float64 (the witness) flips d. Each of the two roundoffs flips about
+    d, so k is about 2 d; the counts are Poisson-like, so the test allows
+    three standard deviations on top: k <= 2 d + 3 sqrt(k + 4 d)."""
+    return k <= 2 * d + 3 * (k + 4 * d) ** 0.5
+
+
+def agreement_floor(n, rate=0.01):
+    """The usual floor of a kernel's per-ray agreement with its plain
+    version on a flag or an iteration count, over n rays, as a count: k
+    rays may differ where k <= rate n + 3 sqrt(rate n), a 1% rate plus
+    three standard deviations of a Poisson count (the margin that
+    `straggler_count_ok` takes). A bare 0.99 lets no ray differ below
+    n = 100, where one ray a step off at a roundoff-set stopping step
+    fails a correct kernel. Returns the floor (n - that count) / n."""
+    if n <= 0:
+        return 0.0
+    m = rate * n
+    return max(0.0, (n - m - 3 * m ** 0.5) / n)
+
+
 def witness_floor(differ):
     """The floor of a kernel's agreement with its plain version on a flag,
     a count or a root, where the same plain solve in float64 (the witness)
     shows how far roundoff sets it: `differ` (bool, one a ray) marks the
     rays where the witness departs from the float32 plain version. The
-    usual 0.99, or, where the witness departs on d of the n rays, 1 - 2 d
-    / n, as B's stragglers are held. Returns (floor, d)."""
+    usual `agreement_floor`, or, where the witness departs on d of the n
+    rays, 1 - 2 d / n if lower (E's and F's rule; B's stragglers take
+    `straggler_count_ok`). Returns (floor, d)."""
     d, n = int(differ.sum()), differ.numel()
     # (n - 2 d) / n, one rounding as the agreement (n - k) / n has: at
     # k = 2 d the two are equal
-    return max(0.0, min(0.99, (n - 2 * d) / max(n, 1))), d
+    return max(0.0, min(agreement_floor(n), (n - 2 * d) / max(n, 1))), d
 
 
 def iters_check(tag, it_k, it_p, held=None, why='', gate=True, it_w=None):
     """The kernel's per-ray iteration counts (iters_out) against the plain
-    version's: equal on >= 0.99 of the rays (a flip may differ), or of the
-    rays `held` (a bool mask, for the reason `why`) where a solve's
-    stopping step is set by roundoff; the share over all rays is printed
-    beside it. With `gate` False the shares are printed only. With the
-    float64 witness's counts `it_w` the floor is `witness_floor`'s."""
+    version's: equal on `agreement_floor` of the rays (a flip may
+    differ), or of the rays `held` (a bool mask, for the reason `why`)
+    where a solve's stopping step is set by roundoff; the share over all
+    rays is printed beside it. With `gate` False the shares are printed
+    only. With the float64 witness's counts `it_w` the floor is
+    `witness_floor`'s."""
     same = it_k == it_p
     agree = float(same.double().mean()) if it_k.numel() else 1.0
     msg = (f'  {tag}: iterations executed {int(it_k.sum())} (kernel, per-ray '
@@ -324,7 +381,8 @@ def iters_check(tag, it_k, it_p, held=None, why='', gate=True, it_w=None):
         agree = float(same[held].double().mean()) if bool(held.any()) else 1.0
         msg += (f' over all rays; {agree:.6f} over the {int(held.sum())} '
                 f'rays {why}')
-    floor = 0.99
+    floor = agreement_floor(int(it_k.numel() if held is None
+                                else held.sum()))
     if it_w is not None:
         floor, d = witness_floor(
             (it_w != it_p) if held is None else (it_w != it_p)[held])
@@ -909,7 +967,22 @@ def main():
                corr_split3='in the split3 eval frame',
                corr_bf16='in the bf16 eval frame')
     torch.cuda.empty_cache()
-    cli_launches = run_clis(card, no_tf32, params)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix='arah_cli_') as tmp:
+        cli_launches, cli = run_clis(card, no_tf32, params, tmp)
+        torch.cuda.empty_cache()
+        test_launches, grid_rec = run_cli_test(card, no_tf32, cli)
+        records['siren'].update(grid_rec)
+        torch.cuda.empty_cache()
+        # the mesh path on a body-sized surface: phase 2's fitted SIREN
+        # at the bench pose with its latent (`scene.scene_inputs`), seen
+        # by the bench camera
+        mesh_check('bench scene', params, cfg, fd, bench_item(fd),
+                   params['latent'][0], card, no_tf32, timed_frame=True)
+        torch.cuda.empty_cache()
+        h36m_launches = run_cli_h36m(card, no_tf32, tmp, cli['pre'])
+        torch.cuda.empty_cache()
+        run_cli_snapshot(card, no_tf32, tmp, cli['pre'])
 
     out = []
     for name, r in records.items():
@@ -922,8 +995,14 @@ def main():
                                          'phase2_bound_ms', 'graph_ms')
                        if k in r},
                     **({'launches_refined_step': refined_launches[name],
-                        'launches_cli_train': cli_launches[name]}
-                       if name in TRAIN_KERNELS else {})})
+                        'launches_cli_train': cli_launches[name],
+                        'launches_cli_h36m': h36m_launches[name]}
+                       if name in TRAIN_KERNELS else {}),
+                    **({'launches_cli_test': test_launches[name]}
+                       if name in CLI_TEST_KERNELS else {}),
+                    **{k: r[k] for k in ('grid_ms', 'grid_plain_ms',
+                                         'grid_bound_ms', 'grid_max_abs_err')
+                       if k in r}})
         print(f'{name}: {r["ms"]:.3f} ms kernel, {r["plain_ms"]:.3f} ms '
               f'plain, bound {r["bound"][0]:.4f} ms ({r["bound"][1]}), '
               f'launches {launches[name]} {per[name]} [{card}]')
@@ -1226,19 +1305,19 @@ def check_corr(cfg, frame, fd, pts, flat_mask, wts, bs, card):
 
 def march_compare(tag, out_k, out_p, gen, mscale, thresh, out_w=None):
     """Hold kernel E's march (out_k) against the plain one (out_p):
-    unfinished and diverged agreement >= 0.99 (with the float64 witness's
-    march `out_w`, `witness_floor`'s floors), median |dt| < 1e-5 on rays
-    both sides finished on a surface, and >= 0.9 of the rays that differ
-    (a flag, or |dt| > 1e-4) and that the kernel finished on a surface
-    hold it: plain |sdf| at the kernel's x_norm < 2 x thresh. Returns the
-    max |dt| on commonly finished rays."""
+    unfinished and diverged agreement >= `agreement_floor` (with the
+    float64 witness's march `out_w`, `witness_floor`'s floors), median
+    |dt| < 1e-5 on rays both sides finished on a surface, and >= 0.9 of
+    the rays that differ (a flag, or |dt| > 1e-4) and that the kernel
+    finished on a surface hold it: plain |sdf| at the kernel's x_norm <
+    2 x thresh. Returns the max |dt| on commonly finished rays."""
     import torch
     from arah_tpu_torch.nn.siren import siren_apply
     t_k, unf_k, div_k, xn_k = out_k[:4]
     t_p, unf_p, div_p, xn_p = out_p[:4]
     a_unf = float((unf_k == unf_p).double().mean())
     a_div = float((div_k == div_p).double().mean())
-    f_unf = f_div = 0.99
+    f_unf = f_div = agreement_floor(unf_k.numel())
     wit = ''
     if out_w is not None:
         (f_unf, d_unf), (f_div, d_div) = (witness_floor(out_w[1] != unf_p),
@@ -1376,19 +1455,19 @@ def check_march(cfg, fd, inp, gen, card, tag='E march ', witness=False):
 
 def iso_compare(tag, out_k, out_p, resid, out_w=None):
     """Hold kernel F's solve (out_k) against the plain one (out_p): valid
-    agreement >= 0.99, median |dx_hat| < 1e-5 on commonly valid rays, and
-    every kernel-valid ray a root of the plain residual (|g(u)| < 5e-5).
-    With the float64 witness's solve `out_w`, the valid agreement's floor
-    is `witness_floor`'s, and in place of the median: the share of
-    commonly valid rays on the plain version's root (|dx_hat| <= 1e-4)
-    at `witness_floor`'s floor from the witness's roots, and the median
-    over those rays < 1e-5. resid(sel, u) -> |g(u)| of rays sel. Returns
-    the max |dx_hat| on commonly valid rays."""
+    agreement >= `agreement_floor`, median |dx_hat| < 1e-5 on commonly
+    valid rays, and every kernel-valid ray a root of the plain residual
+    (|g(u)| < 5e-5). With the float64 witness's solve `out_w`, the valid
+    agreement's floor is `witness_floor`'s, and in place of the median:
+    the share of commonly valid rays on the plain version's root
+    (|dx_hat| <= 1e-4) at `witness_floor`'s floor from the witness's
+    roots, and the median over those rays < 1e-5. resid(sel, u) -> |g(u)|
+    of rays sel. Returns the max |dx_hat| on commonly valid rays."""
     import torch
     u_k, _, v_k, a_k = out_k[:4]
     u_p, _, v_p, a_p = out_p[:4]
     agree = float((v_k == v_p).double().mean())
-    floor, wit = 0.99, ''
+    floor, wit = agreement_floor(v_k.numel()), ''
     if out_w is not None:
         floor, d = witness_floor(out_w[2] != v_p)
         bw = out_w[2] & v_p
@@ -1652,17 +1731,19 @@ def corr_compare(tag, xk, vk, xp, vp, x_bar, frame, skin_fn,
     """Hold a corr kernel's solve (xk, vk) against another (xp, vp):
     valid agreement >= 0.99, median |dx| < 1e-5 on commonly-valid points,
     and every flip (|dx| > 1e-4) a root on both sides (|fwd_skin(x) -
-    x_bar| < cvg, the solve's threshold). On stragglers (points still
+    x_bar| < 2 cvg: each solve's own |g| < cvg, its threshold,
+    reassociated here). On stragglers (points still
     active after phase 1, whose outcome at 50 steps roundoff sets)
     `stragglers` is the number of points whose valid flag the same plain
     solve in float64 flips (the witness, d): then every kernel-valid point
     must be a root of the plain residual (< 2 cvg: the kernel's own |g| <
     cvg, reassociated), the kernel may leave at most d fewer points valid
-    than the plain solve, and the valid agreement must be at least 1 - 2
-    d / N (the kernel's roundoff and the witness's each flip about d).
-    `noise` widens both residual bounds for a precision whose value at one
-    point moves with the sums' order by more than f32's (B's split3 and
-    bf16: an activation rounded to the other bf16 neighbour). A solve at
+    than the plain solve, and the k points whose flag the kernel flips
+    must pass `straggler_count_ok(k, d)` (the kernel's roundoff and the
+    witness's each flip about d). `noise` widens both residual bounds for
+    a precision whose value at one point moves with the sums' order by
+    more than f32's (B's split3 and bf16: an activation rounded to the
+    other bf16 neighbour). A solve at
     a relaxed threshold (bf16, cvg 5e-3) stops further from where another
     would: its median bound is cvg / 10. Returns the max |dx| on
     commonly-valid points."""
@@ -1686,29 +1767,32 @@ def corr_compare(tag, xk, vk, xp, vp, x_bar, frame, skin_fn,
     p99 = float(torch.quantile(dx[:1 << 24], 0.99)) if dx.numel() else 0.0
     fi = torch.nonzero(both & (dist > 1e-4)).flatten()
     rk, rp = resid(xk[fi], x_bar[fi]), resid(xp[fi], x_bar[fi])
-    flip_ok = bool(((rk < cvg + noise) & (rp < cvg + noise)).all())
+    flip_ok = bool(((rk < 2 * cvg + noise) & (rp < 2 * cvg + noise)).all())
     med_bound = max(1e-5, cvg / 10)
     r_max = float(torch.cat([rk, rp, rk.new_zeros(1)]).max())
     rv = resid(xk[vk], x_bar[vk])
     rv_max = float(rv.max()) if rv.numel() else 0.0
     nk, np_ = int(vk.sum()), int(vp.sum())
     if stragglers is None:
-        floor, why, ok = 0.99, '', True
+        agree_ok, bound_s, why, ok = agree >= 0.99, '>= 0.990000', '', True
     else:
-        # (N - 2 d) / N, rounded once as the agreement is
-        floor = (vk.numel() - 2 * stragglers) / max(vk.numel(), 1)
-        why = (f'; valid kernel bound >= plain - {stragglers} (the float64 '
-               f'witness flips {stragglers}); plain residual over '
+        k, d = int((vk != vp).sum()), stragglers
+        agree_ok = straggler_count_ok(k, d)
+        bound_s = (f'flips k {k} <= 2 d + 3 sqrt(k + 4 d) = '
+                   f'{2 * d + 3 * (k + 4 * d) ** 0.5:.2f}, d {d}')
+        why = (f'; valid kernel bound >= plain - {d} (the float64 '
+               f'witness flips {d}); plain residual over '
                f'kernel-valid points bound {2 * cvg + noise:g}')
-        ok = rv_max < 2 * cvg + noise and nk >= np_ - stragglers
-    print(f'{tag}: valid agreement {agree:.6f} (bound >= {floor:.6f}), '
+        ok = rv_max < 2 * cvg + noise and nk >= np_ - d
+    print(f'{tag}: valid agreement {agree:.6f} (bound {bound_s}), '
           f'median |dx| {med:.3e} (bound {med_bound:g}), p99 {p99:.3e}, max '
           f'{mx:.3e} on {int(both.sum())} commonly-valid points; '
           f'{fi.numel()} flips (>1e-4) with residual max {r_max:.3e} (bound '
-          f'{cvg + noise:g} both sides); valid kernel {nk} plain {np_}; plain '
-          f'residual over kernel-valid points max {rv_max:.3e}{why}',
+          f'{2 * cvg + noise:g} both sides); valid kernel {nk} plain '
+          f'{np_}; plain residual over kernel-valid points max '
+          f'{rv_max:.3e}{why}',
           flush=True)
-    ok = ok and agree >= floor
+    ok = ok and agree_ok
     check(ok and med < med_bound and flip_ok,
           f'{tag}: corr kernel disagrees with its plain version')
     return mx
@@ -3603,7 +3687,7 @@ CLI_KERNELS_EVAL = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso')
 PLAIN_FNS = ('nn_idx_plain', 'corr_search_plain', 'siren_shade_plain',
              'color_mlp_plain', 'color_mlp_bwd_plain', 'sphere_march_plain',
              'iso_refine_plain', 'skinning_jac_plain', 'shade_bwd_plain',
-             '_march_plain', 'search_iso_surface_depth')
+             '_march_plain', 'search_iso_surface_depth', 'siren_sdf_plain')
 
 
 @contextlib.contextmanager
@@ -3631,11 +3715,15 @@ def count_plain():
             setattr(mod, name, real)
 
 
-def cli_config(path, base, data, out, model=None, **training):
+def cli_config(path, base, data, out, model=None, data_keys=None,
+               **training):
     """A config that inherits `base` with the fixture's paths, the given
-    `model` keys (a dict) and `training` keys."""
+    `data_keys` and `model` keys (dicts of YAML values) and `training`
+    keys."""
     lines = [f'inherit_from: {base}', 'data:', f'  path: {data}',
-             f'  smpl_misc: {data}/body_models/misc', 'model:'] + [
+             f'  smpl_misc: {data}/body_models/misc'] + [
+        f'  {k}: {v}' for k, v in (data_keys or {}).items()] + [
+        'model:'] + [
         f'  {k}: {v}' for k, v in (model or {}).items()] + [
         'training:', f'  out_dir: {out}'] + [f'  {k}: {v}'
                                              for k, v in training.items()]
@@ -3710,7 +3798,7 @@ def write_pretrained(tmp, scene, cfg):
     return paths
 
 
-def run_clis(card, no_tf32, scene):
+def run_clis(card, no_tf32, scene, tmp):
     """Phase 9 of the module docstring: the fixture, `cli.train` (2
     epochs, a resumed third, a job-chained subprocess that must exit with
     code 2), `cli.validate --novel-view`, A-F against their plain
@@ -3718,8 +3806,9 @@ def run_clis(card, no_tf32, scene):
     step's shapes, and the CLI layer's times. The model starts from
     `scene`'s fitted SIREN and skinning net (phase 2), given to the
     config as pretrained checkpoints, so that the avatar has a surface.
-    Returns {kernel: launches in the 2-epoch train run}."""
-    import tempfile
+    Writes under the directory `tmp`. Returns ({kernel: launches in the
+    2-epoch train run}, {'cfg': the config's path, 'pre': the pretrained
+    checkpoints' model keys, 'data': the fixture's root})."""
     import numpy as np
     import torch
     from arah_tpu_torch.cli import train as cli_train
@@ -3728,229 +3817,656 @@ def run_clis(card, no_tf32, scene):
                                                init_params_from_cfg)
     from arah_tpu_torch.config.loader import (default_config_path,
                                               load_config,
-                                              loss_weights_from_cfg,
-                                              model_config_from_cfg,
-                                              optim_config_from_cfg)
-    from arah_tpu_torch.data.batch import draw_train_draws
+                                              model_config_from_cfg)
     from arah_tpu_torch.data.fake_dataset import make_fake_zju_dataset
-    from arah_tpu_torch.data.loader import collate_train_batch
     from arah_tpu_torch.eval.evaluator import evaluate_frame
     from arah_tpu_torch.ops import _build
-    from arah_tpu_torch.parallel.train_step import (TrainState,
-                                                    make_train_step,
-                                                    trainable)
+    from arah_tpu_torch.parallel.train_step import TrainState
     from arah_tpu_torch.train import checkpoints as ckpt_lib
-    from arah_tpu_torch.train.optim import make_optimizer
-    from arah_tpu_torch.utils.image import read_image
 
     repo = os.path.dirname(os.path.abspath(__file__))
     base = os.path.join(repo, 'configs', 'fake', 'FAKE-ZJU-flagship.yaml')
     img_size = 1024
-    with tempfile.TemporaryDirectory(prefix='arah_cli_') as tmp:
-        data = os.path.join(tmp, 'data')
+    data = os.path.join(tmp, 'data')
+    t0 = time.perf_counter()
+    make_fake_zju_dataset(data, n_frames=CLI_FRAMES, views=('1', '7'),
+                          img_size=img_size)
+    print(f'phase 9: fake ZJU fixture ({CLI_FRAMES} frames, views 1 and '
+          f'7, {img_size} x {img_size}, 1,024 vertices) written in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    out = os.path.join(tmp, 'out')
+    pre = write_pretrained(tmp, scene, model_config_from_cfg(
+        load_config(base, default_config_path())))
+    cfg_path = cli_config(os.path.join(tmp, 'cfg.yaml'), base, data, out,
+                          pre, max_epochs=2, checkpoint_every_n_epochs=1,
+                          validate_every_n_epochs=1)
+
+    # ---- cli.train, 2 epochs, counted
+    launches, ms = cli_train_counted('FAKE-ZJU', card, no_tf32, cfg_path)
+    ck = os.path.join(out, 'checkpoints')
+    for f in ('metrics.tsv', 'val_metrics.tsv', 'checkpoints/LAST',
+              'checkpoints/META.json', 'checkpoints/BEST.json'):
+        check(os.path.exists(os.path.join(out, f)),
+              f'cli.train did not write {f}')
+    with open(os.path.join(ck, 'META.json')) as f:
+        meta = json.load(f)
+    check(meta['epoch'] == 2, f'cli.train META.json {meta}')
+
+    # ---- the rerun resumes and trains one more epoch
+    more = cli_config(os.path.join(tmp, 'more.yaml'), base, data, out,
+                      pre, max_epochs=3, checkpoint_every_n_epochs=1)
+    text = run_cli(cli_train.main, [more])
+    check(f'resumed from step {meta["step"]} (epoch 2)' in text,
+          'cli.train rerun did not resume')
+    with open(os.path.join(ck, 'META.json')) as f:
+        meta3 = json.load(f)
+    check(meta3['epoch'] == 3 and meta3['step'] > meta['step'],
+          f'cli.train rerun META.json {meta3}')
+
+    # ---- job chaining in a subprocess: --exit-after gives code 2
+    chain = cli_config(os.path.join(tmp, 'chain.yaml'), base, data,
+                       os.path.join(tmp, 'out_chain'), pre,
+                       max_epochs=50)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, '-m', 'arah_tpu_torch.cli.train', chain,
+         '--exit-after', '1', '--epochs-per-run', '50'],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    print(f'cli.train --exit-after 1 --epochs-per-run 50 (subprocess): '
+          f'exit code {r.returncode} in {time.perf_counter() - t0:.1f} s; '
+          f'{r.stdout.strip().splitlines()[-1:]}', flush=True)
+    check(r.returncode == 2, f'cli.train --exit-after: exit code '
+          f'{r.returncode}, not 2: {r.stderr[-2000:]}')
+
+    # ---- cli.validate --novel-view, counted
+    no_tf32()
+    _build.reset_counts()
+    with count_plain() as plain:
+        run_cli(cli_validate.main, [cfg_path, '--novel-view'])
+    torch.cuda.synchronize()
+    vl = dict(_build.COUNTS)
+    with open(os.path.join(out, 'val', 'metrics.json')) as f:
+        mean = json.load(f)['mean']
+    print(f'cli.validate --novel-view: {mean}; launches '
+          f'{ {k: vl[k] for k in CLI_KERNELS_EVAL} }, plain calls '
+          f'{plain} [{card}]', flush=True)
+    check(all(vl[k] > 0 for k in CLI_KERNELS_EVAL),
+          f'cli.validate: a kernel of A-F was not launched: {vl}')
+    check(not any(plain.values()), f'cli.validate: plain versions ran: '
+          f'{plain}')
+    check(all(np.isfinite(mean[k]) for k in ('psnr', 'ssim'))
+          and any(k.startswith('lpips') and np.isfinite(v)
+                  for k, v in mean.items()),
+          f'cli.validate: metrics not finite: {mean}')
+
+    # ---- the CLI layer's times: loader s/item, validation s/frame
+    cfg = load_config(cfg_path, default_config_path())
+    model_cfg = model_config_from_cfg(cfg)
+    ds = get_dataset('train', cfg)
+    n_ray = ds.num_fg_samples + ds.num_bg_samples
+    item_s, dec_ms, _ = loader_times(ds)
+    # the validation's frames and trained parameters, as
+    # `cli/validate.py` makes them (every frame's latent in range)
+    val_ds = get_dataset('val', cfg, subsampling_rate=30)
+    vparams = init_params_from_cfg(0, cfg, model_cfg, ds, mode='val',
+                                   device='cuda')
+    _, vstep = ckpt_lib.restore_checkpoint(
+        os.path.join(out, 'checkpoints'), TrainState(vparams, None, 0))
+    check(vstep == meta3['step'], f'validation restored step {vstep}')
+    val_items = [val_ds[i] for i in range(len(val_ds))]
+
+    def latent(item):
+        return vparams['latent'][int(item['inputs.data_idx'])]
+
+    # ---- A-F against their plain versions on what the validation
+    # render's first chunk hands them (its own chunk of rays)
+    no_tf32()
+    with capture_trace() as seen:
+        evaluate_frame(vparams, model_cfg, val_items[0],
+                       latent(val_items[0]))
+    torch.cuda.synchronize()
+    check_block_kernels(model_cfg, vparams, seen, card, no_tf32,
+                        tag='cli validate', train=False, witness=True)
+    del seen
+    torch.cuda.empty_cache()
+    val_s = []     # each frame three times
+    for item in val_items * 3:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        make_fake_zju_dataset(data, n_frames=CLI_FRAMES, views=('1', '7'),
-                              img_size=img_size)
-        print(f'phase 9: fake ZJU fixture ({CLI_FRAMES} frames, views 1 and '
-              f'7, {img_size} x {img_size}, 1,024 vertices) written in '
-              f'{time.perf_counter() - t0:.2f} s', flush=True)
-        out = os.path.join(tmp, 'out')
-        pre = write_pretrained(tmp, scene, model_config_from_cfg(
-            load_config(base, default_config_path())))
-        cfg_path = cli_config(os.path.join(tmp, 'cfg.yaml'), base, data, out,
-                              pre, max_epochs=2, checkpoint_every_n_epochs=1,
-                              validate_every_n_epochs=1)
-
-        # ---- cli.train, 2 epochs, counted
-        no_tf32()
+        evaluate_frame(vparams, model_cfg, item, latent(item))
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_counts()
+        val_s.append(time.perf_counter() - t0)
+    v0 = val_ds[0]
+    n_box = int(v0['inputs.image_mask'].sum())
+    hw = f'{int(v0["inputs.img_height"])} x {int(v0["inputs.img_width"])}'
+    print(f'CLI layer: ms/step median {np.median(ms):.1f} (min '
+          f'{ms.min():.1f}, max {ms.max():.1f}; wall time between '
+          f'step starts over {len(ms) + 1} steps of 2 blocks x '
+          f'{n_ray} rays, loading and validation waits included); loader '
+          f'{item_s:.3f} s/item median ({len(ds)} train items, one '
+          f'thread), of which JPEG decode of a {img_size} x {img_size} '
+          f'frame {dec_ms:.1f} ms; '
+          f'validation {np.median(val_s):.3f} s/frame median (min '
+          f'{min(val_s):.3f}, max {max(val_s):.3f}; {len(val_items)} '
+          f'frames x 3 of {n_box} box rays at {hw}) [{card}]', flush=True)
+
+    # ---- A-I against their plain versions at the CLI step's shapes,
+    # and one traced step
+    step, state, batch, draws = hold_cli_step('cli', cfg, ds, card, no_tf32)
+    times = []
+    for _ in range(3):
         t0 = time.perf_counter()
-        with count_plain() as plain, time_steps() as step_s:
-            run_cli(cli_train.main, [cfg_path])
+        state, losses = step(state, batch, draws)
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = dict(_build.COUNTS)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f'cli.train (2 epochs): {train_s:.2f} s, launches '
-              f'{ {k: launches[k] for k in TRAIN_KERNELS} }, plain calls '
-              f'{plain}, peak memory {peak:.2f} GiB [{card}]', flush=True)
-        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
-              f'cli.train: a kernel of A-I was not launched: {launches}')
-        check(not any(plain.values()), f'cli.train: plain versions ran: '
-              f'{plain}')
-        ck = os.path.join(out, 'checkpoints')
-        for f in ('metrics.tsv', 'val_metrics.tsv', 'checkpoints/LAST',
-                  'checkpoints/META.json', 'checkpoints/BEST.json'):
-            check(os.path.exists(os.path.join(out, f)),
-                  f'cli.train did not write {f}')
-        with open(os.path.join(out, 'metrics.tsv')) as f:
-            rows = [ln.rstrip('\n').split('\t') for ln in f]
-        vals = [float(v) for r in rows if r[0] != 'step' for v in r]
-        check(len(vals) > 0 and all(np.isfinite(vals)),
-              f'cli.train: logged losses not finite: {rows}')
-        with open(os.path.join(ck, 'META.json')) as f:
-            meta = json.load(f)
-        check(meta['epoch'] == 2, f'cli.train META.json {meta}')
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f'CLI step alone (a fixed batch, no loader): '
+          f'{[round(t, 1) for t in times]} ms [{card}]', flush=True)
+    profile_frame(lambda: step(state, batch, draws),
+                  float(np.median(times)), card,
+                  tag='one CLI train step')
+    return launches, {'cfg': cfg_path, 'pre': pre, 'data': data}
 
-        # ---- the rerun resumes and trains one more epoch
-        more = cli_config(os.path.join(tmp, 'more.yaml'), base, data, out,
-                          pre, max_epochs=3, checkpoint_every_n_epochs=1)
-        text = run_cli(cli_train.main, [more])
-        check(f'resumed from step {meta["step"]} (epoch 2)' in text,
-              'cli.train rerun did not resume')
-        with open(os.path.join(ck, 'META.json')) as f:
-            meta3 = json.load(f)
-        check(meta3['epoch'] == 3 and meta3['step'] > meta['step'],
-              f'cli.train rerun META.json {meta3}')
 
-        # ---- job chaining in a subprocess: --exit-after gives code 2
-        chain = cli_config(os.path.join(tmp, 'chain.yaml'), base, data,
-                           os.path.join(tmp, 'out_chain'), pre,
-                           max_epochs=50)
+# ---- phase 10: the novel-pose test CLI, the H36M and People-Snapshot CLIs
+
+CLI_TEST_KERNELS = CLI_KERNELS_EVAL + ('siren',)
+MESH_RES = 256          # cli.test's default: 64 launches of J a frame
+
+
+def read_parts(text):
+    """{part: [seconds a frame]} from `cli.test`'s '[i/n] rendered (part
+    t s, ...)' lines."""
+    import re
+    parts = {}
+    for m in re.finditer(r'\] rendered \((.*)\)', text):
+        for kv in m.group(1).split(', '):
+            k, v, _ = kv.split(' ')
+            parts.setdefault(k, []).append(float(v))
+    return parts
+
+
+def check_video(vis, n_frames, tag):
+    """vis.mp4's boxes parse and hold one sample a frame, each decoding to
+    exactly read_jpeg(write_jpeg(the frame's four PNGs side by side))."""
+    import numpy as np
+    from arah_tpu_torch.cli.test import KINDS
+    from arah_tpu_torch.eval.evaluator import read_video
+    from arah_tpu_torch.utils.image import read_image, read_jpeg, write_jpeg
+    pngs = [[os.path.join(vis, f'{k}_{i:06d}.png') for k in KINDS]
+            for i in range(n_frames)]
+    check(all(os.path.exists(f) for row in pngs for f in row),
+          f'{tag}: a PNG is missing')
+    samples, fps, wh = read_video(os.path.join(vis, 'vis.mp4'))
+    same = len(samples) == n_frames
+    for row, sample in zip(pngs, samples):
+        frame = np.concatenate([read_image(f) for f in row], axis=1)
+        same = same and np.array_equal(read_jpeg(sample),
+                                       read_jpeg(write_jpeg(frame)))
+    print(f'{tag}: vis.mp4 {len(samples)} Motion-JPEG samples at {fps} '
+          f'frame/s, {wh[0]} x {wh[1]}, each read_jpeg(write_jpeg(the '
+          f'PNGs)): {same}', flush=True)
+    check(same, f'{tag}: vis.mp4 does not hold the frames')
+
+
+def check_free_viewpoint(vis, dataset, n_frames, n_views):
+    """What ROADMAP's recorded fault predicts for `--free-viewpoint` on
+    the one-camera ODP dataset: every spiral matrix is NaN, so each
+    frame's rgb and posed normal map are blank (all 0), while the
+    canonical front and back maps, which take no camera, are not."""
+    import numpy as np
+    from arah_tpu_torch.cli.test import spiral_cameras
+    from arah_tpu_torch.utils.image import read_image
+    spiral = np.asarray(spiral_cameras(dataset, n_views))
+    nan = bool(np.isnan(spiral[:, :3]).all())
+    lit = {k: [int(read_image(os.path.join(vis, f'{k}_{i:06d}.png')).any(
+        -1).sum()) for i in range(n_frames)]
+        for k in ('rgb', 'normal', 'front', 'back')}
+    print(f'cli.test --free-viewpoint {n_views} on {len(dataset.cam_names)} '
+          f'camera: spiral matrices all NaN {nan} (the recorded fault); '
+          f'non-zero pixels a frame {lit} (rgb and normal blank, front and '
+          'back drawn)', flush=True)
+    check(nan, 'cli.test --free-viewpoint: the one-camera spiral is not '
+          'the NaN that the recorded fault predicts')
+    check(not any(lit['rgb'] + lit['normal'])
+          and all(lit['front'] + lit['back']),
+          f'cli.test --free-viewpoint: frames not as predicted: {lit}')
+
+
+def mesh_check(tag, params, model_cfg, fd, item, latent, card, no_tf32,
+               timed_frame=False):
+    """J against its plain version chunk by chunk on the `MESH_RES` grid
+    of `params`' SIREN at frame `fd` (bound `J_TOL`, a chunk timed), then
+    marching cubes on both grids: face counts within 0.5% and the posed
+    normal maps' foreground (under `item`'s camera) agreeing on >= 0.99
+    of the pixels. With `timed_frame`, first one frame of the mesh path
+    as `cli.test` runs it (`render_normal_maps`), by part. Returns J's
+    grid record."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch import native
+    from arah_tpu_torch.eval.mesh_vis import (posed_normal_map,
+                                              render_normal_maps)
+    from arah_tpu_torch.ops.siren import (pack_siren_sdf, siren_sdf,
+                                          siren_sdf_plain)
+    from arah_tpu_torch.render.renderer import generate_sdf
+    from arah_tpu_torch.utils.meshing import CHUNK, grid_chunk
+    if timed_frame:
+        times = {}
+        no_tf32()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, '-m', 'arah_tpu_torch.cli.train', chain,
-             '--exit-after', '1', '--epochs-per-run', '50'],
-            cwd=repo, capture_output=True, text=True, timeout=600)
-        print(f'cli.train --exit-after 1 --epochs-per-run 50 (subprocess): '
-              f'exit code {r.returncode} in {time.perf_counter() - t0:.1f} s; '
-              f'{r.stdout.strip().splitlines()[-1:]}', flush=True)
-        check(r.returncode == 2, f'cli.train --exit-after: exit code '
-              f'{r.returncode}, not 2: {r.stderr[-2000:]}')
-
-        # ---- cli.validate --novel-view, counted
+        render_normal_maps(params, model_cfg, fd, item, latent,
+                           resolution=MESH_RES, times=times)
+        total_s = time.perf_counter() - t0
+        print(f'{tag}: one frame of the mesh path at --mesh-res {MESH_RES}, '
+              's by part: ' + ', '.join(f'{k} {v:.3f}'
+                                       for k, v in times.items())
+              + f'; total {total_s:.3f} s [{card}]', flush=True)
+    with torch.no_grad():
+        gen = generate_sdf(params, model_cfg, fd.rots, fd.Jtrs, latent)
+        packed = pack_siren_sdf(gen)
+        total = MESH_RES ** 3
+        gk = np.empty(total, np.float32)
+        gp = np.empty(total, np.float32)
+        err = 0.0
         no_tf32()
-        _build.reset_counts()
-        with count_plain() as plain:
-            run_cli(cli_validate.main, [cfg_path, '--novel-view'])
-        torch.cuda.synchronize()
-        vl = dict(_build.COUNTS)
-        with open(os.path.join(out, 'val', 'metrics.json')) as f:
-            mean = json.load(f)['mean']
-        print(f'cli.validate --novel-view: {mean}; launches '
-              f'{ {k: vl[k] for k in CLI_KERNELS_EVAL} }, plain calls '
-              f'{plain} [{card}]', flush=True)
-        check(all(vl[k] > 0 for k in CLI_KERNELS_EVAL),
-              f'cli.validate: a kernel of A-F was not launched: {vl}')
-        check(not any(plain.values()), f'cli.validate: plain versions ran: '
-              f'{plain}')
-        check(all(np.isfinite(mean[k]) for k in ('psnr', 'ssim'))
-              and any(k.startswith('lpips') and np.isfinite(v)
-                      for k, v in mean.items()),
-              f'cli.validate: metrics not finite: {mean}')
+        for i in range(0, total, CHUNK):
+            pts = grid_chunk(MESH_RES, i, CHUNK, 'cuda')
+            k, p = siren_sdf(gen, pts, packed), siren_sdf_plain(gen, pts)
+            m = min(CHUNK, total - i)
+            err = max(err, float((k[:m] - p[:m]).abs().max()))
+            gk[i:i + m] = k[:m, 0].cpu().numpy()
+            gp[i:i + m] = p[:m, 0].cpu().numpy()
+        pts = grid_chunk(MESH_RES, total // 2, CHUNK, 'cuda')
+        ms = timed(lambda: siren_sdf(gen, pts, packed), REPS)
+        plain_ms = timed(lambda: siren_sdf_plain(gen, pts), REPS)
+    macs = sum(w.numel() for w in gen.weights)
+    b = bound(CHUNK * 16 + 4 * sum(w.numel() + w.shape[0]
+                                   for w in gen.weights),
+              CHUNK * 2.0 * macs, PEAK_F32)
+    print(f'{tag}: J siren on the grid ({total:,} points, '
+          f'{-(-total // CHUNK)} chunks of {CHUNK:,}): max |d| {err:.3e} '
+          f'(bound {J_TOL:g}); a chunk {ms:.3f} ms (pack outside), plain '
+          f'{plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}) [{card}]',
+          flush=True)
+    check(err < J_TOL, f'{tag}: siren kernel disagrees with its plain '
+          'version on the grid')
+    sp = 2.0 / (MESH_RES - 1)
+    meshes = [native.marching_cubes(g.reshape((MESH_RES,) * 3), 0.0,
+                                    origin=[-1.0] * 3, spacing=[sp] * 3)
+              for g in (gk, gp)]
+    fk, fp = len(meshes[0][1]), len(meshes[1][1])
+    fg = [posed_normal_map(params, model_cfg, fd, item, v, f).any(-1)
+          for v, f in meshes]
+    agree = float((fg[0] == fg[1]).mean())
+    same_sign = float(((gk < 0) == (gp < 0)).mean())
+    print(f'{tag}: meshes: kernel grid {fk} faces, plain grid {fp} (|d| '
+          f'{abs(fk - fp) / max(fp, 1):.5f} of them, bound 0.005); grid '
+          f'signs equal at {same_sign:.7f}, SDF < 0 at {(gp < 0).mean():.5f} '
+          f'of the grid; posed normal maps\' foreground agreeing on '
+          f'{agree:.6f} of the pixels (bound 0.99; {int(fg[1].sum())} '
+          'foreground pixels)', flush=True)
+    check(fp > 0 and abs(fk - fp) <= 0.005 * fp,
+          f'{tag}: the kernel grid\'s mesh and the plain grid\'s differ in '
+          'faces')
+    check(fg[1].any() and agree >= 0.99,
+          f'{tag}: the kernel mesh\'s normal map and the plain mesh\'s '
+          'differ')
+    return dict(grid_ms=ms, grid_plain_ms=plain_ms, grid_bound_ms=b[0],
+                grid_max_abs_err=err)
 
-        # ---- the CLI layer's times: loader s/item, validation s/frame
-        cfg = load_config(cfg_path, default_config_path())
-        model_cfg = model_config_from_cfg(cfg)
-        ds = get_dataset('train', cfg)
-        n_ray = ds.num_fg_samples + ds.num_bg_samples
-        jpg = ds.data[0]['img_file']
-        dec = []
-        for _ in range(3):
+
+def bench_item(fd, size=512):
+    """The bench scene's camera (`scene.scene_inputs`: at (0, 0.3, -2.5),
+    looking along +z, image y down), its focal length and principal point
+    set so that frame `fd`'s posed body spans 0.8 of a size x size image
+    at its centre, as the fields of a dataset item that
+    `posed_normal_map` reads."""
+    import numpy as np
+    R = np.diag([-1.0, -1.0, 1.0]).astype(np.float32)
+    T = (-R @ np.array([0.0, 0.3, -2.5])).astype(np.float32)
+    pc = fd.smpl.verts_posed.detach().cpu().numpy() @ R.T + T
+    uv = pc[:, :2] / pc[:, 2:]
+    lo, hi = uv.min(0), uv.max(0)
+    f = 0.8 * size / float((hi - lo).max())
+    c = size / 2 - f * (lo + hi) / 2
+    K = np.array([[f, 0, c[0]], [0, f, c[1]], [0, 0, 1]], np.float32)
+    return {'image.K': K, 'image.R': R, 'image.T': T,
+            'inputs.img_height': size, 'inputs.img_width': size}
+
+
+def run_cli_test(card, no_tf32, cli):
+    """Phase 10 (a) and (b): `cli.test` on phase 9's checkpoint with the
+    fixture's own SMPL sequence as the novel poses, counted (A-F and J,
+    J at 64 a frame, no plain version), its PNGs and vis.mp4, the time a
+    frame by part, a free-viewpoint run held to the recorded NaN-camera
+    fault; then `mesh_check` on frame 0. Returns ({kernel: launches},
+    J's grid record)."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.cli import test as cli_test
+    from arah_tpu_torch.config.factory import (get_dataset,
+                                               init_params_from_cfg)
+    from arah_tpu_torch.config.loader import (default_config_path,
+                                              load_config,
+                                              model_config_from_cfg)
+    from arah_tpu_torch.data.loader import frame_from_item
+    from arah_tpu_torch.data.odp import ODPDataset
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.parallel.train_step import TrainState
+    from arah_tpu_torch.train import checkpoints as ckpt_lib
+    from arah_tpu_torch.utils.meshing import CHUNK
+
+    cfg_path = cli['cfg']
+    cfg = load_config(cfg_path, default_config_path())
+    vis = os.path.join(cfg['training']['out_dir'], 'vis')
+    argv = [cfg_path, '--pose-dir', 'models', '--mesh-res', str(MESH_RES)]
+
+    # ---- (a) cli.test, counted
+    no_tf32()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    with count_plain() as plain:
+        text = run_cli(cli_test.main, argv)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    launches = dict(_build.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    parts = read_parts(text)
+    n = len(parts.get('render', []))
+    per = MESH_RES ** 3 // CHUNK
+    print(f'phase 10: cli.test ({n} frames, --mesh-res {MESH_RES}): '
+          f'{test_s:.2f} s, launches '
+          f'{ {k: launches[k] for k in CLI_TEST_KERNELS} }, plain calls '
+          f'{plain}, peak memory {peak:.2f} GiB [{card}]', flush=True)
+    check(n == CLI_FRAMES, f'cli.test rendered {n} frames')
+    check(all(launches[k] > 0 for k in CLI_KERNELS_EVAL),
+          f'cli.test: a kernel of A-F was not launched: {launches}')
+    check(launches['siren'] == per * n,
+          f'cli.test: J launched {launches["siren"]} times, not {per} a '
+          'frame')
+    check(not any(plain.values()), f'cli.test: plain versions ran: {plain}')
+    check_video(vis, n, 'cli.test')
+    tot = sum(np.median(v) for v in parts.values())
+    print('cli.test s/frame by part (median of the frames; render holds '
+          'the item, its rays and the scatter): ' + ', '.join(
+              f'{k} {np.median(v):.3f}' for k, v in parts.items())
+          + f'; total {tot:.3f} s/frame [{card}]', flush=True)
+
+    # the ODP dataset as cli.test reads it (one camera, --test-views 1)
+    odp = ODPDataset(cfg['data']['path'], pose_dir='models', cam_name='1',
+                     smpl_misc_dir=cfg['data']['smpl_misc'],
+                     subjects=tuple(cfg['data']['test_split']))
+    t0 = time.perf_counter()
+    text = run_cli(cli_test.main, argv[:-2] + ['--mesh-res', '64',
+                                                '--free-viewpoint', '4',
+                                                '--end-frame', '2'])
+    fv = read_parts(text)
+    print(f'cli.test --free-viewpoint 4 --end-frame 2: '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    check(len(fv.get('render', [])) == 2,
+          'cli.test --free-viewpoint: not 2 frames rendered')
+    check_video(vis, 2, 'cli.test --free-viewpoint 4')
+    check_free_viewpoint(vis, odp, 2, 4)
+
+    # ---- (b) J against its plain version on frame 0's grid
+    model_cfg = model_config_from_cfg(cfg)
+    params = init_params_from_cfg(0, cfg, model_cfg, get_dataset('train',
+                                                                 cfg),
+                                  mode='val', device='cuda')
+    ckpt_lib.restore_checkpoint(
+        os.path.join(cfg['training']['out_dir'], 'checkpoints'),
+        TrainState(params, None, 0))
+    item = odp[0]
+    rec = mesh_check('phase 9 checkpoint, frame 0', params, model_cfg,
+                     frame_from_item(item, 'cuda'), item,
+                     params['latent'][-1], card, no_tf32)
+    return {k: launches[k] for k in CLI_TEST_KERNELS}, rec
+
+
+def hold_cli_step(tag, cfg, ds, card, no_tf32, refine_smpl=False):
+    """A-I against their plain versions on what a warm-up step of the
+    CLI's own batch (frame 0's blocks of `ds`) hands them, as phase 7
+    does; with `refine_smpl` the step refines the SMPL leaves as
+    `cli.train` does under `train_smpl: true`. Returns (the step, its
+    state after the warm-up, the batch, a second draw of its randoms)."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.config.factory import init_params_from_cfg
+    from arah_tpu_torch.config.loader import (loss_weights_from_cfg,
+                                              model_config_from_cfg,
+                                              optim_config_from_cfg)
+    from arah_tpu_torch.core.smpl import load_smpl_assets
+    from arah_tpu_torch.data.batch import draw_train_draws
+    from arah_tpu_torch.data.loader import collate_train_batch
+    from arah_tpu_torch.parallel.train_step import (TrainState,
+                                                    make_train_step,
+                                                    trainable)
+    from arah_tpu_torch.train.optim import make_optimizer
+    model_cfg = model_config_from_cfg(cfg)
+    params = init_params_from_cfg(0, cfg, model_cfg, ds, device='cuda')
+    tparams = trainable(params)
+    optimizer, _ = make_optimizer(optim_config_from_cfg(cfg), tparams)
+    kw = dict(smpl_model=load_smpl_assets(cfg['data']['smpl_misc'],
+                                          device='cuda'),
+              refine_smpl=True) if refine_smpl else {}
+    step = make_train_step(model_cfg, loss_weights_from_cfg(cfg), optimizer,
+                           **kw)
+    idxs = [i for i, rec in enumerate(ds.data) if rec['frame_idx'] == 0]
+    batch = collate_train_batch([ds[i] for i in idxs], device='cuda')
+    B, R = batch.ray_dirs.shape[:2]
+    rng = np.random.RandomState(9)
+    draws = [draw_train_draws(rng, model_cfg, B, R, 'cuda')
+             for _ in range(2)]
+    print(f'A-I at the {tag} step\'s shapes: {B} blocks x {R} rays '
+          f'({R * model_cfg.tracer.n_steps:,} samples a block), SMPL '
+          f'refinement {"on" if refine_smpl else "off"}', flush=True)
+    no_tf32()
+    with capture_train_kernels() as calls, capture_trace() as seen:
+        state, losses = step(TrainState(tparams, optimizer, 0), batch,
+                             draws[0])
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(losses['loss'])),
+          f'{tag} warm-up step: loss not finite')
+    check_block_kernels(model_cfg, params, seen, card, no_tf32, tag=tag)
+    del seen
+    no_tf32()
+    check_skin_jac(calls['skin_jac'][0], card)
+    no_tf32()
+    check_shade_bwd(max(calls['shade_bwd'], key=lambda a: a[1].shape[0]),
+                    card, 5e-3)
+    no_tf32()
+    check_color_bwd(calls['color_bwd'][0], card, 5e-3)
+    del calls
+    torch.cuda.empty_cache()
+    return step, state, batch, draws[1]
+
+
+def cli_train_counted(tag, card, no_tf32, cfg_path):
+    """cli.train on `cfg_path` with the launch counts set to 0 just before
+    and every plain version spied on: A-I must launch, none may be
+    called, every logged loss must be finite. Returns ({kernel:
+    launches}, ms between step starts)."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.cli import train as cli_train
+    from arah_tpu_torch.config.loader import default_config_path, load_config
+    from arah_tpu_torch.ops import _build
+    training = load_config(cfg_path, default_config_path())['training']
+    out = training['out_dir']
+    no_tf32()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    with count_plain() as plain, time_steps() as step_s:
+        run_cli(cli_train.main, [cfg_path])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'{tag}: cli.train ({training["max_epochs"]} epochs) '
+          f'{train_s:.2f} s, launches '
+          f'{ {k: launches[k] for k in TRAIN_KERNELS} }, plain calls '
+          f'{plain}, peak memory {peak:.2f} GiB [{card}]', flush=True)
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+          f'{tag} cli.train: a kernel of A-I was not launched: {launches}')
+    check(not any(plain.values()), f'{tag} cli.train: plain versions ran: '
+          f'{plain}')
+    with open(os.path.join(out, 'metrics.tsv')) as f:
+        rows = [ln.rstrip('\n').split('\t') for ln in f]
+    vals = [float(v) for r in rows if r[0] != 'step' for v in r]
+    check(len(vals) > 0 and all(np.isfinite(vals)),
+          f'{tag} cli.train: logged losses not finite: {rows}')
+    return ({k: launches[k] for k in TRAIN_KERNELS},
+            np.asarray(step_s) * 1e3)
+
+
+def loader_times(ds, undistorted=False):
+    """(median s/item over the dataset, median ms of one JPEG decode of its
+    first image, median ms of undistorting that image and its mask), one
+    thread."""
+    import numpy as np
+    from arah_tpu_torch.utils.image import read_image, undistort
+    rec = ds.data[0]
+    img, mask = read_image(rec['img_file']), read_image(rec['mask_file'],
+                                                        gray=True)
+    cam = ds.cameras[rec['cam_name']]
+    K = np.asarray(cam['K'], np.float32)
+    D = np.asarray(cam['D'], np.float32)
+    dec, und, item = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        read_image(rec['img_file'])
+        dec.append(time.perf_counter() - t0)
+        if undistorted:
             t0 = time.perf_counter()
-            read_image(jpg)
-            dec.append(time.perf_counter() - t0)
-        item_s = []
-        for i in range(len(ds)):
-            t0 = time.perf_counter()
-            ds[i]
-            item_s.append(time.perf_counter() - t0)
-        # the validation's frames and trained parameters, as
-        # `cli/validate.py` makes them (every frame's latent in range)
-        val_ds = get_dataset('val', cfg, subsampling_rate=30)
-        vparams = init_params_from_cfg(0, cfg, model_cfg, ds, mode='val',
-                                       device='cuda')
-        _, vstep = ckpt_lib.restore_checkpoint(
-            os.path.join(out, 'checkpoints'), TrainState(vparams, None, 0))
-        check(vstep == meta3['step'], f'validation restored step {vstep}')
-        val_items = [val_ds[i] for i in range(len(val_ds))]
+            undistort(img, K, D)
+            undistort(mask, K, D)
+            und.append(time.perf_counter() - t0)
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        ds[i]
+        item.append(time.perf_counter() - t0)
+    return (float(np.median(item)), float(np.median(dec)) * 1e3,
+            float(np.median(und)) * 1e3 if und else None)
 
-        def latent(item):
-            return vparams['latent'][int(item['inputs.data_idx'])]
 
-        # ---- A-F against their plain versions on what the validation
-        # render's first chunk hands them (its own chunk of rays)
-        no_tf32()
-        with capture_trace() as seen:
-            evaluate_frame(vparams, model_cfg, val_items[0],
-                           latent(val_items[0]))
-        torch.cuda.synchronize()
-        check_block_kernels(model_cfg, vparams, seen, card, no_tf32,
-                            tag='cli validate', train=False, witness=True)
-        del seen
-        torch.cuda.empty_cache()
-        val_s = []     # each frame three times
-        for item in val_items * 3:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            evaluate_frame(vparams, model_cfg, item, latent(item))
-            torch.cuda.synchronize()
-            val_s.append(time.perf_counter() - t0)
-        v0 = val_ds[0]
-        n_box = int(v0['inputs.image_mask'].sum())
-        hw = f'{int(v0["inputs.img_height"])} x {int(v0["inputs.img_width"])}'
-        ms = np.asarray(step_s) * 1e3
-        print(f'CLI layer: ms/step median {np.median(ms):.1f} (min '
-              f'{ms.min():.1f}, max {ms.max():.1f}; wall time between '
-              f'step starts over {len(ms) + 1} steps of 2 blocks x '
-              f'{n_ray} rays, loading and validation waits included); loader '
-              f'{np.median(item_s):.3f} s/item median (min '
-              f'{min(item_s):.3f}, max {max(item_s):.3f}; {len(item_s)} '
-              f'train items, one thread), of which JPEG decode of a '
-              f'{img_size} x {img_size} frame {np.median(dec) * 1e3:.1f} ms; '
-              f'validation {np.median(val_s):.3f} s/frame median (min '
-              f'{min(val_s):.3f}, max {max(val_s):.3f}; {len(val_items)} '
-              f'frames x 3 of {n_box} box rays at {hw}) [{card}]', flush=True)
+def run_cli_h36m(card, no_tf32, tmp, pre):
+    """Phase 10 (c): the H36M fixture (2 views at 1002 x 1000, 4 frames),
+    a config inheriting configs/arah-h36m/H36M_S9.yaml (its networks and
+    `train_smpl: true`), `cli.train` for one epoch counted (the SMPL
+    leaves must move), `cli.validate --novel-view`, A-I against their
+    plain versions on that CLI step's block, and the CLI layer's times.
+    Returns {kernel: launches in the train run}."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.cli import validate as cli_validate
+    from arah_tpu_torch.config.factory import (
+        get_dataset, smpl_refine_params_from_dataset)
+    from arah_tpu_torch.config.loader import default_config_path, load_config
+    from arah_tpu_torch.data.fake_dataset import make_fake_h36m_dataset
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.train import checkpoints as ckpt_lib
 
-        # ---- A-I against their plain versions at the CLI step's shapes,
-        # and one traced step
-        params = init_params_from_cfg(0, cfg, model_cfg, ds, device='cuda')
-        loss_w = loss_weights_from_cfg(cfg)
-        tparams = trainable(params)
-        optimizer, _ = make_optimizer(optim_config_from_cfg(cfg), tparams)
-        step = make_train_step(model_cfg, loss_w, optimizer)
-        idxs = [i for i, rec in enumerate(ds.data) if rec['frame_idx'] == 0]
-        batch = collate_train_batch([ds[i] for i in idxs], device='cuda')
-        B, R = batch.ray_dirs.shape[:2]
-        rng = np.random.RandomState(9)
-        draws = [draw_train_draws(rng, model_cfg, B, R, 'cuda')
-                 for _ in range(2)]
-        state = TrainState(tparams, optimizer, 0)
-        print(f'A-I at the CLI step\'s shapes: {B} blocks x {R} rays '
-              f'({R * model_cfg.tracer.n_steps:,} samples a block)',
-              flush=True)
-        no_tf32()
-        with capture_train_kernels() as calls, capture_trace() as seen:
-            state, losses = step(state, batch, draws[0])
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(losses['loss'])),
-              'CLI warm-up step: loss not finite')
-        check_block_kernels(model_cfg, params, seen, card, no_tf32,
-                            tag='cli')
-        del seen
-        no_tf32()
-        check_skin_jac(calls['skin_jac'][0], card)
-        no_tf32()
-        check_shade_bwd(max(calls['shade_bwd'],
-                            key=lambda a: a[1].shape[0]), card, 5e-3)
-        no_tf32()
-        check_color_bwd(calls['color_bwd'][0], card, 5e-3)
-        del calls
-        torch.cuda.empty_cache()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            state, losses = step(state, batch, draws[1])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        print(f'CLI step alone (a fixed batch, no loader): '
-              f'{[round(t, 1) for t in times]} ms [{card}]', flush=True)
-        profile_frame(lambda: step(state, batch, draws[1]),
-                      float(np.median(times)), card,
-                      tag='one CLI train step')
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(repo, 'configs', 'arah-h36m', 'H36M_S9.yaml')
+    data = os.path.join(tmp, 'h36m')
+    t0 = time.perf_counter()
+    make_fake_h36m_dataset(data, n_frames=CLI_FRAMES, views=('1', '2'))
+    print(f'phase 10: H36M fixture ({CLI_FRAMES} frames, views 1 and 2, '
+          f'1002 x 1000) written in {time.perf_counter() - t0:.2f} s',
+          flush=True)
+    out = os.path.join(tmp, 'out_h36m')
+    cfg_path = cli_config(
+        os.path.join(tmp, 'h36m.yaml'), base, data, out, pre,
+        data_keys={'train_views': "['1', '2']", 'val_views': "['1']",
+                   'test_views': "['1']", 'num_fg_samples': 512,
+                   'num_bg_samples': 512}, max_epochs=1)
+    launches, ms = cli_train_counted('H36M', card, no_tf32, cfg_path)
+    cfg = load_config(cfg_path, default_config_path())
+    ds = get_dataset('train', cfg)
+    blob = torch.load(os.path.join(ckpt_lib.step_dir(
+        os.path.join(out, 'checkpoints'), ckpt_lib.latest_step(
+            os.path.join(out, 'checkpoints'))), ckpt_lib.STATE_FILE),
+        map_location='cpu', weights_only=False)
+    init = smpl_refine_params_from_dataset(ds, 'cpu')
+    moved = {k: not torch.equal(blob['params']['smpl_params'][k],
+                                init['smpl_params'][k])
+             for k in ('root_orient', 'pose_body', 'pose_hand')}
+    print(f'H36M: SMPL leaves moved by the epoch: {moved}', flush=True)
+    check(all(moved.values()), f'H36M cli.train: SMPL leaves still {moved}')
+
+    no_tf32()
+    _build.reset_counts()
+    with count_plain() as plain:
+        run_cli(cli_validate.main, [cfg_path, '--novel-view'])
+    torch.cuda.synchronize()
+    vl = dict(_build.COUNTS)
+    with open(os.path.join(out, 'val', 'metrics.json')) as f:
+        mean = json.load(f)['mean']
+    print(f'H36M cli.validate --novel-view: {mean}; launches '
+          f'{ {k: vl[k] for k in CLI_KERNELS_EVAL} }, plain calls {plain} '
+          f'[{card}]', flush=True)
+    check(all(vl[k] > 0 for k in CLI_KERNELS_EVAL) and not any(
+        plain.values()), f'H36M cli.validate: launches {vl}, plain {plain}')
+    check(all(np.isfinite(mean[k]) for k in ('psnr', 'ssim')),
+          f'H36M cli.validate: metrics not finite: {mean}')
+
+    item_s, dec_ms, _ = loader_times(ds)
+    print(f'H36M CLI layer: ms/step median {np.median(ms):.1f} (min '
+          f'{ms.min():.1f}, max {ms.max():.1f}; between step starts over '
+          f'{len(ms) + 1} steps of 2 blocks x 1,024 rays); loader '
+          f'{item_s:.3f} s/item median ({len(ds)} train items, one thread), '
+          f'of which JPEG decode of a 1002 x 1000 frame {dec_ms:.1f} ms '
+          f'[{card}]', flush=True)
+
+    # ---- A-I against their plain versions on the CLI step's block
+    hold_cli_step('cli h36m', cfg, ds, card, no_tf32, refine_smpl=True)
     return launches
+
+
+def run_cli_snapshot(card, no_tf32, tmp, pre):
+    """Phase 10 (d): the People-Snapshot fixture with a distorted camera
+    (its `camera.pkl` rewritten with camera_k (-0.2, 0.05, 0, 0, 0), so
+    that the loader undistorts every image and mask), a config inheriting
+    configs/arah-people-snapshot/male-3-casual.yaml, `cli.train` for one
+    epoch counted, and the loader's s/item with its undistortion."""
+    import pickle
+    import numpy as np
+    from arah_tpu_torch.config.factory import get_dataset
+    from arah_tpu_torch.config.loader import default_config_path, load_config
+    from arah_tpu_torch.data.fake_dataset import make_fake_snapshot_dataset
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(repo, 'configs', 'arah-people-snapshot',
+                        'male-3-casual.yaml')
+    data = os.path.join(tmp, 'snapshot')
+    make_fake_snapshot_dataset(data, subject='male-3-casual',
+                               n_frames=CLI_FRAMES)
+    path = os.path.join(data, 'male-3-casual', 'camera.pkl')
+    with open(path, 'rb') as f:
+        cam = pickle.load(f)
+    cam['camera_k'] = np.array([-0.2, 0.05, 0.0, 0.0, 0.0])
+    with open(path, 'wb') as f:
+        pickle.dump(cam, f)
+    out = os.path.join(tmp, 'out_snapshot')
+    cfg_path = cli_config(os.path.join(tmp, 'snapshot.yaml'), base, data,
+                          out, pre, data_keys={'num_fg_samples': 512,
+                                               'num_bg_samples': 512},
+                          max_epochs=1)
+    launches, ms = cli_train_counted('People-Snapshot', card, no_tf32,
+                                     cfg_path)
+    ds = get_dataset('train', load_config(cfg_path, default_config_path()))
+    item_s, dec_ms, und_ms = loader_times(ds, undistorted=True)
+    print(f'People-Snapshot CLI layer ({CLI_FRAMES} frames, one view at 512 '
+          f'x 512 read at {ds.img_size[0]} x {ds.img_size[1]}, camera_k '
+          f'{ds.cameras["0"]["D"]}): ms/step median {np.median(ms):.1f}; '
+          f'loader {item_s:.3f} s/item median, of which JPEG decode '
+          f'{dec_ms:.1f} ms and undistorting the image and its mask '
+          f'{und_ms:.1f} ms [{card}]', flush=True)
 
 
 if __name__ == '__main__':

@@ -112,3 +112,148 @@ def test_cuda_without_a_gpu_raises(tmp_path, data_root, monkeypatch):
     cfg = tiny_config(tmp_path / 'cfg.yaml', data_root, str(tmp_path / 'o'))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         train.main([cfg])
+
+
+@pytest.fixture(scope='module')
+def odp_root(tmp_path_factory, data_root):
+    """The fixture with camera 1 moved back (f 250 at 1024 px, so 125 in
+    the ODP dataset's 512 x 512 frame): the body spans a few thousand
+    pixels, which keeps the CPU render short."""
+    import shutil
+    root = str(tmp_path_factory.mktemp('odp') / 'data')
+    shutil.copytree(data_root, root)
+    path = os.path.join(root, 'CoreView_313', 'cam_params.json')
+    with open(path) as f:
+        cams = json.load(f)
+    cams['1']['K'] = [[250.0, 0, 512.0], [0, 250.0, 512.0], [0, 0, 1.0]]
+    with open(path, 'w') as f:
+        json.dump(cams, f)
+    return root
+
+
+def test_cli_test_vs_jax(tmp_path, odp_root, capsys):
+    """`cli.test` on the CPU: it restores the checkpoint, writes the four
+    PNG kinds of each frame and `vis.mp4` (each sample `write_jpeg` of the
+    frame's PNGs side by side), and frame 0's rgb and normal maps are
+    JAX's `render_frame_rays` and `render_normal_maps` on the same
+    parameters, quantised: the rgb within 1 level at every pixel and
+    equal at >= 0.99 of them (float roundoff moves a few across a level),
+    each normal map's foreground agreeing at >= 0.99 of the pixels and
+    its levels equal at the median. A second run with `--free-viewpoint
+    2` writes its frames, blank but for the canonical maps: one camera
+    makes every spiral matrix NaN, as in JAX."""
+    import jax
+    import jax.numpy as jnp
+    from arah_tpu.config import load_config as jload
+    from arah_tpu.config import model_config_from_cfg as jmodel_cfg
+    from arah_tpu.data.loader import frame_from_item as jframe
+    from arah_tpu.data.odp import ODPDataset
+    from arah_tpu.eval.evaluator import render_frame_rays, scatter_image
+    from arah_tpu.eval.mesh_vis import render_normal_maps
+    from arah_tpu_torch.cli import test as cli_test
+    from arah_tpu_torch.config.factory import (get_dataset,
+                                               init_params_from_cfg)
+    from arah_tpu_torch.config.loader import (default_config_path,
+                                              load_config,
+                                              model_config_from_cfg,
+                                              optim_config_from_cfg)
+    from arah_tpu_torch.data.loader import frame_from_item
+    from arah_tpu_torch.eval.evaluator import _to_u8, read_video
+    from arah_tpu_torch.nn.hypernet import siren_layer_dims
+    from arah_tpu_torch.nn.siren import siren_apply
+    from arah_tpu_torch.parallel.train_step import TrainState, trainable
+    from arah_tpu_torch.render.renderer import generate_sdf
+    from arah_tpu_torch.train import checkpoints as ckpt_lib
+    from arah_tpu_torch.train.optim import make_optimizer
+    from arah_tpu_torch.utils.image import read_image, write_jpeg
+    from arah_tpu_torch.utils.meshing import grid_chunk
+    from arah_tpu_torch.utils.tree import tree_map
+
+    out = str(tmp_path / 'out')
+    cfg_path = tiny_config(tmp_path / 'cfg.yaml', odp_root, out)
+    cfg = load_config(cfg_path, default_config_path())
+    mcfg = model_config_from_cfg(cfg)
+    # a checkpoint at step 3 of parameters drawn from seed 5, the SIREN
+    # lowered by its median over the grid so that the mesh has a surface
+    params = init_params_from_cfg(5, cfg, mcfg, get_dataset('train', cfg),
+                                  mode='val', device='cpu')
+    odp_kw = dict(pose_dir='models', cam_name='1',
+                  smpl_misc_dir=cfg['data']['smpl_misc'],
+                  subjects=('CoreView_313',), end_frame=1)
+    item = ODPDataset(odp_root, **odp_kw)[0]
+    fd = frame_from_item(item, 'cpu')
+    with torch.no_grad():
+        gen = generate_sdf(params, mcfg, fd.rots, fd.Jtrs,
+                           params['latent'][-1])
+        shift = siren_apply(gen, grid_chunk(16, 0, 16 ** 3)).median()
+        d_in, d_out = siren_layer_dims(mcfg.hypernet)[-1]
+        params['hypernet']['hypo_init'][-1][d_in * d_out:] -= shift
+    tparams = trainable(params)
+    opt, _ = make_optimizer(optim_config_from_cfg(cfg), tparams)
+    ckpt_lib.save_checkpoint(os.path.join(out, 'checkpoints'), 3,
+                             TrainState(tparams, opt, 3))
+
+    capsys.readouterr()
+    cli_test.main([cfg_path, '--device', 'cpu', '--pose-dir', 'models',
+                   '--end-frame', '1', '--mesh-res', '32'])
+    text = capsys.readouterr().out
+    assert 'loaded checkpoint step 3' in text
+    assert '[1/1] rendered (render' in text and 'grid' in text
+    vis = os.path.join(out, 'vis')
+    pngs = [read_image(os.path.join(vis, f'{k}_000000.png'))
+            for k in ('rgb', 'normal', 'front', 'back')]
+    assert [p.shape for p in pngs] == [(512, 512, 3)] * 4
+    samples, fps, wh = read_video(os.path.join(vis, 'vis.mp4'))
+    assert (len(samples), fps, wh) == (1, 20, (2048, 512))
+    assert samples[0] == write_jpeg(np.concatenate(pngs, axis=1))
+
+    # JAX on the same parameters and item
+    jparams = jax.tree.map(jnp.asarray, tree_map(lambda t: t.numpy(),
+                                                 params))
+    jcfg = jmodel_cfg(jload(cfg_path, 'configs/default.yaml'))
+    jitem = ODPDataset(odp_root, **odp_kw)[0]
+    latent = jparams['latent'][-1]
+    jfd = jframe(jitem)
+    rgb, _, _, _ = render_frame_rays(jparams, jcfg, jfd, jitem, latent)
+    ref = _to_u8(scatter_image(np.asarray(rgb),
+                               np.asarray(jitem['inputs.image_mask'])))
+    d = np.abs(pngs[0].astype(int) - ref)
+    assert ref.any() and d.max() <= 1 and (d == 0).mean() >= 0.99, (
+        d.max(), (d == 0).mean())
+    maps = render_normal_maps(jparams, jcfg, jfd, jitem, latent,
+                              resolution=32)
+    for png, m in zip(pngs[1:], maps):
+        m = _to_u8(np.asarray(m))
+        fg_p, fg_j = png.any(-1), m.any(-1)
+        assert fg_j.sum() > 100
+        assert (fg_p == fg_j).mean() >= 0.99
+        assert np.median(np.abs(png.astype(int) - m)) == 0
+
+    cli_test.main([cfg_path, '--device', 'cpu', '--pose-dir', 'models',
+                   '--end-frame', '2', '--mesh-res', '16',
+                   '--free-viewpoint', '2'])
+    assert len(read_video(os.path.join(vis, 'vis.mp4'))[0]) == 2
+    for k in ('rgb', 'normal', 'front', 'back'):
+        assert os.path.exists(os.path.join(vis, f'{k}_000001.png'))
+    # one camera gives the spiral no spread: its matrices are NaN, as in
+    # JAX, so the rgb and posed normal maps are blank and only the
+    # canonical maps, which take no camera, are drawn
+    from arah_tpu_torch.data.odp import ODPDataset as PortODP
+    spiral = np.asarray(cli_test.spiral_cameras(PortODP(odp_root, **odp_kw),
+                                                2))
+    assert np.isnan(spiral[:, :3]).all()
+    for i in range(2):
+        lit = {k: read_image(os.path.join(vis, f'{k}_{i:06d}.png')).any()
+               for k in ('rgb', 'normal', 'front', 'back')}
+        assert lit == {'rgb': False, 'normal': False, 'front': True,
+                       'back': True}, (i, lit)
+
+
+def test_cli_test_refuses_multi_device_flags(tmp_path, data_root):
+    from arah_tpu_torch.cli import test as cli_test
+    cfg = tiny_config(tmp_path / 'cfg.yaml', data_root, str(tmp_path / 'o'))
+    for flag in ('--devices', '--num-processes', '--process-id',
+                 '--coordinator'):
+        with pytest.raises(SystemExit) as e:
+            cli_test.main([cfg, '--device', 'cpu', flag, '2'])
+        assert e.value.code == 2

@@ -196,11 +196,11 @@ class TestConfigs:
 
 class TestPortRules:
     def test_imports_no_jax(self):
-        """Importing every arah_tpu_torch module, the CLIs and the data
-        path included, loads no jax and no arah_tpu module, and none of
-        the packages the card's machine lacks: yaml, cv2, PIL, imageio,
-        orbax (the port reads its configs and images with its own
-        code)."""
+        """Importing every arah_tpu_torch module, the CLIs, the data path
+        and the novel-pose path included, loads no jax and no arah_tpu
+        module, and none of the packages the card's machine lacks: yaml,
+        cv2, PIL, imageio, orbax (the port reads its configs and images
+        with its own code)."""
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         code = (
             'import importlib, pkgutil, sys\n'
@@ -213,9 +213,10 @@ class TestPortRules:
             "bad = [m for m in sys.modules if m.split('.')[0] in top]\n"
             'n = sum(m.startswith("arah_tpu_torch") for m in sys.modules)\n'
             "cli = all(f'arah_tpu_torch.{m}' in sys.modules for m in "
-            "('cli.train', 'cli.validate', 'data.human_video', "
-            "'utils.image', 'config.yaml_lite', 'train.trainer', "
-            "'eval.evaluator', 'native'))\n"
+            "('cli.train', 'cli.validate', 'cli.test', 'data.human_video', "
+            "'data.odp', 'eval.mesh_vis', 'utils.meshing', "
+            "'utils.camera_path', 'utils.image', 'config.yaml_lite', "
+            "'train.trainer', 'eval.evaluator', 'native'))\n"
             "print(n, cli, ','.join(bad))\n")
         r = subprocess.run([sys.executable, '-c', code], cwd=root,
                            capture_output=True, text=True, timeout=120)

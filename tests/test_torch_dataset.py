@@ -5,7 +5,8 @@ meshes, `core/smpl.py:lbs` (to 1e-5), the fake dataset writer (the same
 masks, cameras and SMPL files: exact, except the posed joints and bone
 transforms, which come from each side's lbs, to 1e-6), the
 `ZJUMoCapDataset` items in train and val mode (every key exactly equal:
-the port reads the JPEGs and resizes as OpenCV does, to the bit), and
+the port reads the JPEGs and resizes as OpenCV does, to the bit; a
+camera with distortion: `test_torch_undistort.py`), and
 `evaluate_frame` (psnr within 0.05 dB, ssim within 1e-3, the rendered
 colour and normal images pixel by pixel, at the parameters
 `params_from_jax` moves across)."""
@@ -139,21 +140,6 @@ def test_items_vs_jax(fixtures, mode, erode):
         for k in a:
             np.testing.assert_array_equal(np.asarray(b[k]),
                                           np.asarray(a[k]), err_msg=k)
-
-
-def test_distortion_is_refused(fixtures, tmp_path):
-    import shutil
-    root = str(tmp_path / 'd')
-    shutil.copytree(fixtures[1], root)
-    cams = os.path.join(root, 'CoreView_313', 'cam_params.json')
-    with open(cams) as f:
-        c = json.load(f)
-    c['1']['D'] = [0.1, 0, 0, 0, 0]
-    with open(cams, 'w') as f:
-        json.dump(c, f)
-    _, pds = _datasets(root, 'val')
-    with pytest.raises(NotImplementedError, match='distortion'):
-        pds[0]
 
 
 def test_evaluate_frame_vs_jax(fixtures):
