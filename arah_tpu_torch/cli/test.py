@@ -4,9 +4,11 @@ a pose sequence and write rgb and normal PNGs and `vis.mp4`.
     python -m arah_tpu_torch.cli.test CONFIG [--pose-dir DIR]
         [--start-frame A --end-frame B] [--test-views V] [--low-vram]
         [--chunk N] [--mesh-res R] [--free-viewpoint N]
-        [--device cuda|cpu]
+        [--device cuda|cuda:K|cpu] [--devices N]
+        [--coordinator HOST:PORT --num-processes N --process-id R]
+        [--dist-backend nccl|gloo]
 
-The contract of the JAX package's `test.py` on one device: the config's
+The contract of the JAX package's `test.py`: the config's
 dataset is read as the pose-only ODP dataset (`data/odp.py`: the SMPL
 files of `--pose-dir`, default `data.pose_dir`, seen from camera
 `--test-views`); the checkpoint is restored from `out_dir/checkpoints`;
@@ -20,8 +22,14 @@ where JAX's is MPEG-4 Part 2. `--free-viewpoint N` moves each frame's
 camera to one of N spiral cameras (`utils/camera_path.py`), cycling over
 the frames; as in JAX the frame keeps the rays of the dataset's camera
 and takes the spiral camera's position and extrinsics. Runs on the GPU
-unless `--device cpu` is given. One device only (multi-GPU is not
-ported)."""
+unless `--device cpu` is given.
+
+Several processes (the flags of `cli/train.py`: `--devices`,
+`--coordinator --num-processes --process-id`, `--dist-backend`) split
+the frames: rank r renders frames r, r + P, ...; after a barrier rank 0
+assembles `vis.mp4` from every rank's PNGs (one shared `out_dir`).
+`--devices N` instead splits every ray chunk over N ranks, and rank 0
+alone draws the meshes' normal maps and writes the PNGs."""
 from __future__ import annotations
 
 import argparse
@@ -68,9 +76,14 @@ def main(argv=None):
                    help='render N spiral novel views of each frame '
                         '(reference gen_path)')
     p.add_argument('--device', default='cuda')
+    from arah_tpu_torch.cli.train import add_dist_flags, run_in_group
+    add_dist_flags(p, 'split every render ray chunk over N ranks, one '
+                      'device each')
     args = p.parse_args(argv)
+    run_in_group(p, args, argv, 'arah_tpu_torch.cli.test', _main)
 
-    from arah_tpu_torch.cli.train import pick_device
+
+def _main(args, device):
     from arah_tpu_torch.config.factory import (get_dataset,
                                                init_params_from_cfg)
     from arah_tpu_torch.config.loader import (default_config_path,
@@ -84,9 +97,9 @@ def main(argv=None):
     from arah_tpu_torch.eval.mesh_vis import render_normal_maps
     from arah_tpu_torch.parallel.train_step import TrainState
     from arah_tpu_torch.train import checkpoints as ckpt_lib
+    from arah_tpu_torch.parallel import distributed
     from arah_tpu_torch.utils.image import read_image
 
-    device = pick_device(args.device)
     cfg = load_config(args.config, default_config_path())
     if args.low_vram:
         args.chunk = min(args.chunk or 4096, 2048)
@@ -120,8 +133,19 @@ def main(argv=None):
     spiral = (spiral_cameras(dataset, args.free_viewpoint)
               if args.free_viewpoint > 0 else None)
 
+    rank, world = distributed.process_index(), distributed.process_count()
+    mesh = None
+    if (args.devices or 1) > 1 and world > 1:
+        from arah_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh()
+        print(f'sharded render over {world} ranks', flush=True)
+    # frames split over the ranks, unless every rank renders a share of
+    # every chunk (then rank 0 alone draws the normal maps and writes)
+    mine = range(len(dataset)) if mesh is not None \
+        else range(rank, len(dataset), world)
+    writer = mesh is None or rank == 0
     latent = params['latent'][-1] if 'latent' in params else None
-    for i in range(len(dataset)):
+    for i in mine:
         times = {}
         t0 = time.perf_counter()
         item = dataset[i]
@@ -134,9 +158,11 @@ def main(argv=None):
                                      ).astype(np.float32)
         fd = frame_from_item(item, device)
         rgb, _, _, _ = render_frame_rays(params, model_cfg, fd, item, latent,
-                                         chunk=args.chunk)
+                                         chunk=args.chunk, mesh=mesh)
         pred = scatter_image(rgb, np.asarray(item['inputs.image_mask']))
         times['render'] = time.perf_counter() - t0
+        if not writer:
+            continue
         normal, front, back = render_normal_maps(
             params, model_cfg, fd, item, latent, resolution=args.mesh_res,
             times=times)
@@ -148,6 +174,10 @@ def main(argv=None):
             f'{k} {times[k]:.3f} s' for k in PARTS if k in times) + ')',
             flush=True)
 
+    # every rank's PNGs are on the shared out_dir before rank 0 reads them
+    distributed.sync_global_devices('test_render_done')
+    if rank != 0:
+        return
     frames = []
     for i in range(len(dataset)):
         row = [read_image(os.path.join(vis_dir, f'{kind}_{i:06d}.png'))

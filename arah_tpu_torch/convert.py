@@ -4,6 +4,9 @@ The port's parameter tree mirrors the JAX one key for key (dicts stay
 dicts, lists stay lists), so conversion is a tree map from numpy arrays
 to tensors. Pass the JAX tree as numpy, e.g.
 `jax.tree.map(np.asarray, params)`; the port itself never imports JAX.
+The same map moves any of the JAX package's parameter trees whose port
+keeps its layout: the model's (`model.init_model_params`) and the
+geometric-init SDF MLP's (`nn/sdf_mlp.py:init_sdf_mlp`).
 """
 from __future__ import annotations
 

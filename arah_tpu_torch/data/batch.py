@@ -161,11 +161,16 @@ def synthetic_train_batch(rng: np.random.RandomState, fd: FrameData,
 
 
 def draw_train_draws(rng: np.random.RandomState, cfg: ModelConfig,
-                     n_blocks: int, n_rays: int, device='cuda') -> TrainDraws:
+                     n_blocks: int, n_rays: int, device='cuda',
+                     blocks: slice | None = None) -> TrainDraws:
     """One step's draws: uniform sample jitter and cfg.n_eik_points
-    eikonal points uniform in [-1, 1]^3, per block."""
+    eikonal points uniform in [-1, 1]^3, per block. blocks: keep only
+    these of the n_blocks blocks (a rank's share of the global step's
+    draws), so that a run over several ranks draws what one rank would
+    draw for the whole batch."""
     def u(shape):
-        return torch.as_tensor(rng.uniform(size=shape).astype(np.float32),
+        a = rng.uniform(size=shape).astype(np.float32)
+        return torch.as_tensor(a if blocks is None else a[blocks],
                                device=device)
     s1, s2, s3 = jitter_shapes(cfg.tracer, n_rays)
     return TrainDraws(u((n_blocks,) + s1), u((n_blocks,) + s2),

@@ -1,13 +1,15 @@
-"""Full-image evaluation. Port of `arah_tpu/eval/evaluator.py` on one
-device: render every box ray of a frame in fixed-size chunks with
-`render(training=False)` (kernels A-F on the card, under `torch.no_grad`),
-scatter the rays back into the image by the box mask, derive a normal
-image from finite-difference depth, and compute PSNR/SSIM and the
-perceptual metric; PNGs through the port's writer (`utils/image.py`).
-`write_video` writes an MP4 of Motion-JPEG samples (`read_video` reads
-it back), where JAX's OpenCV writer encodes MPEG-4 Part 2 (`mp4v`): the
-card's machine has neither OpenCV nor an MPEG-4 encoder. The sharded
-chunk path is not ported."""
+"""Full-image evaluation. Port of `arah_tpu/eval/evaluator.py`: render
+every box ray of a frame in fixed-size chunks with `render(training=False)`
+(kernels A-F on the card, under `torch.no_grad`), scatter the rays back
+into the image by the box mask, derive a normal image from
+finite-difference depth, and compute PSNR/SSIM and the perceptual metric;
+PNGs through the port's writer (`utils/image.py`). With a mesh
+(`parallel/mesh.py`) each chunk is split over the ranks, as JAX's
+`shard_map` splits it over its devices, and the pieces are gathered on
+every rank. `write_video` writes an MP4 of Motion-JPEG samples
+(`read_video` reads it back), where JAX's OpenCV writer encodes MPEG-4
+Part 2 (`mp4v`): the card's machine has neither OpenCV nor an MPEG-4
+encoder."""
 from __future__ import annotations
 
 import struct
@@ -37,12 +39,31 @@ def pick_eval_chunk(n_rays: int) -> int:
     return best
 
 
+def _gather_chunk(outs, mesh):
+    """Every rank's (rgb, weights, depth, converged) piece of a chunk,
+    gathered through the host in rank order: the whole chunk's numpy
+    arrays on every rank."""
+    import torch.distributed as dist
+    from arah_tpu_torch.parallel import distributed
+    rgb, w, d, c = (o.float().cpu() for o in outs)
+    piece = torch.cat([rgb, w[:, None], d[:, None], c[:, None]], 1)
+    pieces = [torch.empty_like(piece) for _ in range(mesh.size)]
+    dist.all_gather(pieces, piece, group=distributed.cpu_group())
+    full = torch.cat(pieces).numpy()
+    return full[:, :3], full[:, 3], full[:, 4], full[:, 5] > 0
+
+
 def render_frame_rays(params, cfg: ModelConfig, fd, item, latent,
-                      chunk: int | None = None):
+                      chunk: int | None = None, mesh=None):
     """Render every sampled ray of an eval item on the parameters'
     device; returns numpy (rgb (N, 3), weights (N,), depth (N,),
     converged (N,)). Each chunk is padded to `chunk` rays (repeating the
-    last), as in JAX; chunk=None picks `pick_eval_chunk`."""
+    last), as in JAX; chunk=None picks `pick_eval_chunk`.
+
+    mesh: every rank calls it on the same item; the chunk is rounded to
+    a multiple of the mesh size (as in JAX), each rank renders its
+    contiguous chunk / size rays of every chunk, and the pieces are
+    gathered, so that every rank returns the whole frame."""
     dev = fd.smpl.verts_posed.device
     rays = np.asarray(item['inputs.ray_dirs'], np.float32)
     bounds = np.asarray(item['inputs.body_bounds_intersections'],
@@ -50,6 +71,11 @@ def render_frame_rays(params, cfg: ModelConfig, fd, item, latent,
     n = rays.shape[0]
     if chunk is None:
         chunk = pick_eval_chunk(n)
+    size = 1 if mesh is None else mesh.size
+    if size > 1:
+        chunk = max(chunk - chunk % size, size)
+    own = slice(0, chunk) if size == 1 else \
+        slice(mesh.rank * (chunk // size), (mesh.rank + 1) * (chunk // size))
     pose_cond_extra = {}
     geo_latent = None
     if latent is not None:
@@ -65,9 +91,9 @@ def render_frame_rays(params, cfg: ModelConfig, fd, item, latent,
     for i in range(0, n, chunk):
         j = min(i + chunk, n)
         pad = chunk - (j - i)
-        rd = np.pad(rays[i:j], ((0, pad), (0, 0)), mode='edge')
-        nr = np.pad(bounds[i:j, 0], (0, pad), mode='edge')
-        fr = np.pad(bounds[i:j, 1], (0, pad), mode='edge')
+        rd = np.pad(rays[i:j], ((0, pad), (0, 0)), mode='edge')[own]
+        nr = np.pad(bounds[i:j, 0], (0, pad), mode='edge')[own]
+        fr = np.pad(bounds[i:j, 1], (0, pad), mode='edge')[own]
         inp = RenderInputs(
             cam_loc=cam_loc, ray_dirs=torch.as_tensor(rd, device=dev),
             near=torch.as_tensor(nr, device=dev),
@@ -76,11 +102,15 @@ def render_frame_rays(params, cfg: ModelConfig, fd, item, latent,
             rots_full=fd.rots_full, Jtrs_posed=fd.Jtrs_posed,
             pose_cond_extra=pose_cond_extra, geo_latent=geo_latent)
         out = render(params, cfg, inp, training=False)
+        outs = (out['rgb_values'], out['weights_sum'], out['surface_depth'],
+                out['surface_converged'])
+        if size > 1:
+            outs = _gather_chunk(outs, mesh)
+        else:
+            outs = [o.float().cpu().numpy() for o in outs[:3]] + \
+                [outs[3].cpu().numpy()]
         k = j - i
-        rgb[i:j] = out['rgb_values'][:k].float().cpu().numpy()
-        weights[i:j] = out['weights_sum'][:k].float().cpu().numpy()
-        depth[i:j] = out['surface_depth'][:k].float().cpu().numpy()
-        conv[i:j] = out['surface_converged'][:k].cpu().numpy()
+        rgb[i:j], weights[i:j], depth[i:j], conv[i:j] = (o[:k] for o in outs)
     return rgb, weights, depth, conv
 
 
@@ -114,15 +144,16 @@ def normals_from_depth(points_cam, image_mask):
 
 
 def evaluate_frame(params, cfg: ModelConfig, item, latent=None,
-                   chunk: int | None = None):
+                   chunk: int | None = None, mesh=None):
     """Validation metrics of one eval item on the parameters' device:
     psnr, ssim, the perceptual metric under `utils/lpips.py:metric_key`,
-    and the rendered images."""
+    and the rendered images. mesh: the ray chunks split over its ranks
+    (`render_frame_rays`), every rank calling it on the same item."""
     from arah_tpu_torch.utils.lpips import metric_key
     dev = params['deviation']['variance'].device
     fd = frame_from_item(item, dev)
     rgb, weights, depth, conv = render_frame_rays(
-        params, cfg, fd, item, latent, chunk=chunk)
+        params, cfg, fd, item, latent, chunk=chunk, mesh=mesh)
     image_mask = np.asarray(item['inputs.image_mask'])
     gt = np.asarray(item['inputs'])
 

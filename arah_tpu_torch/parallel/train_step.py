@@ -1,10 +1,15 @@
-"""The single-device training step. Port of `arah_tpu/parallel/
-train_step.py` without a mesh: per ray block, the training render and
-the losses; the mean over blocks and its gradient; one optimizer update.
-With the options of the JAX step: SMPL refinement (the block's frame
-recomputed from the learnable per-frame SMPL leaves, differentiably),
-camera refinement (rays from the learnable extrinsics), the perceptual
-patch loss, and per-block frames.
+"""The training step. Port of `arah_tpu/parallel/train_step.py`: per ray
+block, the training render and the losses; the mean over blocks and its
+gradient; one optimizer update. With the options of the JAX step: SMPL
+refinement (the block's frame recomputed from the learnable per-frame
+SMPL leaves, differentiably), camera refinement (rays from the learnable
+extrinsics), the perceptual patch loss, and per-block frames.
+
+With a mesh (`parallel/mesh.py`: one rank a device) each rank takes its
+own blocks; the gradients and the losses are then averaged over the
+ranks by one all-reduce of a flat buffer (JAX's `pmean` under
+`shard_map`), and every rank makes the same update. The JAX step folds
+the rank into its key; here each rank's draws arrive as its `TrainDraws`.
 
 The randomness that `jax.random` draws inside the JAX step arrives as a
 `TrainDraws` argument: per block, the three sample-jitter arrays and the
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from arah_tpu_torch.core.smpl import quat_to_rot
 from arah_tpu_torch.model import FrameData, prepare_frame
@@ -157,6 +163,38 @@ def _block_loss(params, cfg: ModelConfig, loss_w: LossWeights,
     return compute_loss(out, gt, loss_w, perceptual_fn=perceptual_fn)
 
 
+def allreduce_mean(leaves, losses: dict, mesh) -> dict:
+    """The mean over the mesh's ranks of every leaf's `.grad` (a leaf
+    without one counts as zeros, so that every rank reduces the same
+    buffer) and of each loss: one all-reduce of one flat buffer, the
+    losses at its end. Sets every leaf's `.grad`; returns the averaged
+    losses. The leaves share one floating dtype (the port's parameters
+    are float32)."""
+    dtype = leaves[0].dtype
+    if any(p.dtype != dtype for p in leaves):
+        raise TypeError('allreduce_mean: leaves of several dtypes '
+                        f'{sorted({str(p.dtype) for p in leaves})}')
+    keys = list(losses)
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                      .reshape(-1) for p in leaves]
+                     + [torch.stack([losses[k].to(dtype) for k in keys])])
+    dist.all_reduce(flat, group=mesh.group)
+    flat /= mesh.size
+    i = 0
+    for p in leaves:
+        p.grad = flat[i:i + p.numel()].view_as(p)
+        i += p.numel()
+    return {k: flat[i + j] for j, k in enumerate(keys)}
+
+
+def grad_leaves(params):
+    """The floating leaves of `params` (frozen ones included, as JAX
+    computes their gradients too), in the tree's order."""
+    from arah_tpu_torch.train.optim import tree_leaves_with_path
+    return [leaf for _, leaf in tree_leaves_with_path(params)
+            if torch.is_tensor(leaf) and leaf.is_floating_point()]
+
+
 def make_train_step(cfg: ModelConfig, loss_w: LossWeights, optimizer,
                     mesh=None, smpl_model=None, refine_smpl: bool = False,
                     refine_cameras: bool = False,
@@ -178,10 +216,14 @@ def make_train_step(cfg: ModelConfig, loss_w: LossWeights, optimizer,
     DSSIM proxy without the weights). per_block_frame: the batch's frame
     leaves and latent_idx carry a leading block dimension
     (`data/loader.py:collate_train_batch_np(per_block_frame=True)`,
-    `data/batch.py:synthetic_train_batch(fds=...)`)."""
-    if mesh is not None:
-        raise NotImplementedError('the sharded (multi-GPU) train step is a '
-                                  'later slice of the port')
+    `data/batch.py:synthetic_train_batch(fds=...)`).
+
+    mesh: a `parallel/mesh.py:Mesh`. The batch and the draws are then
+    the rank's own blocks (`parallel/mesh.py:local_blocks` of a global
+    batch, or its sampler shard), the same count on every rank; after
+    the blocks' backward the gradients and losses are averaged over the
+    ranks (`allreduce_mean`), so every rank updates its replica alike
+    and gets the mean losses of the global batch."""
     if refine_smpl and smpl_model is None:
         raise ValueError('refine_smpl needs the SMPL model (smpl_model=)')
     perceptual_fn = make_perceptual_loss() if loss_w.perceptual > 0 \
@@ -196,7 +238,11 @@ def make_train_step(cfg: ModelConfig, loss_w: LossWeights, optimizer,
     def step_fn(state: TrainState, batch: TrainBatch, draws: TrainDraws):
         params = state.params
         n_blocks = batch.ray_dirs.shape[0]
-        optimizer.zero_grad()
+        # every leaf's, the frozen ones' too (the optimizer's zero_grad
+        # skips those): each step's .grad is that step's gradient alone
+        leaves = grad_leaves(params)
+        for p in leaves:
+            p.grad = None
         per_block = []
         for b in range(n_blocks):
             bl = _block_loss(params, cfg, loss_w, batch, draws,
@@ -209,6 +255,8 @@ def make_train_step(cfg: ModelConfig, loss_w: LossWeights, optimizer,
             per_block.append({k: v.detach() for k, v in bl.items()})
         losses = {k: torch.stack([bl[k] for bl in per_block]).mean()
                   for k in per_block[0]}
+        if mesh is not None:
+            losses = allreduce_mean(leaves, losses, mesh)
         optimizer.step()
         return TrainState(params, optimizer, state.step + 1), losses
     return step_fn

@@ -219,8 +219,18 @@ def step_dir(ckpt_dir: str, step: int) -> str:
 
 def save_checkpoint(ckpt_dir: str, step: int, state):
     """Save a `TrainState` (params, optimizer, step) under
-    `step_<step>/` and point `LAST` at it; returns the directory."""
+    `step_<step>/` and point `LAST` at it; returns the directory. In a
+    group of several processes every rank calls it: rank 0 writes its
+    replica, then all meet at a barrier."""
+    from arah_tpu_torch.parallel import distributed
     path = step_dir(ckpt_dir, step)
+    if distributed.process_index() == 0:
+        _write_checkpoint(ckpt_dir, step, path, state)
+    distributed.sync_global_devices('save_checkpoint')
+    return path
+
+
+def _write_checkpoint(ckpt_dir: str, step: int, path: str, state):
     os.makedirs(path, exist_ok=True)
     opt = state.optimizer
     blob = {'params': _cpu_tree(state.params), 'step': int(state.step),
@@ -232,7 +242,6 @@ def save_checkpoint(ckpt_dir: str, step: int, state):
     os.replace(tmp, os.path.join(path, STATE_FILE))
     with open(os.path.join(ckpt_dir, 'LAST'), 'w') as f:
         f.write(str(step))
-    return path
 
 
 def latest_step(ckpt_dir: str):
@@ -248,13 +257,21 @@ def restore_checkpoint(ckpt_dir: str, target, step: int | None = None):
     saved parameters are copied into its leaves and, unless its optimizer
     is None (evaluation), the Adam state (and schedule) loaded into its
     optimizer. Returns (state, step), or (None, None) without a
-    checkpoint."""
+    checkpoint. The file loads straight to the parameters' device (each
+    rank's own)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             return None, None
+    from arah_tpu_torch.train.optim import tree_leaves_with_path
+    device = next(leaf for _, leaf in tree_leaves_with_path(target.params)
+                  if torch.is_tensor(leaf)).device
     blob = torch.load(os.path.join(step_dir(ckpt_dir, step), STATE_FILE),
-                      map_location='cpu', weights_only=False)
+                      map_location=device, weights_only=False)
+    for st in blob['optimizer']['state'].values():
+        # Adam keeps its step counts on the host
+        if torch.is_tensor(st.get('step')):
+            st['step'] = st['step'].cpu()
     _copy_into(target.params, blob['params'])
     opt = target.optimizer
     if opt is not None:

@@ -1,14 +1,23 @@
 """Training loop: epochs over frames, checkpoints, logging, validation and
-profiling. Port of `arah_tpu/train/trainer.py` on one device: the epoch
-loop over the frame sampler with background prefetching
-(`data/loader.py`), the train step (`parallel/train_step.py`), resume from
-`out_dir/checkpoints` (job chaining), `exit_after` timed exit, periodic
-validation with the best step in `BEST.json`, TSV/stdout metrics, and a
-`torch.profiler` trace of steps 8-10 under `profile_dir`.
+profiling. Port of `arah_tpu/train/trainer.py`: the epoch loop over the
+frame sampler with background prefetching (`data/loader.py`), the train
+step (`parallel/train_step.py`), resume from `out_dir/checkpoints` (job
+chaining), `exit_after` timed exit, periodic validation with the best
+step in `BEST.json`, TSV/stdout metrics, and a `torch.profiler` trace of
+steps 8-10 under `profile_dir`.
+
+In a process group of several ranks (`parallel/distributed.py`) the run
+is data parallel, as JAX's over its mesh: each rank takes its shard of
+every frame's views (or of the multi-frame permutation), the step
+averages the gradients over the ranks, and rank 0 alone logs, writes
+`META.json` and validates; checkpoints are written by rank 0 between
+barriers; rank 0's `exit_after` decision is broadcast every step, so that
+all ranks stop together.
 
 The randomness the JAX step draws from `fold_in(key, step)` comes from a
 numpy `RandomState` seeded by (seed, step) (`data/batch.py:
-draw_train_draws`); the pose/view input noise from its own `RandomState`
+draw_train_draws`), drawn for the global step's blocks, each rank
+keeping its own; the pose/view input noise from its own `RandomState`
 (seed + 17), drawn in the prefetch workers under a lock, as in JAX."""
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from arah_tpu_torch.data.loader import (FrameBatchSampler,
                                         MultiFrameBatchSampler, Prefetcher,
                                         batch_to_device,
                                         collate_train_batch_np)
+from arah_tpu_torch.parallel import distributed
 from arah_tpu_torch.parallel.train_step import (TrainState, make_train_step,
                                                 trainable)
 from arah_tpu_torch.train import checkpoints as ckpt_lib
@@ -86,18 +96,18 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
     stopped_early). Resumes from `out_dir/checkpoints` when there is one;
     `stopped_early` is True when `exit_after` fired (the CLI then exits
     with code 2). The checkpoint and validation periods come from
-    `cfg['training']`. In a torch.distributed run of several processes it
-    raises: multi-GPU training is not ported."""
-    if torch.distributed.is_available() \
-            and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError('multi-GPU training is not ported yet '
-                                  '(ROADMAP.md, multi-GPU)')
+    `cfg['training']`. In a process group of several ranks the mesh is
+    every rank of it (`parallel/mesh.py:make_mesh`)."""
+    from arah_tpu_torch.parallel.mesh import make_mesh
     device = params['deviation']['variance'].device
+    rank = distributed.process_index()
+    world = distributed.process_count()
+    is_main = rank == 0
+    mesh = make_mesh() if world > 1 else None
     out_dir = cfg['training']['out_dir']
     ckpt_dir = os.path.join(out_dir, 'checkpoints')
     os.makedirs(ckpt_dir, exist_ok=True)
-    logger = MetricLogger(out_dir)
+    logger = MetricLogger(out_dir) if is_main else None
 
     params = trainable(params)
     optimizer, _ = make_optimizer(optim_cfg, params)
@@ -112,29 +122,37 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
             with open(meta_path) as f:
                 start_epoch = json.load(f).get('epoch', 0)
         print(f'resumed from step {step} (epoch {start_epoch})', flush=True)
+    # DDP's start: every replica from rank 0's parameters and Adam state
+    distributed.replicate_over_mesh(state, mesh)
 
     # per-block-frame mode (`training.multi_frame_batch: true`): each ray
     # block carries its own frame
     multi_frame = bool(cfg['training'].get('multi_frame_batch', False))
-    step_fn = make_train_step(model_cfg, loss_w, optimizer,
+    step_fn = make_train_step(model_cfg, loss_w, optimizer, mesh=mesh,
                               smpl_model=smpl_model,
                               refine_smpl=refine_smpl,
                               refine_cameras=refine_cameras,
                               per_block_frame=multi_frame)
+    # each rank its shard of the views (JAX's per-process sampler); one
+    # device a rank, so no block padding (JAX's block_multiple is 1)
     if multi_frame:
         sampler = MultiFrameBatchSampler(dataset, 1, shuffle=True,
-                                         seed=seed)
+                                         seed=seed, shard_id=rank,
+                                         num_shards=world)
     else:
-        sampler = FrameBatchSampler(dataset, shuffle=True, seed=seed)
+        sampler = FrameBatchSampler(dataset, shuffle=True, seed=seed,
+                                    shard_id=rank, num_shards=world)
     if max_epochs is None:
         max_epochs = cfg['training'].get('max_epochs', 250)
     checkpoint_every_n_epochs = cfg['training'].get(
         'checkpoint_every_n_epochs', 10)
     validate_every_n_epochs = cfg['training'].get(
         'validate_every_n_epochs', 0) if val_dataset is not None else 0
+    # periodic validation on rank 0 alone (JAX's is too)
     val_logger = MetricLogger(out_dir, log_every=1,
                               filename='val_metrics.tsv') \
-        if (val_dataset is not None and validate_every_n_epochs) else None
+        if (val_dataset is not None and validate_every_n_epochs
+            and is_main) else None
 
     best_path = os.path.join(ckpt_dir, 'BEST.json')
     best_psnr = -float('inf')
@@ -164,7 +182,11 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
         val_logger.log(int(state.step), agg)
         if agg.get('val_psnr', -float('inf')) > best_psnr:
             best_psnr = agg['val_psnr']
-            ckpt_lib.save_checkpoint(ckpt_dir, int(state.step), state)
+            if world == 1:
+                # the save meets every rank at a barrier, and only rank 0
+                # validates: with several ranks BEST.json names the step
+                # and the nearest periodic checkpoint holds it, as in JAX
+                ckpt_lib.save_checkpoint(ckpt_dir, int(state.step), state)
             with open(best_path, 'w') as f:
                 json.dump({'step': int(state.step), 'epoch': epoch,
                            'val_psnr': best_psnr,
@@ -172,8 +194,9 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
 
     def save(epoch):
         ckpt_lib.save_checkpoint(ckpt_dir, int(state.step), state)
-        with open(os.path.join(ckpt_dir, 'META.json'), 'w') as f:
-            json.dump({'epoch': epoch, 'step': int(state.step)}, f)
+        if is_main:
+            with open(os.path.join(ckpt_dir, 'META.json'), 'w') as f:
+                json.dump({'epoch': epoch, 'step': int(state.step)}, f)
 
     # host-side augmentation: numpy in the prefetch workers; the lock
     # keeps concurrent collates from racing the generator
@@ -208,25 +231,33 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
                         else [])
                     prof = profile(activities=acts)
                     prof.__enter__()
+                n_local = batch.ray_dirs.shape[0]
                 draws = draw_train_draws(
-                    step_rng(seed, step_i), model_cfg,
-                    batch.ray_dirs.shape[0], batch.ray_dirs.shape[1],
-                    device=device)
+                    step_rng(seed, step_i), model_cfg, world * n_local,
+                    batch.ray_dirs.shape[1], device=device,
+                    blocks=slice(rank * n_local, (rank + 1) * n_local))
                 state, losses = step_fn(state, batch, draws)
-                logger.log(step_i, losses)
+                if logger is not None:
+                    logger.log(step_i, losses)
                 if prof is not None and step_i == 10:
                     if device.type == 'cuda':
                         torch.cuda.synchronize()
                     prof.__exit__(None, None, None)
                     os.makedirs(profile_dir, exist_ok=True)
-                    prof.export_chrome_trace(
-                        os.path.join(profile_dir, 'trace.json'))
+                    prof.export_chrome_trace(os.path.join(
+                        profile_dir, 'trace.json' if is_main
+                        else f'trace_rank{rank}.json'))
                     prof = None
-                if exit_after is not None \
-                        and time.time() - t_start > exit_after:
-                    print('exit-after reached; checkpointing', flush=True)
-                    stop = True
-                    break
+                if exit_after is not None:
+                    # every rank must take rank 0's decision, or a lone
+                    # stop strands the others in the next all-reduce
+                    over = bool(distributed.broadcast_one_to_all(
+                        time.time() - t_start > exit_after))
+                    if over:
+                        print('exit-after reached; checkpointing',
+                              flush=True)
+                        stop = True
+                        break
         if stop:
             break
         done = epoch + 1

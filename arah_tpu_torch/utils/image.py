@@ -675,7 +675,12 @@ def fill_poly(img: np.ndarray, pts, value) -> np.ndarray:
     """cv2.fillPoly(img, [pts], value) for one polygon of integer
     vertices (in place; returns img): each edge drawn as an 8-connected
     line, then the scanline fill of cv2's FillEdgeCollection (16-bit
-    fixed-point edge x, spans [x_left, x_right] between sorted pairs)."""
+    fixed-point edge x, spans [x_left, x_right] between sorted pairs).
+
+    An edge that leaves the image runs, as in cv2's CollectPolyEdges,
+    through its clipped endpoints' x, and through their y unless the
+    clipped edge is level; its rows stay the unclipped edge's. So an edge
+    clipped to one border pixel is a vertical edge on that border."""
     h, w = img.shape[:2]
     pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
     one = 1 << _XY_SHIFT
@@ -687,12 +692,10 @@ def fill_poly(img: np.ndarray, pts, value) -> np.ndarray:
         x1c, y1c = (p1[0] << _XY_SHIFT), p1[1]
         if not (0 <= p0[0] < w and 0 <= p1[0] < w and 0 <= p0[1] < h
                 and 0 <= p1[1] < h):
-            ok, t0, t1 = _clip_line(w, h, p0, p1)
+            _, t0, t1 = _clip_line(w, h, p0, p1)
+            x0c, x1c = t0[0] << _XY_SHIFT, t1[0] << _XY_SHIFT
             if t0[1] != t1[1]:
-                x0c, y0c = t0[0] << _XY_SHIFT, t0[1]
-                x1c, y1c = t1[0] << _XY_SHIFT, t1[1]
-        else:
-            pass
+                y0c, y1c = t0[1], t1[1]
         if p0[1] == p1[1]:
             continue
         ddx = _tdiv(x1c - x0c, y1c - y0c) if y1c != y0c else 0

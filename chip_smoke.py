@@ -137,8 +137,9 @@
    does, then times and traces that step.
 10. Drives the novel-pose test CLI and the H36M and People-Snapshot
    readers: (a) `cli.test.main` on phase 9's checkpoint, with the
-   fixture's own SMPL sequence as the novel poses, at `--mesh-res 256`,
-   counted (A-F launched, J 64 times a frame, no plain version called);
+   fixture's own SMPL sequence as the novel poses, its first 2 frames
+   (`--end-frame 2`) at `--mesh-res 256`, counted (A-F launched, J 64
+   times a frame, no plain version called);
    its PNGs and `vis.mp4` (the boxes parse, each sample decodes to the
    frame's PNGs as `write_jpeg` encodes them); the seconds a frame by
    part (render, grid, marching cubes, skinning, rasterizing, writing)
@@ -147,7 +148,9 @@
    matrix NaN, the rgb and posed normal PNGs blank, the canonical ones
    drawn). (b) `mesh_check`: J against its plain version on frame 0's
    grid, chunk by chunk (262,144 points, timed), and the meshes of the
-   kernel's and the plain grid: faces within 0.5%, the posed normal
+   kernel's and the plain grid (every second sample an axis, 128^3: the
+   checkpoint's mesh at 256^3 has tens of millions of faces, ~35 s of
+   marching cubes each on the host): faces within 0.5%, the posed normal
    maps' foreground agreeing on >= 0.99 of the pixels. The trained
    checkpoint's SIREN crosses zero all through the grid (tens of
    millions of faces), so `mesh_check` also runs on a body-sized
@@ -166,9 +169,37 @@
    `configs/arah-people-snapshot/male-3-casual.yaml`: `cli.train` for
    one epoch, counted, and the loader's s/item with its undistortion.
 
+11. Drives data parallelism over torch.distributed (`run_ddp`): (a) the
+   flagship step sharded over 2 gloo ranks that share the card (rank
+   processes `python3 chip_smoke.py --rank ...`, which load the built
+   kernels and neither build nor fit): phase 2's fitted parameters, a
+   2-block batch (8,192 rays and 1,024 regulariser points a block) and 2
+   steps' draws go to them through a file; each rank takes its block, 2
+   steps, the first counted (A-I launched, no plain version called);
+   rank 0's all-reduced gradient and mean losses against this process's
+   2-block step from the same state, batch and draws (losses within
+   1e-5, every leaf's cosine >= 0.9999); after 2 steps the ranks'
+   parameters bit-equal; ms/step, the all-reduce's ms (gloo through the
+   host, not NCCL's cost) and peak memory a rank. (b) One NCCL rank:
+   `make_train_step(mesh=make_mesh())` at world size 1, bit-equal to
+   mesh=None, and the NCCL all-reduce's time for the flat gradient
+   buffer. (c) The flagship frame's 8,192 rays through
+   `render_frame_rays(mesh=)` on 2 gloo ranks, counted (A-F): each
+   rank's slice bit-equal to its rays rendered alone at the same size,
+   the frame against this process's render (converged-flag agreement >
+   0.98, rgb median |d| < 1e-2, depth median |d| < 1e-4). (d) The CLIs
+   as 2 rank processes with the manual flags (`--device cuda:0
+   --dist-backend gloo`) on phase 9's fixture: `cli.train` one epoch
+   (each rank's A-I launched, no plain version; one checkpoint, one
+   `META.json`, finite losses), `cli.validate --novel-view` (its
+   `metrics.json` equal to one process's on the same checkpoint),
+   `cli.test` on 2 frames at `--mesh-res 64` (every PNG, `vis.mp4`
+   parsed).
+
 Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line (A-I also
 carry `launches_cli_train` and `launches_cli_h36m`, phase 9's and phase
-10's train counts; A-F and J `launches_cli_test`; J its grid time as
+10's train counts, and `launches_ddp`, each rank's in phase 11's counted
+sharded step; A-F and J `launches_cli_test`; J its grid time as
 `grid_ms`, `grid_plain_ms`, `grid_bound_ms`), and as its last line
 `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero before those lines. Without a CUDA device it exits non-zero.
@@ -944,6 +975,12 @@ def main():
     launches.update(ab_launches)
     per.update(siren='over 3 A/B frames', knn_rows='over 3 A/B frames',
                corr_rows='in the corr bench')
+    # phase 11's eval frame: the flagship frame's rays as an eval item
+    frame_item = {
+        'inputs.ray_dirs': inp.ray_dirs.cpu().numpy(),
+        'inputs.body_bounds_intersections': torch.stack(
+            [inp.near, inp.far], -1).cpu().numpy(),
+        'image.cam_loc': inp.cam_loc.reshape(3).cpu().numpy()}
     del inp, gen, frames, flagship_out
     torch.cuda.empty_cache()
     # G, H and I count launches per train step (the eval path runs none)
@@ -983,6 +1020,9 @@ def main():
         h36m_launches = run_cli_h36m(card, no_tf32, tmp, cli['pre'])
         torch.cuda.empty_cache()
         run_cli_snapshot(card, no_tf32, tmp, cli['pre'])
+        torch.cuda.empty_cache()
+        ddp_launches = run_ddp(card, no_tf32, params, fd, frame_item, cli,
+                               tmp)
 
     out = []
     for name, r in records.items():
@@ -996,7 +1036,8 @@ def main():
                        if k in r},
                     **({'launches_refined_step': refined_launches[name],
                         'launches_cli_train': cli_launches[name],
-                        'launches_cli_h36m': h36m_launches[name]}
+                        'launches_cli_h36m': h36m_launches[name],
+                        'launches_ddp': ddp_launches[name]}
                        if name in TRAIN_KERNELS else {}),
                     **({'launches_cli_test': test_launches[name]}
                        if name in CLI_TEST_KERNELS else {}),
@@ -3971,6 +4012,9 @@ def run_clis(card, no_tf32, scene, tmp):
 
 CLI_TEST_KERNELS = CLI_KERNELS_EVAL + ('siren',)
 MESH_RES = 256          # cli.test's default: 64 launches of J a frame
+# cli.test's frames: the host meshes a trained checkpoint's tens of
+# millions of faces at ~30-75 s a frame (PERF.md §5)
+TEST_FRAMES = 2
 
 
 def read_parts(text):
@@ -4033,14 +4077,15 @@ def check_free_viewpoint(vis, dataset, n_frames, n_views):
 
 
 def mesh_check(tag, params, model_cfg, fd, item, latent, card, no_tf32,
-               timed_frame=False):
+               timed_frame=False, stride=1):
     """J against its plain version chunk by chunk on the `MESH_RES` grid
     of `params`' SIREN at frame `fd` (bound `J_TOL`, a chunk timed), then
-    marching cubes on both grids: face counts within 0.5% and the posed
-    normal maps' foreground (under `item`'s camera) agreeing on >= 0.99
-    of the pixels. With `timed_frame`, first one frame of the mesh path
-    as `cli.test` runs it (`render_normal_maps`), by part. Returns J's
-    grid record."""
+    marching cubes on both grids (every `stride`-th sample on each axis:
+    2 for a trained checkpoint's tens of millions of faces): face counts
+    within 0.5% and the posed normal maps' foreground (under `item`'s
+    camera) agreeing on >= 0.99 of the pixels. With `timed_frame`, first
+    one frame of the mesh path as `cli.test` runs it
+    (`render_normal_maps`), by part. Returns J's grid record."""
     import numpy as np
     import torch
     from arah_tpu_torch import native
@@ -4091,16 +4136,17 @@ def mesh_check(tag, params, model_cfg, fd, item, latent, card, no_tf32,
           flush=True)
     check(err < J_TOL, f'{tag}: siren kernel disagrees with its plain '
           'version on the grid')
-    sp = 2.0 / (MESH_RES - 1)
-    meshes = [native.marching_cubes(g.reshape((MESH_RES,) * 3), 0.0,
-                                    origin=[-1.0] * 3, spacing=[sp] * 3)
-              for g in (gk, gp)]
+    sp = 2.0 / (MESH_RES - 1) * stride
+    meshes = [native.marching_cubes(np.ascontiguousarray(
+        g.reshape((MESH_RES,) * 3)[::stride, ::stride, ::stride]), 0.0,
+        origin=[-1.0] * 3, spacing=[sp] * 3) for g in (gk, gp)]
     fk, fp = len(meshes[0][1]), len(meshes[1][1])
     fg = [posed_normal_map(params, model_cfg, fd, item, v, f).any(-1)
           for v, f in meshes]
     agree = float((fg[0] == fg[1]).mean())
     same_sign = float(((gk < 0) == (gp < 0)).mean())
-    print(f'{tag}: meshes: kernel grid {fk} faces, plain grid {fp} (|d| '
+    print(f'{tag}: meshes (every {stride} grid sample an axis): kernel '
+          f'grid {fk} faces, plain grid {fp} (|d| '
           f'{abs(fk - fp) / max(fp, 1):.5f} of them, bound 0.005); grid '
           f'signs equal at {same_sign:.7f}, SDF < 0 at {(gp < 0).mean():.5f} '
           f'of the grid; posed normal maps\' foreground agreeing on '
@@ -4160,7 +4206,8 @@ def run_cli_test(card, no_tf32, cli):
     cfg_path = cli['cfg']
     cfg = load_config(cfg_path, default_config_path())
     vis = os.path.join(cfg['training']['out_dir'], 'vis')
-    argv = [cfg_path, '--pose-dir', 'models', '--mesh-res', str(MESH_RES)]
+    argv = [cfg_path, '--pose-dir', 'models', '--end-frame',
+            str(TEST_FRAMES), '--mesh-res', str(MESH_RES)]
 
     # ---- (a) cli.test, counted
     no_tf32()
@@ -4181,7 +4228,7 @@ def run_cli_test(card, no_tf32, cli):
           f'{test_s:.2f} s, launches '
           f'{ {k: launches[k] for k in CLI_TEST_KERNELS} }, plain calls '
           f'{plain}, peak memory {peak:.2f} GiB [{card}]', flush=True)
-    check(n == CLI_FRAMES, f'cli.test rendered {n} frames')
+    check(n == TEST_FRAMES, f'cli.test rendered {n} frames')
     check(all(launches[k] > 0 for k in CLI_KERNELS_EVAL),
           f'cli.test: a kernel of A-F was not launched: {launches}')
     check(launches['siren'] == per * n,
@@ -4222,7 +4269,7 @@ def run_cli_test(card, no_tf32, cli):
     item = odp[0]
     rec = mesh_check('phase 9 checkpoint, frame 0', params, model_cfg,
                      frame_from_item(item, 'cuda'), item,
-                     params['latent'][-1], card, no_tf32)
+                     params['latent'][-1], card, no_tf32, stride=2)
     return {k: launches[k] for k in CLI_TEST_KERNELS}, rec
 
 
@@ -4469,5 +4516,509 @@ def run_cli_snapshot(card, no_tf32, tmp, pre):
           f'{und_ms:.1f} ms [{card}]', flush=True)
 
 
+# ---- phase 11: data parallelism over torch.distributed
+
+DDP_RANKS = 2           # gloo ranks sharing the one card
+RANK_TIMEOUT = 300      # seconds a phase-11 rank process may run
+DDP_STEPS = 2           # sharded steps a rank takes (the first counted)
+
+
+def free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(('127.0.0.1', 0))
+        return sk.getsockname()[1]
+
+
+def launch_ranks(tag, args_of_rank, tmp):
+    """DDP_RANKS processes of `python3 chip_smoke.py --rank ...`
+    (args_of_rank(rank, port) after '--rank'), started together on one
+    fresh port; every one is killed after the first that fails or at
+    RANK_TIMEOUT. Prints each rank's output, indented; a rank that fails
+    fails the run. Returns [(exit code, output)] and the wall seconds."""
+    port = free_port()
+    logs = [os.path.join(tmp, f'{tag}_rank{r}.log') for r in range(DDP_RANKS)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, 'w') as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--rank']
+                + args_of_rank(r, port), cwd=here, stdout=f,
+                stderr=subprocess.STDOUT))
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.perf_counter() - t0 > RANK_TIMEOUT:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    res = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        with open(log) as f:
+            out = f.read()
+        for line in out.splitlines()[-40:]:
+            print(f'    [{tag} rank {r}] {line[:600]}')
+        check(p.returncode == 0, f'{tag}: rank {r} exit code {p.returncode}')
+        res.append((p.returncode, out))
+    print(f'{tag}: {DDP_RANKS} ranks in {wall:.1f} s', flush=True)
+    return res, wall
+
+
+def rank_lines(out, key):
+    """The JSON object a rank printed after `key` (None if none)."""
+    for line in out.splitlines():
+        if line.startswith(key):
+            return json.loads(line[len(key):])
+    return None
+
+
+def rank_main(argv):
+    """A phase-11 rank (`python3 chip_smoke.py --rank KIND ...`): 'step'
+    and 'eval' CASE OUT RANK PORT run the sharded step and the sharded
+    eval chunk; 'cli' MODULE ARGV... runs a CLI's main. Each loads the
+    built kernels (no build, no fit), counts the launches from 0 and spies
+    on every plain version."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from arah_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not os.path.exists(_build.library_path()):
+        raise SystemExit('phase 11 rank: the kernels are not built')
+    _build.load()
+    kind = argv[0]
+    if kind == 'cli':
+        import importlib
+        module, cli_argv = argv[1], argv[2:]
+        _build.reset_counts()
+        try:
+            with count_plain() as plain:
+                importlib.import_module(module).main(cli_argv)
+        finally:
+            torch.cuda.synchronize()
+            print('rank launches ' + json.dumps(
+                {k: _build.COUNTS.get(k, 0)
+                 for k in TRAIN_KERNELS + ('siren',)}))
+            print('rank plain calls ' + json.dumps(plain), flush=True)
+        return
+    case, out, rank, port = argv[1], argv[2], int(argv[3]), int(argv[4])
+    from arah_tpu_torch.parallel import distributed
+    from arah_tpu_torch.parallel.mesh import make_mesh
+    distributed.initialize(f'127.0.0.1:{port}', DDP_RANKS, rank,
+                           backend='gloo', device='cuda:0')
+    try:
+        {'step': rank_step, 'eval': rank_eval}[kind](
+            torch.load(case, map_location='cuda:0', weights_only=False),
+            out, make_mesh())
+    finally:
+        distributed.shutdown()
+
+
+def tree_digest(params):
+    """sha256 of every leaf's bytes, in the tree's order."""
+    import hashlib
+    from arah_tpu_torch.train.optim import tree_leaves_with_path
+    h = hashlib.sha256()
+    for _, leaf in tree_leaves_with_path(params):
+        h.update(leaf.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_step(case, out, mesh):
+    """DDP_STEPS sharded flagship steps on this rank's blocks of the
+    case's global batch and draws, the first counted; then the all-reduce
+    alone on the last step's gradients. Saves {'launches', 'plain',
+    'losses', 'ms', 'allreduce_ms', 'peak', 'digest', 'grads' (rank 0,
+    the first step's)}."""
+    import torch
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.parallel.mesh import local_blocks
+    from arah_tpu_torch.parallel.train_step import (TrainState,
+                                                    allreduce_mean,
+                                                    grad_leaves,
+                                                    make_train_step,
+                                                    trainable)
+    from arah_tpu_torch.scene import flagship_config
+    from arah_tpu_torch.train.optim import (OptimConfig, make_optimizer,
+                                            tree_leaves_with_path)
+    p = trainable(case['params'])
+    opt, _ = make_optimizer(OptimConfig(train_skinning_net=True), p)
+    step = make_train_step(flagship_config(), case['loss_w'], opt, mesh=mesh)
+    batch = local_blocks(case['batch'], mesh.rank, mesh.size)
+    state = TrainState(p, opt, 0)
+    res = {'ms': []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, draws in enumerate(case['draws']):
+        draws = local_blocks(draws, mesh.rank, mesh.size)
+        if i == 0:
+            _build.reset_counts()
+        t0 = time.perf_counter()
+        with count_plain() as plain:
+            state, losses = step(state, batch, draws)
+        torch.cuda.synchronize()
+        res['ms'].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            res['launches'] = {k: _build.COUNTS[k] for k in TRAIN_KERNELS}
+            res['plain'] = dict(plain)
+            res['losses'] = {k: float(v) for k, v in losses.items()}
+            if mesh.rank == 0:
+                res['grads'] = {path: leaf.grad.detach().cpu()
+                                for path, leaf in tree_leaves_with_path(p)
+                                if leaf.grad is not None}
+    res['peak'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res['digest'] = tree_digest(p)
+    leaves = grad_leaves(p)
+    res['allreduce_ms'] = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        allreduce_mean(leaves, {'loss': losses['loss']}, mesh)
+        torch.cuda.synchronize()
+        res['allreduce_ms'].append((time.perf_counter() - t0) * 1e3)
+    res['numel'] = sum(leaf.numel() for leaf in leaves)
+    torch.save(res, out)
+
+
+def rank_eval(case, out, mesh):
+    """The flagship frame's rays through `render_frame_rays(mesh=)`,
+    counted; then this rank's rows of every chunk rendered alone, at the
+    same size. Saves {'full', 'alone', 'rows', 'launches', 'plain',
+    'ms'}."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.eval.evaluator import (pick_eval_chunk,
+                                               render_frame_rays)
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.scene import flagship_config
+    cfg, item = flagship_config(), case['item']
+    args = (case['params'], cfg, case['fd'])
+    _build.reset_counts()
+    with count_plain() as plain:
+        full = render_frame_rays(*args, item, case['latent'], mesh=mesh)
+    torch.cuda.synchronize()
+    res = {'full': full, 'plain': dict(plain),
+           'launches': {k: _build.COUNTS[k] for k in CLI_KERNELS_EVAL}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_frame_rays(*args, item, case['latent'], mesh=mesh)
+    torch.cuda.synchronize()
+    res['ms'] = (time.perf_counter() - t0) * 1e3
+    n = len(item['inputs.ray_dirs'])
+    chunk = pick_eval_chunk(n)
+    chunk = max(chunk - chunk % mesh.size, mesh.size)
+    k = chunk // mesh.size
+    keys = ('inputs.ray_dirs', 'inputs.body_bounds_intersections')
+    padded = {key: np.pad(item[key], ((0, -n % chunk), (0, 0)), mode='edge')
+              for key in keys}
+    rows, alone = [], []
+    for i in range(0, n, chunk):
+        r = np.arange(i + mesh.rank * k, i + (mesh.rank + 1) * k)
+        part = dict(item, **{key: padded[key][r] for key in keys})
+        alone.append(render_frame_rays(*args, part, case['latent'],
+                                       chunk=k))
+        rows.append(r)
+    res['rows'] = np.concatenate(rows)
+    res['alone'] = [np.concatenate(a) for a in zip(*alone)]
+    torch.save(res, out)
+
+
+def run_ddp(card, no_tf32, params, fd, frame_item, cli, tmp):
+    """Phase 11 of the module docstring. Returns {kernel: [launches of
+    rank 0, of rank 1]} of the sharded step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from arah_tpu_torch.data.batch import (draw_train_draws,
+                                           synthetic_train_batch)
+    from arah_tpu_torch.eval.evaluator import render_frame_rays
+    from arah_tpu_torch.parallel import distributed
+    from arah_tpu_torch.parallel.mesh import make_mesh
+    from arah_tpu_torch.parallel.train_step import (TrainState, grad_leaves,
+                                                    make_train_step,
+                                                    trainable)
+    from arah_tpu_torch.scene import flagship_config
+    from arah_tpu_torch.train.loss import LossWeights
+    from arah_tpu_torch.train.optim import OptimConfig, make_optimizer
+    from arah_tpu_torch.utils.tree import tree_map
+    t_phase = time.perf_counter()
+    cfg = flagship_config()
+    dev = fd.verts_cano.device
+    params = tree_map(lambda t: t.detach(), params)
+
+    # ---- (a) the sharded flagship step, 2 gloo ranks on the one card
+    rng = np.random.RandomState(11)
+    batch = synthetic_train_batch(rng, fd, n_blocks=DDP_RANKS, n_rays=RAYS,
+                                  n_reg=1024)
+    loss_w = LossWeights(n_ray_loss=RAYS)
+    draws = [draw_train_draws(rng, cfg, DDP_RANKS, RAYS, dev)
+             for _ in range(DDP_STEPS)]
+    case = os.path.join(tmp, 'ddp_step.pt')
+    torch.save({'params': params, 'batch': batch, 'draws': draws,
+                'loss_w': loss_w}, case)
+    single = run_step(cfg, params, batch, loss_w, draws[0], no_tf32)
+    print(f'phase 11 (a): the single-process step of {DDP_RANKS} blocks x '
+          f'{RAYS} rays (+ 1,024 regulariser points a block): '
+          f'{single["ms"]:.1f} ms, peak {single["peak"]:.2f} GiB [{card}]',
+          flush=True)
+    outs = [os.path.join(tmp, f'ddp_step_{r}.pt') for r in range(DDP_RANKS)]
+    launch_ranks('sharded step', lambda r, port: [
+        'step', case, outs[r], str(r), str(port)], tmp)
+    ranks = [torch.load(o, weights_only=False) if os.path.exists(o) else None
+             for o in outs]
+    ddp_launches = {k: [None] * DDP_RANKS for k in TRAIN_KERNELS}
+    if all(ranks):
+        for r, res in enumerate(ranks):
+            for k in TRAIN_KERNELS:
+                ddp_launches[k][r] = res['launches'][k]
+            print(f'  rank {r}: launches in its counted step '
+                  f'{res["launches"]}, plain calls {res["plain"]}; ms/step '
+                  f'{[round(v, 1) for v in res["ms"]]}; all-reduce of '
+                  f'{res["numel"]} floats + the losses '
+                  f'{[round(v, 1) for v in res["allreduce_ms"]]} ms (gloo '
+                  f'through the host, 2 ranks on one card: not NCCL\'s '
+                  f'cost); peak memory {res["peak"]:.2f} GiB [{card}]',
+                  flush=True)
+            check(all(res['launches'][k] > 0 for k in TRAIN_KERNELS),
+                  f'sharded step rank {r}: a kernel of A-I was not '
+                  f'launched: {res["launches"]}')
+            check(not any(res['plain'].values()),
+                  f'sharded step rank {r}: plain versions ran')
+        same = len({res['digest'] for res in ranks}) == 1
+        print(f'  the ranks\' parameters after {DDP_STEPS} steps bit-equal: '
+              f'{same} ({ranks[0]["digest"][:16]}...)', flush=True)
+        check(same, 'sharded step: the ranks\' parameters differ')
+        r0 = dict(ranks[0], ms=ranks[0]['ms'][0], grads={
+            k: v.to(dev) for k, v in ranks[0]['grads'].items()})
+        hold_steps('  rank 0\'s mean losses and all-reduced gradient '
+                   'against the single-process 2-block step', r0, single,
+                   1e-5, 0.9999, card)
+        # a leaf without a gradient in one process is reduced as zeros
+        ref = {k: torch.zeros_like(g) if single['grads'][k] is None
+               else single['grads'][k] for k, g in r0['grads'].items()}
+        same = [torch.equal(g, ref[k]) for k, g in r0['grads'].items()]
+        dmax = max(float((g - ref[k]).abs().max())
+                   for k, g in r0['grads'].items())
+        print(f'  bit-equal gradient leaves {sum(same)} of {len(same)}, max '
+              f'|d| {dmax:.3e}; losses bit-equal '
+              f'{r0["losses"] == single["losses"]}', flush=True)
+    del single, ranks
+    torch.cuda.empty_cache()
+
+    # ---- (b) one NCCL rank: mesh of one against mesh=None
+    def one_step(mesh):
+        no_tf32()
+        p = trainable(params)
+        opt, _ = make_optimizer(OptimConfig(train_skinning_net=True), p)
+        step = make_train_step(cfg, loss_w, opt, mesh=mesh)
+        _, losses = step(TrainState(p, opt, 0), batch, draws[0])
+        torch.cuda.synchronize()
+        return tree_digest(p), {k: float(v) for k, v in losses.items()}
+    distributed.initialize(f'127.0.0.1:{free_port()}', 1, 0,
+                           backend='nccl', device='cuda:0')
+    try:
+        d_mesh, l_mesh = one_step(make_mesh())
+        d_none, l_none = one_step(None)
+        numel = sum(t.numel() for t in grad_leaves(params))
+        flat = torch.zeros(numel + len(l_mesh), device=dev)
+        ms_nccl = timed(lambda: dist.all_reduce(flat), REPS)
+    finally:
+        distributed.shutdown()
+    print(f'phase 11 (b): one NCCL rank, make_mesh() against mesh=None: '
+          f'parameters bit-equal {d_mesh == d_none}, losses equal '
+          f'{l_mesh == l_none}; NCCL all-reduce of the flat buffer '
+          f'({numel} floats + {len(l_mesh)} losses, world 1) {ms_nccl:.3f} '
+          f'ms [{card}]', flush=True)
+    check(d_mesh == d_none and l_mesh == l_none,
+          'NCCL world-1 step differs from mesh=None')
+    torch.cuda.empty_cache()
+
+    # ---- (c) the sharded eval chunk on the flagship frame
+    latent = params['latent'][0]
+    case = os.path.join(tmp, 'ddp_eval.pt')
+    torch.save({'params': params, 'fd': fd, 'item': frame_item,
+                'latent': latent}, case)
+    no_tf32()
+    one = render_frame_rays(params, cfg, fd, frame_item, latent)
+    outs = [os.path.join(tmp, f'ddp_eval_{r}.pt') for r in range(DDP_RANKS)]
+    launch_ranks('sharded eval', lambda r, port: [
+        'eval', case, outs[r], str(r), str(port)], tmp)
+    ranks = [torch.load(o, weights_only=False) if os.path.exists(o) else None
+             for o in outs]
+    if all(ranks):
+        n = len(frame_item['inputs.ray_dirs'])
+        for r, res in enumerate(ranks):
+            keep = res['rows'] < n
+            eq = all(np.array_equal(a[keep], w[res['rows'][keep]])
+                     for a, w in zip(res['alone'], res['full']))
+            print(f'  rank {r}: launches {res["launches"]}, plain calls '
+                  f'{res["plain"]}; {int(keep.sum())} rays of its own; its '
+                  f'slice bit-equal to a render of those rays alone {eq}; '
+                  f'{res["ms"]:.1f} ms a frame [{card}]', flush=True)
+            check(eq, f'sharded eval rank {r}: slice differs from its rays '
+                      'rendered alone')
+            check(all(v > 0 for v in res['launches'].values())
+                  and not any(res['plain'].values()),
+                  f'sharded eval rank {r}: launches {res["launches"]}, '
+                  f'plain {res["plain"]}')
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(ranks[0]['full'], ranks[1]['full']))
+        rgb, w, dep, conv = ranks[0]['full']
+        c1 = one[3].astype(bool)
+        both = conv & c1
+        agree = float((conv == c1).mean())
+        rgb_med = float(np.median(np.abs(rgb - one[0])[both])) \
+            if both.any() else 0.0
+        dep_med = float(np.median(np.abs(dep - one[2])[both])) \
+            if both.any() else 0.0
+        print(f'  whole frame: the ranks\' copies bit-equal {same}; against '
+              f'the single-device render (the eval gate: converged-flag '
+              f'agreement {agree:.5f} > 0.98, rgb median |d| {rgb_med:.3e} '
+              f'< 1e-2 and depth median |d| {dep_med:.3e} < 1e-4 on the '
+              f'{int(both.sum())} rays converged on both; straggler splits '
+              f'differ per shard) [{card}]', flush=True)
+        check(same and agree > 0.98 and rgb_med < 1e-2 and dep_med < 1e-4,
+              'sharded eval: the frame disagrees')
+    del one, ranks
+    torch.cuda.empty_cache()
+
+    # ---- (d) the CLIs as 2 gloo ranks on the card
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(repo, 'configs', 'fake', 'FAKE-ZJU-flagship.yaml')
+    out = os.path.join(tmp, 'out_ddp')
+    cfg_path = cli_config(os.path.join(tmp, 'ddp.yaml'), base, cli['data'],
+                          out, cli['pre'], max_epochs=1,
+                          checkpoint_every_n_epochs=1)
+
+    def flags(r, port):
+        return ['--coordinator', f'127.0.0.1:{port}', '--num-processes',
+                str(DDP_RANKS), '--process-id', str(r), '--device', 'cuda:0',
+                '--dist-backend', 'gloo']
+
+    res, _ = launch_ranks('cli.train', lambda r, port: [
+        'cli', 'arah_tpu_torch.cli.train', cfg_path] + flags(r, port), tmp)
+    for r, (_, text) in enumerate(res):
+        got = rank_lines(text, 'rank launches ') or {}
+        plain = rank_lines(text, 'rank plain calls ') or {}
+        check(all(got.get(k, 0) > 0 for k in TRAIN_KERNELS)
+              and not any(plain.values()),
+              f'cli.train rank {r}: launches {got}, plain {plain}')
+    ck = os.path.join(out, 'checkpoints')
+    files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+    meta = {}
+    if os.path.exists(os.path.join(ck, 'META.json')):
+        with open(os.path.join(ck, 'META.json')) as f:
+            meta = json.load(f)
+    rows = []
+    if os.path.exists(os.path.join(out, 'metrics.tsv')):
+        with open(os.path.join(out, 'metrics.tsv')) as f:
+            rows = [ln.rstrip('\n').split('\t') for ln in f]
+    vals = [float(v) for r_ in rows if r_[0] != 'step' for v in r_]
+    print(f'  cli.train (2 ranks, 1 epoch): checkpoints {files}, META.json '
+          f'{meta}, metrics.tsv {len(rows)} rows, losses finite '
+          f'{bool(vals) and bool(np.all(np.isfinite(vals)))}', flush=True)
+    check(meta.get('epoch') == 1 and 'LAST' in files
+          and sum(f.startswith('step_') for f in files) == 1
+          and sum(r_[0] == 'step' for r_ in rows) == 1 and vals
+          and bool(np.all(np.isfinite(vals))),
+          f'cli.train (2 ranks): files {files}, META {meta}, rows {rows}')
+
+    from arah_tpu_torch.cli import validate as cli_validate
+    metrics = os.path.join(out, 'val', 'metrics.json')
+    run_cli(cli_validate.main, [cfg_path, '--novel-view'])
+    with open(metrics) as f:
+        one_m = json.load(f)
+    os.remove(metrics)
+    launch_ranks('cli.validate', lambda r, port: [
+        'cli', 'arah_tpu_torch.cli.validate', cfg_path, '--novel-view']
+        + flags(r, port), tmp)
+    two_m = None
+    if os.path.exists(metrics):
+        with open(metrics) as f:
+            two_m = json.load(f)
+    n_val = len(two_m['per_frame']) if two_m else 0
+    print(f'  cli.validate --novel-view (2 ranks): {n_val} frames, rows '
+          f'equal to one process\'s {two_m == one_m} ({one_m["mean"]})',
+          flush=True)
+    check(two_m == one_m and len(one_m['per_frame']) > 0,
+          'cli.validate (2 ranks): metrics.json differs from one process')
+
+    vis = os.path.join(out, 'vis')
+    launch_ranks('cli.test', lambda r, port: [
+        'cli', 'arah_tpu_torch.cli.test', cfg_path, '--pose-dir', 'models',
+        '--end-frame', '2', '--mesh-res', '64'] + flags(r, port), tmp)
+    pngs = [f'{k}_{i:06d}.png' for k in ('rgb', 'normal', 'front', 'back')
+            for i in range(2)]
+    have = all(os.path.exists(os.path.join(vis, f)) for f in pngs)
+    print(f'  cli.test (2 ranks, 2 frames, --mesh-res 64): every PNG '
+          f'{have}', flush=True)
+    check(have, 'cli.test (2 ranks): PNGs missing')
+    if have:
+        check_video(vis, 2, 'cli.test (2 ranks)')
+    print(f'phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]',
+          flush=True)
+    return ddp_launches
+
+
+def phase11_probe():
+    """`python3 chip_smoke.py --phase11`: phase 11 alone, the quick probe
+    of the data-parallel path (the kernels' build, the fitted scene, phase
+    9's fixture and pretrained nets, then `run_ddp`); exits non-zero on a
+    failed check. Prints no result lines."""
+    import tempfile
+    import torch
+    if not torch.cuda.is_available():
+        print('no CUDA device', file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from arah_tpu_torch.config.loader import (default_config_path,
+                                              load_config,
+                                              model_config_from_cfg)
+    from arah_tpu_torch.data.fake_dataset import make_fake_zju_dataset
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.scene import build_scene, flagship_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def no_tf32():
+        check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 got enabled')
+    card = card_line()
+    t0 = time.perf_counter()
+    _build.load()
+    print(f'kernels loaded in {time.perf_counter() - t0:.1f} s', flush=True)
+    params, fd, inp = build_scene(flagship_config(), RAYS, seed=0)
+    frame_item = {
+        'inputs.ray_dirs': inp.ray_dirs.cpu().numpy(),
+        'inputs.body_bounds_intersections': torch.stack(
+            [inp.near, inp.far], -1).cpu().numpy(),
+        'image.cam_loc': inp.cam_loc.reshape(3).cpu().numpy()}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(repo, 'configs', 'fake', 'FAKE-ZJU-flagship.yaml')
+    with tempfile.TemporaryDirectory(prefix='arah_ddp_') as tmp:
+        data = os.path.join(tmp, 'data')
+        make_fake_zju_dataset(data, n_frames=CLI_FRAMES, views=('1', '7'),
+                              img_size=1024)
+        pre = write_pretrained(tmp, params, model_config_from_cfg(
+            load_config(base, default_config_path())))
+        run_ddp(card, no_tf32, params, fd, frame_item,
+                {'data': data, 'pre': pre}, tmp)
+    print(card)
+    if FAILURES:
+        print(f'{len(FAILURES)} check(s) failed: {FAILURES}', flush=True)
+        sys.exit(1)
+
+
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--rank']:
+        rank_main(sys.argv[2:])
+    elif sys.argv[1:2] == ['--phase11']:
+        phase11_probe()
+    else:
+        main()

@@ -5,7 +5,8 @@ checkpoints with LAST, META.json and BEST.json) and a rerun resumes;
 `--exit-after` checkpoints and exits with code 2 in a subprocess (the
 job-chaining contract); `cli.validate --novel-view` writes finite metrics
 and the frame PNGs; the data CLI writes the fixture; `--device cuda`
-without a GPU raises."""
+without a GPU raises; an incomplete set of the multi-process flags is
+refused (`test_torch_dist_cli.py` runs them)."""
 import json
 import os
 import subprocess
@@ -250,10 +251,14 @@ def test_cli_test_vs_jax(tmp_path, odp_root, capsys):
 
 
 def test_cli_test_refuses_multi_device_flags(tmp_path, data_root):
+    """The manual multi-process flags go together: any one alone is
+    refused (argparse's exit code 2), and so is `--devices 0`."""
     from arah_tpu_torch.cli import test as cli_test
     cfg = tiny_config(tmp_path / 'cfg.yaml', data_root, str(tmp_path / 'o'))
-    for flag in ('--devices', '--num-processes', '--process-id',
-                 '--coordinator'):
+    for flags in (['--num-processes', '2'], ['--process-id', '0'],
+                  ['--coordinator', '127.0.0.1:1'], ['--devices', '0'],
+                  ['--num-processes', '2', '--process-id', '2',
+                   '--coordinator', '127.0.0.1:1']):
         with pytest.raises(SystemExit) as e:
-            cli_test.main([cfg, '--device', 'cpu', flag, '2'])
+            cli_test.main([cfg, '--device', 'cpu'] + flags)
         assert e.value.code == 2

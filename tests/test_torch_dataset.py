@@ -174,3 +174,45 @@ def test_evaluate_frame_vs_jax(fixtures):
     d = np.abs(npred - nref)
     assert np.quantile(d, .99) <= 1e-4 and d.max() <= 1e-2, (
         np.quantile(d, .99), d.max())
+
+
+@pytest.mark.parametrize('roll,f,cx,cy,mode', [
+    (70.0, 100.0, 112.0, 64.0, 'train'), (50.0, 75.0, 0.0, 120.0, 'train'),
+    (35.0, 60.0, -10.0, -10.0, 'val'), (0.0, 140.0, 20.0, 64.0, 'val')])
+def test_box_leaving_frame_vs_jax(fixtures, tmp_path, roll, f, cx, cy,
+                                  mode):
+    """Close-up views whose projected body box crosses the image border
+    (the fixture's cameras rolled about their axis, with another focal
+    length and principal point): every item equals JAX's. These views
+    clip a box edge to a border point, on which `fill_poly` once lost 1
+    to 3 pixels of cv2.fillPoly's box mask: pixels the training items
+    draw background rays from (an eval item keeps only the pixels whose
+    ray meets the box)."""
+    import shutil
+    root = str(tmp_path / 'zju')
+    shutil.copytree(fixtures[0], root)
+    path = os.path.join(root, 'CoreView_313', 'cam_params.json')
+    with open(path) as fh:
+        cams = json.load(fh)
+    th = np.deg2rad(roll)
+    rz = np.array([[np.cos(th), -np.sin(th), 0.0],
+                   [np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]])
+    for v in ('1', '7'):
+        cams[v]['K'] = [[f, 0.0, cx], [0.0, f, cy], [0.0, 0.0, 1.0]]
+        cams[v]['R'] = (rz @ np.asarray(cams[v]['R'])).tolist()
+        cams[v]['T'] = (rz @ np.asarray(cams[v]['T']).reshape(3)).tolist()
+    with open(path, 'w') as fh:
+        json.dump(cams, fh)
+    jds, pds = _datasets(root, mode)
+    crossed = 0
+    for i in range(len(jds)):
+        a, b = jds[i], pds[i]
+        if mode == 'val':
+            mask = np.asarray(a['inputs.image_mask'])
+            edge = np.concatenate([mask[:, 0], mask[:, -1], mask[0],
+                                   mask[-1]])
+            crossed += bool(edge.any() and not edge.all())
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(b[k]),
+                                          np.asarray(a[k]), err_msg=k)
+    assert crossed == (len(jds) if mode == 'val' else 0)

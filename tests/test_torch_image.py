@@ -121,12 +121,27 @@ def test_morphology_vs_cv2(seed):
     np.testing.assert_array_equal(im.dilate5(m), cv2.dilate(m, k))
 
 
+# quads that cross the border, on which an edge clipped to a border point
+# (or to a level segment) once lost the pixels cv2 sets on the first or
+# last column
+BORDER_QUADS = (
+    [[98, 49], [27, 103], [13, 123], [-34, 58]],
+    [[0, 33], [109, -20], [128, 119], [-20, -1]],
+    [[75, 119], [13, 132], [85, 108], [-39, 34]],
+    [[-25, -46], [-31, 119], [0, 21], [7, -31]],
+    [[-49, 48], [79, 44], [104, 66], [117, -12]])
+
+
 @pytest.mark.parametrize('seed', range(4))
 def test_fill_poly_vs_cv2(seed):
-    """Random polygons of 3-5 integer vertices inside the image."""
+    """Random polygons of 3-5 integer vertices inside the image; then
+    the border regression quads and 100 seeded quads of vertices in
+    [-60, 140), most of them crossing the border of the 80 x 64 image."""
     rng = np.random.RandomState(seed)
-    for _ in range(150):
-        pts = rng.randint(0, 64, (rng.randint(3, 6), 2))
+    polys = [rng.randint(0, 64, (rng.randint(3, 6), 2)) for _ in range(150)]
+    polys += [np.asarray(q) for q in BORDER_QUADS]
+    polys += [rng.randint(-60, 140, (4, 2)) for _ in range(100)]
+    for pts in polys:
         a = np.zeros((64, 80), np.uint8)
         cv2.fillPoly(a, [pts], 1)
         b = im.fill_poly(np.zeros((64, 80), np.uint8), pts, 1)

@@ -332,8 +332,9 @@ def test_flagship_scene_has_a_surface():
 def test_training_is_a_later_slice(rng):
     """Training renders on the CPU (the train step is ported): with its
     draws, `render(training=True)` returns the training keys, finite;
-    without them it and training-mode sampling refuse. What is still a
-    later slice of the port raises: the sharded step (`mesh=`); SMPL
+    without them it and training-mode sampling refuse. The sharded step
+    (`mesh=`, ported) refuses what it cannot run: a mesh outside a
+    process group, and blocks that do not split over the ranks; SMPL
     refinement (`refine_smpl=`) without an SMPL model is refused."""
     from arah_tpu_torch.data.batch import draw_train_draws
     from arah_tpu_torch.parallel.train_step import make_train_step, trainable
@@ -364,7 +365,10 @@ def test_training_is_a_later_slice(rng):
     with pytest.raises(ValueError):
         sample_z_vals(pcfg.tracer, z > 0, z, z * 0, z * 2, eval_mode=False)
     opt, _ = make_optimizer(OptimConfig(), pp)
-    with pytest.raises(NotImplementedError):
-        make_train_step(pcfg, LossWeights(), opt, mesh=object())
+    from arah_tpu_torch.parallel.mesh import local_blocks, make_mesh
+    with pytest.raises(RuntimeError, match='process group'):
+        make_mesh()
+    with pytest.raises(ValueError, match='do not split'):
+        local_blocks(draws, 0, 2)
     with pytest.raises(ValueError, match='smpl_model'):
         make_train_step(pcfg, LossWeights(), opt, refine_smpl=True)
