@@ -55,7 +55,13 @@
 //   point then takes a slot too, for its one pass (at x0), and retires at
 //   once with x0 and T0. The list and the tile's per-point scratch sit in
 //   dynamic shared memory after the ring (~13 KB at shape 0); the tile
-//   runs on all the CTA's threads.
+//   runs on all the CTA's threads. The split3 and bf16 JAC variants take
+//   launch shapes of their own (CorrJacShape0/1: the shape's cluster and
+//   widths, at most one CTA an SM): the tile inlined in the slot loop
+//   sat at the 128-register cap of a 512-thread CTA, where ptxas once
+//   spilled the bf16 variant; on 256 threads at MINB 1 the cap is 255
+//   and bf16 uses ~165 (split3 ~250). The f32 one, never seen to spill
+//   at that cap, keeps the faster shape.
 // Bound of the want_jac epilogue: operations, the MLP's multiply-adds four
 // times a returned point (G's work, without G's launch or its reads of
 // x_hat).
@@ -322,6 +328,13 @@ corr_kernel(const CorrArgs a) {
 using CorrShape0 = TileShape<128, 512, 1, 32, 1, 2, 128, 4>;
 using CorrShape1 = TileShape<16, 256, 2, 64, 2, 3, 128>;
 using CorrShape2 = TileShape<64, 512, 1, 32, 1, 2>;
+// want_jac's shapes at split3 and bf16 for shapes 0 and 1 (corr_options):
+// 64-point CTAs of 256 threads, and shape 1 at one cluster an SM
+using CorrJacShape0 = TileShape<64, 256, 1, 32, 1, 2, 128, 4>;
+using CorrJacShape1 = TileShape<16, 256, 2, 64, 1, 3, 128>;
+template <class S> struct JacShape;
+template <> struct JacShape<CorrShape0> { using T = CorrJacShape0; };
+template <> struct JacShape<CorrShape1> { using T = CorrJacShape1; };
 
 template <class S, int PM, bool JAC>
 static int corr_launch(const CorrArgs& a, cudaStream_t st, int* shape,
@@ -331,17 +344,19 @@ static int corr_launch(const CorrArgs& a, cudaStream_t st, int* shape,
 }
 
 // A launch shape's variants: its precision and want_jac (ops/corr.py:
-// VARIANTS: both on shapes 0 and 1).
+// VARIANTS: both on shapes 0 and 1), want_jac at split3 and bf16 on the
+// shape's JacShape.
 template <class S>
 static int corr_options(int prec, bool jac, const CorrArgs& a,
                         cudaStream_t st, int* shape, bool run) {
+  using J = typename JacShape<S>::T;
   switch (prec * 2 + (int)jac) {
     case 0: return corr_launch<S, PREC_F32, false>(a, st, shape, run);
     case 1: return corr_launch<S, PREC_F32, true>(a, st, shape, run);
     case 2: return corr_launch<S, PREC_SPLIT3, false>(a, st, shape, run);
-    case 3: return corr_launch<S, PREC_SPLIT3, true>(a, st, shape, run);
+    case 3: return corr_launch<J, PREC_SPLIT3, true>(a, st, shape, run);
     case 4: return corr_launch<S, PREC_BF16, false>(a, st, shape, run);
-    case 5: return corr_launch<S, PREC_BF16, true>(a, st, shape, run);
+    case 5: return corr_launch<J, PREC_BF16, true>(a, st, shape, run);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,11 @@
 """Write a small on-disk dataset in the ZJU-MoCap, H36M or People-Snapshot
 layout from the synthetic body, so that the whole host data path (image
 reading, undistortion, ray sampling, regulariser points) and the CLIs run
-end to end without the real data. Port of `arah_tpu/data/fake_dataset.py`
-(its three layouts; the raw pre-preprocessing trees stay with the JAX
-package's preprocessing scripts). It writes through the port's own image
-writer (`utils/image.py`) and poses the body with `core/smpl.py:lbs` on
-the CPU.
+end to end without the real data. Port of `arah_tpu/data/fake_dataset.py`:
+its three layouts, and the raw ZJU-MoCap and H36M trees that
+`preprocess/` turns into the first two (`make_fake_raw_zju`,
+`make_fake_raw_h36m`). It writes through the port's own image writer
+(`utils/image.py`) and poses the body with `core/smpl.py:lbs` on the CPU.
 
     python -m arah_tpu_torch.data.fake_dataset --root data/fake_zju \\
         --frames 4 --views 1,7
@@ -69,6 +69,27 @@ def _camera(angle_deg: float, dist: float = 2.8, height: float = 0.0,
     return K, R, T
 
 
+def _silhouette(verts_world, faces, K, R, T, H, W):
+    """The body's (H, W) uint8 silhouette (1 on the body) through camera
+    (K, R, T), rasterised by the native library."""
+    pc = verts_world @ R.T + T
+    depth = pc[:, 2]
+    proj = pc[:, :2] / np.maximum(depth[:, None], 1e-6)
+    proj = proj * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+    face_buf, _, _ = native.rasterize_mesh(proj, depth, faces, H, W)
+    return (face_buf >= 0).astype(np.uint8)
+
+
+def _write_view(img_file, mask_file, sil):
+    """The silhouette as the body-coloured JPEG and the 0/255 PNG mask."""
+    img = np.zeros(sil.shape + (3,), np.uint8)
+    img[sil > 0] = BODY_RGB
+    for p in (img_file, mask_file):
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+    write_image(img_file, img)
+    write_image(mask_file, sil * 255)
+
+
 def _write_frames(model: SmplModel, rng, n_frames, cams, img_hw,
                   model_dir, img_path, mask_path,
                   trans=np.zeros(3, np.float32)):
@@ -98,19 +119,8 @@ def _write_frames(model: SmplModel, rng, n_frames, cams, img_hw,
 
         verts_world = out.verts[0].numpy() + trans
         for v, (K, R, T) in cams.items():
-            pc = verts_world @ R.T + T
-            depth = pc[:, 2]
-            proj = pc[:, :2] / np.maximum(depth[:, None], 1e-6)
-            proj = proj * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
-            face_buf, _, _ = native.rasterize_mesh(proj, depth, faces,
-                                                   H, W)
-            sil = (face_buf >= 0).astype(np.uint8)
-            img = np.zeros((H, W, 3), np.uint8)
-            img[sil > 0] = BODY_RGB
-            for p in (img_path(v, fidx), mask_path(v, fidx)):
-                os.makedirs(os.path.dirname(p), exist_ok=True)
-            write_image(img_path(v, fidx), img)
-            write_image(mask_path(v, fidx), sil * 255)
+            _write_view(img_path(v, fidx), mask_path(v, fidx),
+                        _silhouette(verts_world, faces, K, R, T, H, W))
 
 
 def make_fake_zju_dataset(root: str, subject='CoreView_313', n_frames=2,
@@ -143,6 +153,132 @@ def make_fake_zju_dataset(root: str, subject='CoreView_313', n_frames=2,
         lambda v, f: os.path.join(sdir, v, f'{f:06d}.png'))
     with open(os.path.join(sdir, 'cam_params.json'), 'w') as f:
         json.dump(cam_params, f)
+    return misc_dir, model
+
+
+def _hw(img_size):
+    """An image size, a side or (H, W), as (H, W)."""
+    return (img_size, img_size) if np.isscalar(img_size) \
+        else tuple(img_size)
+
+
+def _write_raw_frame(sdir, tmodel, faces, rng, fidx, cams, img_size,
+                     verts_offset, paths):
+    """One raw frame: EasyMocap `new_params/{fidx}.npy` (Rh the root
+    orientation, poses[:3] zero) and `new_vertices/{fidx}.npy` (the posed
+    vertices shifted by `verts_offset`), and each camera's view (H, W =
+    `_hw(img_size)`) at the files `paths(view, fidx)` gives."""
+    betas = (rng.randn(10) * 0.2).astype(np.float32)
+    pose = (rng.randn(72) * 0.15).astype(np.float32)
+    trans = (rng.randn(3) * 0.05).astype(np.float32)
+    poses = pose.copy()
+    poses[:3] = 0.0
+    os.makedirs(os.path.join(sdir, 'new_params'), exist_ok=True)
+    np.save(os.path.join(sdir, 'new_params', f'{fidx}.npy'),
+            {'Rh': pose[:3].reshape(1, 3), 'Th': trans.reshape(1, 3),
+             'shapes': betas.reshape(1, 10), 'poses': poses.reshape(1, 72)})
+    with torch.no_grad():
+        out = lbs(tmodel, torch.as_tensor(betas)[None],
+                  torch.as_tensor(pose)[None])
+    verts_world = out.verts[0].numpy() + trans
+    os.makedirs(os.path.join(sdir, 'new_vertices'), exist_ok=True)
+    np.save(os.path.join(sdir, 'new_vertices', f'{fidx}.npy'),
+            (verts_world + verts_offset).astype(np.float32))
+    for v, (K, R, T) in cams.items():
+        _write_view(*paths(v, fidx), _silhouette(
+            verts_world, faces, K, R, T, *_hw(img_size)))
+
+
+def _raw_cameras(names, views, img_size):
+    """`annots.npy`'s camera lists over `names` (T in mm, D zeros) and
+    {view: (K, R, T in m)} of those in `views`, the principal point at
+    the centre of `img_size` (a side or (H, W))."""
+    Ks, Ds, Rs, Ts = [], [], [], []
+    cams = {}
+    H, W = _hw(img_size)
+    for i, v in enumerate(names):
+        K, R, T = _camera(360.0 * i / len(names), c=W / 2,
+                          cy=None if H == W else H / 2)
+        Ks.append(K)
+        Ds.append(np.zeros((5, 1)))
+        Rs.append(R)
+        Ts.append(T.reshape(3, 1) * 1000.0)          # annots store mm
+        if v in views:
+            cams[v] = (K, R, T)
+    return {'K': Ks, 'D': Ds, 'R': Rs, 'T': Ts}, cams
+
+
+def make_fake_raw_zju(root: str, subject='CoreView_313', n_frames=2,
+                      views=('1', '7'), img_size=512, n_verts=1024,
+                      seed=0, verts_offset=0.05):
+    """The raw ZJU-MoCap tree that `preprocess/preprocess_zju_mocap.py`
+    reads: `annots.npy` cameras (T in mm) for all 21 cameras of
+    CoreView_313, EasyMocap `new_params/{idx}.npy` and
+    `new_vertices/{idx}.npy` (frames 1..n_frames), `Camera (i)/` JPEGs and
+    `mask_cihp/Camera (i)/` PNGs for `views`. `new_vertices` are shifted
+    by `verts_offset`, so the translation refit has a shift to recover.
+    Returns (misc_dir, model). Port of JAX's writer: the same arguments,
+    draws and files."""
+    rng = np.random.RandomState(seed)
+    model = synthetic_smpl(n_verts=n_verts, seed=seed)
+    misc_dir = os.path.join(root, 'body_models', 'misc')
+    write_smpl_misc(misc_dir, model)
+
+    sdir = os.path.join(root, subject)
+    # the script indexes annots['cams'] positionally over the full
+    # 21-camera list of CoreView_313: all of them, images only for views
+    names = [str(c) for c in list(range(1, 20)) + [22, 23]]
+    annots, cams = _raw_cameras(names, views, img_size)
+    os.makedirs(sdir, exist_ok=True)
+    np.save(os.path.join(sdir, 'annots.npy'), {'cams': annots})
+
+    def paths(v, fidx):
+        # 313-style names: the frame index is the 5th '_' field
+        base = f'Camera ({v})_CoreView_313_1_{fidx:04d}_2019.jpg'
+        return (os.path.join(sdir, f'Camera ({v})', base),
+                os.path.join(sdir, 'mask_cihp', f'Camera ({v})',
+                             base[:-4] + '.png'))
+    tmodel = smpl_to_device(model, 'cpu')
+    faces = np.asarray(model.faces)
+    for fidx in range(1, n_frames + 1):             # ZJU 313 is 1-based
+        _write_raw_frame(sdir, tmodel, faces, rng, fidx, cams, img_size,
+                         verts_offset, paths)
+    return misc_dir, model
+
+
+def make_fake_raw_h36m(root: str, subject='S9', n_frames=2,
+                       views=('54138969', '55011271'), img_size=256,
+                       n_verts=512, seed=0, verts_offset=0.04):
+    """The raw Human3.6M (Animatable-NeRF) tree under {subject}/Posing/
+    that `preprocess/preprocess_h36m.py` reads: `annots.npy` with
+    mm-translation cameras and `ims` records naming them, EasyMocap
+    `new_params`/`new_vertices`, each camera's JPEGs and `mask_cihp/`
+    PNGs. The 5 n_frames raw frames are consecutive, so the script's 5x
+    subsample keeps n_frames. Returns (misc_dir, model). Port of JAX's
+    writer: the same arguments, draws and files; `img_size` may also be
+    (H, W), as H36M's 1002 x 1000."""
+    rng = np.random.RandomState(seed)
+    model = synthetic_smpl(n_verts=n_verts, seed=seed)
+    misc_dir = os.path.join(root, 'body_models', 'misc')
+    write_smpl_misc(misc_dir, model)
+
+    sdir = os.path.join(root, subject, 'Posing')
+    os.makedirs(sdir, exist_ok=True)
+    annots, cams = _raw_cameras(list(views), views, img_size)
+    frame_idxs = list(range(5 * n_frames))
+    np.save(os.path.join(sdir, 'annots.npy'),
+            {'cams': annots,
+             'ims': [{'ims': [f'{v}/{fidx:06d}.jpg' for v in views]}
+                     for fidx in frame_idxs]})
+
+    def paths(v, fidx):
+        return (os.path.join(sdir, v, f'{fidx:06d}.jpg'),
+                os.path.join(sdir, 'mask_cihp', v, f'{fidx:06d}.png'))
+    tmodel = smpl_to_device(model, 'cpu')
+    faces = np.asarray(model.faces)
+    for fidx in frame_idxs:
+        _write_raw_frame(sdir, tmodel, faces, rng, fidx, cams, img_size,
+                         verts_offset, paths)
     return misc_dir, model
 
 

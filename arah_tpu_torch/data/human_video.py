@@ -155,14 +155,16 @@ class HumanVideoDataset:
             mask[(mask_dilate - mask_erode) == 1] = 100
         return mask
 
-    def _smpl_from_npz(self, model_dict):
-        """SMPL npz -> pose rots / minimal shape / posed verts (steps 3+5)."""
+    def _smpl_from_npz(self, model_dict, rng=None):
+        """SMPL npz -> pose rots / minimal shape / posed verts (steps 3+5).
+        `rng`: the generator of the item's draws (default the dataset's)."""
         gender = self.gender
         trans = model_dict['trans'].astype(np.float32)
         minimal_shape = model_dict['minimal_shape']
         if minimal_shape.dtype == np.float16:
             minimal_shape = minimal_shape.astype(np.float32)
-            minimal_shape += 1e-4 * self.rng.randn(*minimal_shape.shape)
+            rng = self.rng if rng is None else rng
+            minimal_shape += 1e-4 * rng.randn(*minimal_shape.shape)
         minimal_shape = minimal_shape.astype(np.float32)
         n_verts = minimal_shape.shape[0]
 
@@ -213,7 +215,7 @@ class HumanVideoDataset:
         return K
 
     def _sample_train_rays(self, img, mask, mask_erode, K, R, cam_trans,
-                           cam_loc, bounds):
+                           cam_loc, bounds, rng):
         H, W = self.img_size
         K_inv = np.linalg.inv(K)
         bound_mask = get_bound_2d_mask(
@@ -224,8 +226,7 @@ class HumanVideoDataset:
         bg_mask = mask_erode == 0
 
         def pick(y, x, count):
-            inds = self.rng.choice(len(x), size=count,
-                                   replace=len(x) < count)
+            inds = rng.choice(len(x), size=count, replace=len(x) < count)
             return y[inds], x[inds]
 
         n_extra = 1024
@@ -252,8 +253,8 @@ class HumanVideoDataset:
         for lo, hi, count in ((0, nf, self.num_fg_samples),
                               (nf, len(ys), self.num_bg_samples)):
             valid = np.where(at_box[lo:hi])[0] + lo
-            sel = self.rng.choice(len(valid), size=count,
-                                  replace=len(valid) < count)
+            sel = rng.choice(len(valid), size=count,
+                             replace=len(valid) < count)
             keep.append(valid[sel])
         keep = np.concatenate(keep)
 
@@ -273,7 +274,7 @@ class HumanVideoDataset:
             # not the eroded mask) carry label 100 so the RGB loss skips
             # them (`loss.py:52-55`)
             ps = self.sample_patch
-            ci = self.rng.randint(len(yf))
+            ci = rng.randint(len(yf))
             cy = int(np.clip(yf[ci] - ps // 2, 0, H - ps))
             cx = int(np.clip(xf[ci] - ps // 2, 0, W - ps))
             gy, gx = np.mgrid[cy:cy + ps, cx:cx + ps]
@@ -368,13 +369,13 @@ class HumanVideoDataset:
         return (pts - 0.5) * 2.0
 
     def _sample_reg_points(self, minimal_shape_v, sw, coord_min, coord_max,
-                           center):
+                           center, rng):
         """Step 6: off-surface / surface-skinning / inside points, via the
         port's native point-mesh queries."""
         faces = self.faces
         intersector = native.MeshIntersector(minimal_shape_v, faces)
 
-        points_uniform = self.rng.rand(4096, 3).astype(np.float32) * 2 - 1
+        points_uniform = rng.rand(4096, 3).astype(np.float32) * 2 - 1
         query = self._unnormalize(points_uniform, coord_min, coord_max,
                                   center)
         occ = intersector.query(query)
@@ -382,13 +383,13 @@ class HumanVideoDataset:
         out = {}
         if self.sample_reg_surface:
             pts_surf, _ = sample_surface(minimal_shape_v, faces, 1024,
-                                         self.rng)
+                                         rng)
             all_pts = np.concatenate([query, pts_surf], axis=0)
             sq, fi, bary = native.point_mesh_squared_distance(
                 all_pts, minimal_shape_v, faces)
             far_enough = sq[:4096] > self.off_surface_thr
             cand = points_uniform[(~occ) & far_enough]
-            sel = self.rng.choice(len(cand), 1024, replace=len(cand) < 1024)
+            sel = rng.choice(len(cand), 1024, replace=len(cand) < 1024)
             out['points_uniform'] = cand[sel].astype(np.float32)
             vert_ids = faces[fi[4096:]]
             pts_W = (sw[vert_ids] * bary[4096:, :, None]).sum(axis=1)
@@ -398,7 +399,7 @@ class HumanVideoDataset:
             sq, _, _ = native.point_mesh_squared_distance(
                 query, minimal_shape_v, faces)
             cand = points_uniform[(~occ) & (sq > self.off_surface_thr)]
-            sel = self.rng.choice(len(cand), 1024, replace=len(cand) < 1024)
+            sel = rng.choice(len(cand), 1024, replace=len(cand) < 1024)
             out['points_uniform'] = cand[sel].astype(np.float32)
             part_idx = sw.argmax(-1)
             pts = np.zeros((24, 3), np.float32)
@@ -419,8 +420,8 @@ class HumanVideoDataset:
                 if sel_j.any():
                     jtr_pts[j] = minimal_shape_v[sel_j].mean(0)
             inside, _ = sample_surface(minimal_shape_v, faces, 4096,
-                                       self.rng)
-            inside = inside + self.rng.normal(scale=0.5, size=inside.shape)
+                                       rng)
+            inside = inside + rng.normal(scale=0.5, size=inside.shape)
             occ_in = intersector.query(inside)
             inside = inside[occ_in]
             if len(inside):
@@ -433,14 +434,21 @@ class HumanVideoDataset:
                                 & (sq >= self.inside_thr)]
             inside = np.concatenate([inside, jtr_pts], axis=0) \
                 if len(inside) else jtr_pts
-            sel = self.rng.choice(len(inside), 1024,
-                                  replace=len(inside) < 1024)
+            sel = rng.choice(len(inside), 1024, replace=len(inside) < 1024)
             out['points_inside'] = self._normalize(
                 inside[sel], coord_min, coord_max, center
             ).astype(np.float32)
         return out
 
     def __getitem__(self, idx):
+        return self.item(idx)
+
+    def item(self, idx, rng=None):
+        """Item `idx`, every draw from `rng` (default the dataset's own
+        generator). A loader that gives each batch a generator of its own
+        (`data/loader.py:Prefetcher(seed=...)`) makes its batches on
+        several threads at once and still repeats."""
+        rng = self.rng if rng is None else rng
         rec = self.data[idx]
         cam = self.cameras[rec['cam_name']]
 
@@ -466,21 +474,21 @@ class HumanVideoDataset:
         mask_erode = resize_nearest(mask_erode, (W, H))
         K = self._rescale_K(K, orig_size)
 
-        smpl = self._smpl_from_npz(np.load(rec['model_file']))
+        smpl = self._smpl_from_npz(np.load(rec['model_file']), rng)
         verts = smpl['verts_posed']
         bounds = np.stack([verts.min(0) - self.box_margin,
                            verts.max(0) + self.box_margin], axis=0)
 
         if self.mode == 'train':
             rays = self._sample_train_rays(img, mask, mask_erode, K, R,
-                                           cam_trans, cam_loc, bounds)
+                                           cam_trans, cam_loc, bounds, rng)
         else:
             rays = self._sample_eval_rays(img, mask, mask_erode, K, R,
                                           cam_trans, cam_loc, bounds)
 
         tf_02v, msv, center, cmin, cmax, Jtr_norm = self._canonicalize(smpl)
         reg = self._sample_reg_points(msv, smpl['skinning_weights'],
-                                      cmin, cmax, center) \
+                                      cmin, cmax, center, rng) \
             if self.mode == 'train' else {}
 
         out = {

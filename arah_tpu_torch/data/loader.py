@@ -215,21 +215,32 @@ class MultiFrameBatchSampler:
 class Prefetcher:
     """Thread-pool prefetch of collated batches. `collate` runs on the
     pool's threads and must be numpy only; the optional `postprocess`
-    (e.g. `batch_to_device`) runs on the consumer thread."""
+    (e.g. `batch_to_device`) runs on the consumer thread.
+
+    With `seed` (a sequence of ints), batch k of the sampler draws from a
+    generator of its own, `RandomState([*seed, k])`: its items through
+    `dataset.item(i, rng)`, then `collate(items, rng)`. A batch's draws
+    then depend on (seed, k) alone, not on which thread made it or when,
+    so a run repeats with any number of workers. Without it, items come
+    from `dataset[i]` and `collate(items)`."""
 
     def __init__(self, dataset, sampler, collate, n_workers=4, depth=2,
-                 postprocess=None):
+                 postprocess=None, seed=None):
         self.dataset = dataset
+        self.seed = None if seed is None else [int(s) for s in seed]
         self.sampler = sampler
         self.collate = collate
         self.postprocess = postprocess
         self.pool = ThreadPoolExecutor(n_workers)
         self.depth = depth
 
-    def _make(self, idxs):
+    def _make(self, k, idxs):
         # the items of one batch load serially; `depth` batches are in
         # flight (a pool task that maps on its own pool can deadlock)
-        return self.collate([self.dataset[i] for i in idxs])
+        if self.seed is None:
+            return self.collate([self.dataset[i] for i in idxs])
+        rng = np.random.RandomState(self.seed + [k])
+        return self.collate([self.dataset.item(i, rng) for i in idxs], rng)
 
     def __iter__(self):
         pending = Queue()
@@ -237,12 +248,12 @@ class Prefetcher:
         done = threading.Event()
 
         def submit_all():
-            for idxs in it:
+            for k, idxs in enumerate(it):
                 while pending.qsize() >= self.depth and not done.is_set():
                     done.wait(0.005)
                 if done.is_set():
                     return
-                pending.put(self.pool.submit(self._make, idxs))
+                pending.put(self.pool.submit(self._make, k, idxs))
             pending.put(None)
 
         t = threading.Thread(target=submit_all, daemon=True)

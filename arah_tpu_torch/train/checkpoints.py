@@ -218,7 +218,8 @@ def step_dir(ckpt_dir: str, step: int) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state):
-    """Save a `TrainState` (params, optimizer, step) under
+    """Save a `TrainState` (params, optimizer, step), or a parameters-only
+    `{'params': tree}` (what `cli/convert_checkpoint.py` writes), under
     `step_<step>/` and point `LAST` at it; returns the directory. In a
     group of several processes every rank calls it: rank 0 writes its
     replica, then all meet at a barrier."""
@@ -232,11 +233,17 @@ def save_checkpoint(ckpt_dir: str, step: int, state):
 
 def _write_checkpoint(ckpt_dir: str, step: int, path: str, state):
     os.makedirs(path, exist_ok=True)
-    opt = state.optimizer
-    blob = {'params': _cpu_tree(state.params), 'step': int(state.step),
-            'optimizer': opt.adam.state_dict()}
-    if opt.schedule is not None:
-        blob['schedule'] = opt.schedule.state_dict()
+    if isinstance(state, dict):
+        if set(state) != {'params'}:
+            raise ValueError(f'save_checkpoint: a dict state holds '
+                             f"'params' only, not {sorted(state)}")
+        blob = {'params': _cpu_tree(state['params']), 'step': step}
+    else:
+        opt = state.optimizer
+        blob = {'params': _cpu_tree(state.params), 'step': int(state.step),
+                'optimizer': opt.adam.state_dict()}
+        if opt.schedule is not None:
+            blob['schedule'] = opt.schedule.state_dict()
     tmp = os.path.join(path, STATE_FILE + '.tmp')
     torch.save(blob, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
@@ -256,9 +263,9 @@ def restore_checkpoint(ckpt_dir: str, target, step: int | None = None):
     """Restore into `target`, a `TrainState` whose params are live: the
     saved parameters are copied into its leaves and, unless its optimizer
     is None (evaluation), the Adam state (and schedule) loaded into its
-    optimizer. Returns (state, step), or (None, None) without a
-    checkpoint. The file loads straight to the parameters' device (each
-    rank's own)."""
+    optimizer; a parameters-only checkpoint fills the parameters alone.
+    Returns (state, step), or (None, None) without a checkpoint. The file
+    loads straight to the parameters' device (each rank's own)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -268,11 +275,16 @@ def restore_checkpoint(ckpt_dir: str, target, step: int | None = None):
                   if torch.is_tensor(leaf)).device
     blob = torch.load(os.path.join(step_dir(ckpt_dir, step), STATE_FILE),
                       map_location=device, weights_only=False)
+    _copy_into(target.params, blob['params'])
+    if 'optimizer' not in blob:
+        # parameters only (a converted reference checkpoint): the
+        # optimizer state and the step keep their initial values, as in
+        # JAX's restore
+        return target, step
     for st in blob['optimizer']['state'].values():
         # Adam keeps its step counts on the host
         if torch.is_tensor(st.get('step')):
             st['step'] = st['step'].cpu()
-    _copy_into(target.params, blob['params'])
     opt = target.optimizer
     if opt is not None:
         opt.adam.load_state_dict(blob['optimizer'])

@@ -17,13 +17,17 @@ all ranks stop together.
 The randomness the JAX step draws from `fold_in(key, step)` comes from a
 numpy `RandomState` seeded by (seed, step) (`data/batch.py:
 draw_train_draws`), drawn for the global step's blocks, each rank
-keeping its own; the pose/view input noise from its own `RandomState`
-(seed + 17), drawn in the prefetch workers under a lock, as in JAX."""
+keeping its own. The host draws of a batch, the dataset's rays and
+regulariser points and then the pose/view input noise, come from a
+generator of the batch's own, seeded by (seed, epoch, rank, k) for the
+epoch's k-th batch (`Prefetcher(seed=...)`), so that a run repeats with
+any number of prefetch workers. (JAX's dataset draws from an unseeded
+generator and its noise under a lock in whatever order its threads take
+it.)"""
 from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 import numpy as np
 import torch
@@ -198,19 +202,15 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
             with open(os.path.join(ckpt_dir, 'META.json'), 'w') as f:
                 json.dump({'epoch': epoch, 'step': int(state.step)}, f)
 
-    # host-side augmentation: numpy in the prefetch workers; the lock
-    # keeps concurrent collates from racing the generator
-    noise_rng = np.random.RandomState(seed + 17)
-    noise_lock = threading.Lock()
-
-    def collate(items):
+    # host-side augmentation: numpy in the prefetch workers, from the
+    # batch's own generator (`Prefetcher(seed=...)`)
+    def collate(items, rng):
         noise = None
         if pose_input_noise or view_input_noise:
             n_rays = np.asarray(items[0]['inputs.ray_dirs']).shape[0]
-            with noise_lock:
-                noise = sample_noise(noise_rng, len(items),
-                                     pose_input_noise, view_input_noise,
-                                     nv_noise_type, n_rays=n_rays)
+            noise = sample_noise(rng, len(items), pose_input_noise,
+                                 view_input_noise, nv_noise_type,
+                                 n_rays=n_rays)
         return collate_train_batch_np(items, noise,
                                       per_block_frame=multi_frame)
 
@@ -220,8 +220,8 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
     done = start_epoch
     for epoch in range(start_epoch, max_epochs):
         with Prefetcher(dataset, sampler, collate,
-                        postprocess=lambda b: batch_to_device(b, device)
-                        ) as prefetcher:
+                        postprocess=lambda b: batch_to_device(b, device),
+                        seed=(seed, epoch, rank)) as prefetcher:
             for batch in prefetcher:
                 step_i = int(state.step)
                 if profile_dir and step_i == 8:

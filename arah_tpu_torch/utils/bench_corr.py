@@ -2,7 +2,7 @@
 `bench_corr.py`).
 
     python -m arah_tpu_torch.utils.bench_corr [--n 262144] [--iters 5]
-        [--variants dense,chunked,pallas,pallas_t_f32] [--cvg 1e-5]
+        [--variants dense,chunked,pallas,pallas_t_f32] [--cvg 1e-5] [--jac]
 
 Solves fwd_skin(x_hat) = x_bar for n points of the JAX bench's synthetic
 problem (`bench_corr.py:39-73`: a 128x4 skinning net, small random bone
@@ -21,6 +21,10 @@ Variants:
                 variant, in its default set `dense,chunked,pallas_t`);
   pallas_t_bf16 kernel B at precision 'bf16' (give it `--cvg 5e-3`: its
                 residual floors near 1e-3).
+
+`--jac` has kernel B's variants write the Jacobian at each root too
+(`want_jac`, the variants on launch shapes of their own at split3 and
+bf16).
 
 Prints ms per call (the host clock around synchronised calls, after one
 warm-up) and the valid share of each variant, then each kernel variant's
@@ -108,6 +112,8 @@ def main(argv=None, device=None) -> dict:
     p.add_argument('--cvg', type=float, default=1e-5,
                    help='convergence threshold; 0 forces max_steps '
                         'iterations on every point (pure-speed A/B)')
+    p.add_argument('--jac', action='store_true',
+                   help="kernel B's variants with want_jac")
     args = p.parse_args(argv)
     if device is None:
         if not torch.cuda.is_available():
@@ -168,9 +174,10 @@ def _run(args, variants, device) -> dict:
         return dict(x_hat=x, valid=v)
 
     def kernel_b(precision):
-        x, _, v, _ = corr_search(x_bar, x0, T0_16, mask, wts, bs, bones16,
-                                 *box, cvg_thresh=cvg, precision=precision)
-        return dict(x_hat=x, valid=v)
+        out = corr_search(x_bar, x0, T0_16, mask, wts, bs, bones16, *box,
+                          cvg_thresh=cvg, precision=precision,
+                          want_jac=args.jac)
+        return dict(x_hat=out[0], valid=out[2])
 
     results = {}
     with torch.no_grad():
@@ -183,7 +190,8 @@ def _run(args, variants, device) -> dict:
             results['pallas'] = timeit('L corr_rows (row layout)', rows)
         for v, prec in KERNEL_PRECISION.items():
             if v in variants:
-                results[v] = timeit(f'B corr {prec}',
+                results[v] = timeit(f'B corr {prec}'
+                                    + (' jac' if args.jac else ''),
                                     lambda prec=prec: kernel_b(prec))
     ref = results.get('chunked') or results.get('dense')
     for name in ('pallas', *KERNEL_PRECISION):

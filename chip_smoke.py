@@ -103,8 +103,10 @@
    launched), `pallas_precision` 'split3' and 'bf16' (B against its plain
    version at the same precision at both phases, bf16 at cvg 5e-3, and
    at phase 1 against the plain f32 solve, to show that it follows its
-   own precision; an eval frame at each precision, counted, split3's
-   held by the render gate), and `single_bvp` (the bench pose's
+   own precision; B with J at each precision against its plain version
+   and timed beside its bound; an eval frame at each precision,
+   counted, split3's held by the render gate), and `single_bvp` (the
+   bench pose's
    generated SIREN with its FiLM folded into a plain SIREN: an eval
    frame against the hypernet frame by the render gate, E and F on it, a
    step on every kernel with C and H held against their plain versions
@@ -118,7 +120,8 @@
    that the avatar has a surface); runs `cli.train.main` in this process
    with the launch counts set to 0 just before and read just after (A-I
    each launched, no plain version called: every one is spied on),
-   checks its files and that every logged loss is finite; reruns it for
+   checks its files and that every logged loss is finite, and prints its
+   checkpoint's sha256 (the run repeats: one seed, one digest); reruns it for
    a third epoch (it must print "resumed from step N"); runs it as a
    subprocess with `--exit-after 1 --epochs-per-run 50` (exit code 2);
    runs `cli.validate.main([... '--novel-view'])` counted (A-F launched,
@@ -195,11 +198,30 @@
    `metrics.json` equal to one process's on the same checkpoint),
    `cli.test` on 2 frames at `--mesh-res 64` (every PNG, `vis.mp4`
    parsed).
+12. Runs the real-data parity runbook on the card (`run_parity`, ~10 s):
+   writes a raw ZJU-MoCap tree (`make_fake_raw_zju`: 4 frames, views 1
+   and 7, 1024 x 1024, the bench body) and a raw H36M tree (10 frames, 2
+   views, 1002 x 1000); runs `preprocess_zju_mocap` and `preprocess_h36m`
+   with `--device cuda` and `--device cpu` (the same files, JSON and
+   images byte-equal, npz fields within 1e-5; s/frame on each);
+   `extract_smpl_parameters` on SMPL pickles of the fixture's body (the
+   extracted model poses as the fixture's within 1e-5) and
+   `preprocess_aist` on a 6-pose motion (`ODPDataset` loads 3 finite
+   frames); builds a reference Lightning checkpoint at
+   FAKE-ZJU-flagship's shapes (`reference_state_dict`) and runs
+   `cli.convert_checkpoint` on it (the restored tree bit-equal to the
+   in-process conversion); then `cli.validate --novel-view --device
+   cuda` from that checkpoint on the preprocessed ZJU tree, counted (A-F
+   launched, no plain version), its rgb PNG byte-equal to an in-process
+   `evaluate_frame` and `save_image` of the same item; prints preprocess
+   s/frame on cuda and cpu, convert s, validate s/frame and A-F's
+   launches.
 
 Prints the card (`nvidia-smi`), a `{"kernels": [...]}` line (A-I also
 carry `launches_cli_train` and `launches_cli_h36m`, phase 9's and phase
 10's train counts, and `launches_ddp`, each rank's in phase 11's counted
-sharded step; A-F and J `launches_cli_test`; J its grid time as
+sharded step; A-F `launches_parity`, phase 12's validation from the
+converted checkpoint; A-F and J `launches_cli_test`; J its grid time as
 `grid_ms`, `grid_plain_ms`, `grid_bound_ms`), and as its last line
 `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero before those lines. Without a CUDA device it exits non-zero.
@@ -422,49 +444,6 @@ def iters_check(tag, it_k, it_p, held=None, why='', gate=True, it_w=None):
           flush=True)
     check(agree >= floor or not gate, f'{tag}: per-ray iteration counts '
           'disagree with the plain version')
-
-
-def ptxas_report(log):
-    """{kernel: {'registers', 'spill_stores', 'spill_loads', 'stack',
-    'smem'}} from a build log of `nvcc -Xptxas -v` (names demangled to
-    `name<template args>`)."""
-    import re
-    out, cur = {}, None
-    for line in open(log):
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            cur = demangle(m.group(1))
-            out[cur] = {}
-            continue
-        if cur is None:
-            continue
-        for key, pat in (('stack', r'(\d+) bytes stack frame'),
-                         ('spill_stores', r'(\d+) bytes spill stores'),
-                         ('spill_loads', r'(\d+) bytes spill loads'),
-                         ('registers', r'Used (\d+) registers'),
-                         ('smem', r'(\d+) bytes smem')):
-            m = re.search(pat, line)
-            if m:
-                out[cur][key] = int(m.group(1))
-    return out
-
-
-def demangle(sym):
-    """`_Z16shade_bwd_kernelILb1ELb0EEv...` -> `shade_bwd_kernel<true,
-    false>`: the name and the integer and bool template arguments of an
-    Itanium-mangled kernel, in order, a launch shape's
-    (csrc/stream_mlp.cuh:TileShape) flattened: `corr_kernel<R, NT, C, KC,
-    MINB, ST, MAXW, NG, precision, want_jac>`."""
-    import re
-    m = re.match(r'_Z(\d+)', sym)
-    if not m:
-        return sym
-    i = m.end()
-    name = sym[i:i + int(m.group(1))]
-    args = [v if k == 'i' else ('true' if v == '1' else 'false')
-            for k, v in re.findall(r'L([ib])(\d+)E',
-                                   sym[i + int(m.group(1)):])]
-    return f'{name}<{", ".join(args)}>' if args else name
 
 
 def waste_line(run, need):
@@ -767,12 +746,15 @@ def main():
           f'-> {_build.library_path()}', flush=True)
     log = os.path.join(os.path.dirname(_build.library_path()), 'build.log')
     if os.path.exists(log):
-        ptx = ptxas_report(log)
+        from arah_tpu_torch.utils import ptxas
+        ptx = ptxas.report(log)
         for name, r in ptx.items():
-            print(f'  ptxas: {name}: {r.get("registers")} registers, spill '
-                  f'stores {r.get("spill_stores")} B, spill loads '
-                  f'{r.get("spill_loads")} B, stack {r.get("stack")} B, '
-                  f'smem {r.get("smem", 0)} B')
+            print(f'  ptxas: {name}: '
+                  + (f'{r.get("registers")} registers, ' if r['entry']
+                     else 'not inlined, ')
+                  + f'spill stores {r.get("spill_stores")} B, spill loads '
+                  f'{r.get("spill_loads")} B, stack {r.get("stack")} B'
+                  + (f', smem {r.get("smem", 0)} B' if r['entry'] else ''))
         from arah_tpu_torch.ops import (corr as ocorr, knn as oknn,
                                         siren as osiren)
         # the kernels on csrc/stream_mlp.cuh and A/K's body, one symbol a
@@ -783,11 +765,13 @@ def main():
                  len(ocorr.SHAPES) + len(ocorr.VARIANTS)),
                 ('J', ('siren_kernel<',), len(osiren.SHAPES)),
                 ('A/K', ('knn_kernel<',), len(oknn.SHAPES))):
-            ks = {n: r for n, r in ptx.items() if n.startswith(names)}
-            check(len(ks) == want and all(r.get('spill_stores') == 0
-                                          and r.get('spill_loads') == 0
-                                          for r in ks.values()),
-                  f'kernels {tag} spill or are missing: {ks}')
+            # the entries, and every device function of their sources
+            # that was not inlined (any of them may call it)
+            ks, callees = ptxas.group(ptx, names)
+            check(len(ks) == want
+                  and not any(map(ptxas.spills, [*ks.values(),
+                                                 *callees.values()])),
+                  f'kernels {tag} spill or are missing: {ks} {callees}')
 
     from arah_tpu_torch.core.embedder import positional_encoding
     from arah_tpu_torch.nn.layers import wn_weight
@@ -1023,6 +1007,8 @@ def main():
         torch.cuda.empty_cache()
         ddp_launches = run_ddp(card, no_tf32, params, fd, frame_item, cli,
                                tmp)
+        torch.cuda.empty_cache()
+        parity_launches = run_parity(card, no_tf32, tmp)
 
     out = []
     for name, r in records.items():
@@ -1041,6 +1027,8 @@ def main():
                        if name in TRAIN_KERNELS else {}),
                     **({'launches_cli_test': test_launches[name]}
                        if name in CLI_TEST_KERNELS else {}),
+                    **({'launches_parity': parity_launches[name]}
+                       if name in CLI_KERNELS_EVAL else {}),
                     **{k: r[k] for k in ('grid_ms', 'grid_plain_ms',
                                          'grid_bound_ms', 'grid_max_abs_err')
                        if k in r}})
@@ -3641,6 +3629,16 @@ def run_options(cfg, params, fd, card, no_tf32):
             precision=prec), 2)
         m0 = wts[0].numel()
         n_bf = (3 if prec == 'split3' else 1) * 2.0 * (macs - m0)
+        # B with J at this precision (the variant idiff_kernel_jac runs):
+        # J's four chains take the precision's products after layer 0
+        ms_jp = timed(lambda: launch(pkp, True, cvg), REPS)
+        b_jp = bound_mixed(nbytes, [
+            (evals * (f_eval - 2.0 * (macs - m0))
+             + n_pts * (f_jac - 4 * 2.0 * (macs - m0)), PEAK_F32),
+            ((evals + 4 * n_pts) * n_bf, PEAK_BF16)])
+        print(f'  B phase 1 with J at {prec} (cvg {cvg:g}): {ms_jp:.3f} ms, '
+              f'without J {ms_prec[prec]:.3f} ms; bound with J '
+              f'{b_jp[0]:.4f} ms ({b_jp[1]}) [{card}]', flush=True)
         records[f'corr_{prec}'] = dict(
             max_abs_err=err_p, ms=ms_prec[prec], plain_ms=plain_p,
             bound=bound_mixed(n_pts * (12 + 12 + 64 + 1 + 12 + 64 + 2)
@@ -3811,6 +3809,78 @@ def run_cli(fn, argv):
     return out
 
 
+def reference_state_dict(params):
+    """A reference-layout (ARAH Lightning) `state_dict` under `model.`,
+    built from a port parameter tree `params` (`model.init_model_params`
+    at a config's shapes): each leaf under the reference's key, so that
+    `train/checkpoints.py:convert_model_state_dict` gives `params` back
+    (the converter's inverse; the last SIREN layer has no
+    `hypo_params_init`, as in the reference, and converts to zeros). CPU
+    tensors; imports no JAX (the CPU tests use it too)."""
+    sd = {}
+
+    def put(key, v, shape=None):
+        v = v.detach().to('cpu', copy=True)
+        sd['model.' + key] = v if shape is None else v.reshape(shape)
+
+    def fc(prefix, block):
+        for j, h in enumerate(block['hidden']):
+            put(f'{prefix}net.{j}.net.0.weight', h['lin']['w'])
+            put(f'{prefix}net.{j}.net.0.bias', h['lin']['b'])
+            put(f'{prefix}net.{j}.net.1.weight', h['ln']['gamma'])
+            put(f'{prefix}net.{j}.net.1.bias', h['ln']['beta'])
+        n = len(block['hidden'])
+        put(f'{prefix}net.{n}.weight', block['last']['w'])
+        put(f'{prefix}net.{n}.bias', block['last']['b'])
+
+    def pose_encoder(prefix, pe):
+        put(f'{prefix}layer_0.weight', pe['layer_0']['w'])
+        put(f'{prefix}layer_0.bias', pe['layer_0']['b'])
+        for j, lyr in enumerate(pe['layers']):
+            for k, fcn in (('0', 'fc1'), ('2', 'fc2')):
+                put(f'{prefix}layers.{j}.{k}.weight', lyr[fcn]['w'])
+                put(f'{prefix}layers.{j}.{k}.bias', lyr[fcn]['b'])
+
+    def wn(prefix, layers):
+        for l, lyr in enumerate(layers):
+            if 'v' in lyr:
+                put(f'{prefix}lin{l}.weight_v', lyr['v'])
+                put(f'{prefix}lin{l}.weight_g', lyr['g'], (-1, 1))
+            else:
+                put(f'{prefix}lin{l}.weight', lyr['w'])
+            put(f'{prefix}lin{l}.bias', lyr['b'])
+
+    hn = params['hypernet']
+    n = len(hn['hyper_layers'])
+    for i, block in enumerate(hn['hyper_layers']):
+        base = f'sdf_decoder.net.layers.{i}.' + (
+            'hyper_linear.' if i < n - 1 else '')
+        fc(base + 'hypo_params.', block)
+        if i < n - 1:
+            put(base + 'hypo_params_init', hn['hypo_init'][i], (1, -1))
+    if 'mapping' in hn:
+        net = 'sdf_decoder.net.mapping_network.network.'
+        for idx, lin in zip((0, 2, 4), hn['mapping']['lins']):
+            put(f'{net}{idx}.weight', lin['w'])
+            put(f'{net}{idx}.bias', lin['b'])
+        put(f'{net}6.weight', hn['mapping']['last']['w'])
+        put(f'{net}6.bias', hn['mapping']['last']['b'])
+    if 'pose_encoder' in hn:
+        pose_encoder('sdf_decoder.pose_encoder.', hn['pose_encoder'])
+    wn('skinning_model.skinning_decoder_fwd.', params['skinning']['layers'])
+    wn('color_decoder.', params['color']['layers'])
+    if 'pose_encoder' in params['color']:
+        pose_encoder('color_decoder.pose_encoder.',
+                     params['color']['pose_encoder'])
+    put('deviation_decoder.variance', params['deviation']['variance'], ())
+    if 'latent' in params:
+        put('latent.weight', params['latent'])
+    for k in ('cam_rots', 'cam_trans'):
+        if k in params:
+            put(k, params[k])
+    return sd
+
+
 def write_pretrained(tmp, scene, cfg):
     """The fitted scene's SIREN and skinning net as the reference's
     pretrained checkpoints (a MetaAvatar `decoder.net.net.<i>.0` state
@@ -3892,6 +3962,13 @@ def run_clis(card, no_tf32, scene, tmp):
     with open(os.path.join(ck, 'META.json')) as f:
         meta = json.load(f)
     check(meta['epoch'] == 2, f'cli.train META.json {meta}')
+    # the run repeats: its draws are a function of the seed (each batch's
+    # generator, `Prefetcher(seed=...)`, and trainer.py:step_rng), so this
+    # digest is the same run after run
+    digest = tree_digest(torch.load(os.path.join(ckpt_lib.step_dir(
+        ck, meta['step']), 'state.pt'), weights_only=False)['params'])
+    print(f'phase 9 checkpoint after 2 epochs (step {meta["step"]}): '
+          f'parameters sha256 {digest}', flush=True)
 
     # ---- the rerun resumes and trains one more epoch
     more = cli_config(os.path.join(tmp, 'more.yaml'), base, data, out,
@@ -4967,6 +5044,291 @@ def run_ddp(card, no_tf32, params, fd, frame_item, cli, tmp):
     return ddp_launches
 
 
+# ---- phase 12: the real-data parity runbook on the card
+
+PARITY_FRAMES = 4       # raw ZJU frames, views 1 and 7, 1024 x 1024
+PARITY_H36M_FRAMES = 2  # kept H36M frames (10 raw), 2 views, 1002 x 1000
+PARITY_VERTS = 6890     # the bench body's n_verts (scene.N_VERTS)
+
+
+def compare_trees(tag, a, b, tol=1e-5):
+    """Two preprocessing outputs: the same files, `cam_params.json` and
+    the images byte-equal, every npz field of the same dtype and shape
+    and within `tol`. Returns the largest npz difference."""
+    import numpy as np
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+    fa, fb = files(a), files(b)
+    check(fa == fb, f'{tag}: the file sets differ: '
+          f'{sorted(set(fa) ^ set(fb))[:5]}')
+    worst, n_npz = 0.0, 0
+    for rel in sorted(set(fa) & set(fb)):
+        pa, pb = os.path.join(a, rel), os.path.join(b, rel)
+        if rel.endswith('.npz'):
+            n_npz += 1
+            za, zb = np.load(pa), np.load(pb)
+            check(sorted(za) == sorted(zb), f'{tag}: {rel} fields')
+            for k in set(za) & set(zb):
+                same = za[k].dtype == zb[k].dtype \
+                    and za[k].shape == zb[k].shape
+                d = float(np.abs(za[k].astype(np.float64) - zb[k]).max()) \
+                    if same and za[k].size else 0.0
+                worst = max(worst, d)
+                check(same and d <= tol, f'{tag}: {rel}:{k} differs by {d}')
+        else:
+            with open(pa, 'rb') as x, open(pb, 'rb') as y:
+                check(x.read() == y.read(), f'{tag}: {rel} not byte-equal')
+    print(f'  {tag}: {len(fa)} files the same, JSON and images byte-equal, '
+          f'{n_npz} npz records within {worst:.3e} (bound {tol:g})',
+          flush=True)
+    return worst
+
+
+def run_parity(card, no_tf32, tmp):
+    """Phase 12 of the module docstring. Returns {kernel: launches of
+    A-F in the validation from the converted checkpoint}."""
+    import pickle
+    import re
+    import numpy as np
+    import torch
+    from arah_tpu_torch.cli import convert_checkpoint
+    from arah_tpu_torch.cli import validate as cli_validate
+    from arah_tpu_torch.config.factory import (get_dataset,
+                                               init_params_from_cfg)
+    from arah_tpu_torch.config.loader import (default_config_path,
+                                              load_config,
+                                              model_config_from_cfg)
+    from arah_tpu_torch.core.smpl import lbs, load_smpl_assets
+    from arah_tpu_torch.data.fake_dataset import (make_fake_raw_h36m,
+                                                  make_fake_raw_zju)
+    from arah_tpu_torch.data.odp import ODPDataset
+    from arah_tpu_torch.eval.evaluator import evaluate_frame, save_image
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.parallel.train_step import TrainState
+    from arah_tpu_torch.preprocess import (extract_smpl_parameters,
+                                           preprocess_aist,
+                                           preprocess_h36m,
+                                           preprocess_zju_mocap)
+    from arah_tpu_torch.train import checkpoints as ckpt_lib
+    from arah_tpu_torch.train.optim import tree_leaves_with_path
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, 'parity')
+    raw_zju, raw_h36m = os.path.join(root, 'raw_zju'), \
+        os.path.join(root, 'raw_h36m')
+    t0 = time.perf_counter()
+    _, model = make_fake_raw_zju(raw_zju, n_frames=PARITY_FRAMES,
+                                 views=('1', '7'), img_size=1024,
+                                 n_verts=PARITY_VERTS)
+    make_fake_raw_h36m(raw_h36m, n_frames=PARITY_H36M_FRAMES,
+                       img_size=(1002, 1000), n_verts=PARITY_VERTS)
+    print(f'phase 12: raw ZJU tree ({PARITY_FRAMES} frames, views 1 and 7, '
+          f'1024 x 1024, the body of n_verts={PARITY_VERTS}: '
+          f'{np.asarray(model.v_template).shape[0]} vertices) and raw H36M tree '
+          f'({5 * PARITY_H36M_FRAMES} frames, 2 views, 1002 x 1000) written '
+          f'in {time.perf_counter() - t0:.2f} s', flush=True)
+
+    # ---- the preprocessing scripts on the card and on the host
+    per_frame = {}
+    outs = {}
+    for name, mod, raw, seq, n in (
+            ('ZJU', preprocess_zju_mocap, raw_zju, 'CoreView_313',
+             PARITY_FRAMES),
+            ('H36M', preprocess_h36m, raw_h36m, 'S9', PARITY_H36M_FRAMES)):
+        for dev in ('cuda', 'cpu'):
+            out = os.path.join(root, f'{name.lower()}_{dev}')
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_cli(mod.main, ['--data-dir', raw, '--out-dir', out,
+                               '--seqname', seq, '--smpl-misc',
+                               os.path.join(raw, 'body_models', 'misc'),
+                               '--device', dev])
+            torch.cuda.synchronize()
+            per_frame[name, dev] = (time.perf_counter() - t0) / n
+            outs[name, dev] = out
+        compare_trees(f'{name} preprocessing, cuda against cpu',
+                      outs[name, 'cuda'], outs[name, 'cpu'])
+    zju_out = outs['ZJU', 'cuda']
+
+    # ---- the SMPL pickles -> misc, then AIST++ retargeting onto it
+    smpl_dir = os.path.join(root, 'smpl', 'neutral')
+    os.makedirs(smpl_dir)
+    nv = np.asarray(model.v_template).shape[0]
+    with open(os.path.join(smpl_dir, 'model.pkl'), 'wb') as f:
+        pickle.dump({
+            'v_template': np.asarray(model.v_template, np.float64),
+            'shapedirs': np.concatenate(
+                [np.asarray(model.shapedirs, np.float64),
+                 np.zeros((nv, 3, 290))], axis=-1),
+            'posedirs': np.asarray(model.posedirs, np.float64
+                                   ).T.reshape(nv, 3, 207),
+            'J_regressor': np.asarray(model.J_regressor, np.float64),
+            'weights': np.asarray(model.lbs_weights, np.float64),
+            'f': np.asarray(model.faces, np.int64),
+            'kintree_table': np.stack([np.asarray(model.parents),
+                                       np.arange(24)]).astype(np.int64)}, f)
+    misc = os.path.join(root, 'misc')
+    run_cli(extract_smpl_parameters.main, ['--smpl-dir',
+                                           os.path.dirname(smpl_dir),
+                                           '--out-dir', misc])
+    rng = np.random.RandomState(1)
+    betas = torch.as_tensor(rng.randn(1, 10).astype(np.float32) * 0.2,
+                            device='cuda')
+    pose = torch.as_tensor(rng.randn(1, 72).astype(np.float32) * 0.2,
+                           device='cuda')
+    with torch.no_grad():
+        d = float((lbs(load_smpl_assets(misc, 'neutral'), betas, pose).verts
+                   - lbs(load_smpl_assets(os.path.join(
+                       raw_zju, 'body_models', 'misc'), 'neutral'), betas,
+                       pose).verts).abs().max())
+    print(f'  extract_smpl_parameters: the extracted model poses as the '
+          f'fixture\'s within {d:.3e} (bound 1e-5)', flush=True)
+    check(d <= 1e-5, 'extract_smpl_parameters: the model differs')
+    aist = os.path.join(root, 'aist')
+    os.makedirs(aist)
+    with open(os.path.join(aist, 'gBR_sBM_c01.pkl'), 'wb') as f:
+        pickle.dump({'smpl_poses': (rng.randn(6, 72) * 0.1).astype(
+            np.float32)}, f)
+    odp_root = os.path.join(root, 'odp')
+    run_cli(preprocess_aist.main, [
+        '--data-dir', aist, '--seqname', 'gBR_sBM_c01', '--in-dataset',
+        zju_out, '--subject', 'CoreView_313', '--out-dir', odp_root,
+        '--view', '1', '--smpl-misc', misc, '--device', 'cuda'])
+    odp = ODPDataset(odp_root, pose_dir='gBR_sBM_c01_view1', cam_name='1',
+                     img_size=(256, 256), orig_img_size=(1024, 1024),
+                     smpl_misc_dir=misc, subjects=('CoreView_313',))
+    ok = len(odp) == 3 and all(
+        np.isfinite(odp[i]['inputs.ray_dirs']).all()
+        and np.isfinite(odp[i]['image.bone_transforms']).all()
+        for i in range(len(odp)))
+    print(f'  preprocess_aist: {len(odp)} retargeted frames of 6 poses, '
+          f'loaded by ODPDataset, finite {ok}', flush=True)
+    check(ok, 'preprocess_aist: ODPDataset does not load 3 finite frames')
+
+    # ---- a reference Lightning checkpoint at the flagship's shapes
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(repo, 'configs', 'fake', 'FAKE-ZJU-flagship.yaml')
+    out = os.path.join(root, 'out')
+    cfg_path = os.path.join(root, 'cfg.yaml')
+    with open(cfg_path, 'w') as f:
+        f.write(f'inherit_from: {base}\ndata:\n  path: {zju_out}\n'
+                f'  smpl_misc: {raw_zju}/body_models/misc\n'
+                f'training:\n  out_dir: {out}\n')
+    cfg = load_config(cfg_path, default_config_path())
+    model_cfg = model_config_from_cfg(cfg)
+    train_ds = get_dataset('train', cfg)
+    src = init_params_from_cfg(5, cfg, model_cfg, train_ds, mode='val',
+                               device='cuda')
+    sd = reference_state_dict(src)
+    del src
+    ckpt = os.path.join(root, 'last.ckpt')
+    torch.save({'state_dict': sd, 'epoch': 1}, ckpt)
+    n_float = sum(v.numel() for v in sd.values())
+
+    # ---- cli.convert_checkpoint, against the in-process conversion
+    t0 = time.perf_counter()
+    run_cli(convert_checkpoint.main, ['--config', cfg_path, '--torch-ckpt',
+                                      ckpt, '--out-dir',
+                                      os.path.join(out, 'checkpoints')])
+    convert_s = time.perf_counter() - t0
+    direct = ckpt_lib.convert_model_state_dict(
+        ckpt_lib.strip_prefix(sd, 'model.'), model_cfg)
+    del sd
+    params = init_params_from_cfg(0, cfg, model_cfg, train_ds, mode='val',
+                                  device='cuda')
+    state, step = ckpt_lib.restore_checkpoint(
+        os.path.join(out, 'checkpoints'), TrainState(params, None, 0))
+    a = dict(tree_leaves_with_path(state.params))
+    b = dict(tree_leaves_with_path(direct))
+    same = step == 0 and sorted(a) == sorted(b) and all(
+        torch.equal(a[k].cpu(), b[k]) for k in b)
+    print(f'  cli.convert_checkpoint: {n_float} floats in {len(b)} leaves, '
+          f'{convert_s:.2f} s; the restored step-0 tree bit-equal to the '
+          f'in-process conversion {same}', flush=True)
+    check(same, 'cli.convert_checkpoint: the restored tree differs from the '
+          'in-process conversion')
+    del direct, a, b
+
+    # ---- cli.validate from the converted checkpoint, counted
+    no_tf32()
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    with count_plain() as plain:
+        text = run_cli(cli_validate.main, [cfg_path, '--novel-view',
+                                           '--device', 'cuda'])
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    vl = {k: _build.COUNTS[k] for k in CLI_KERNELS_EVAL}
+    frame_s = [float(x) for x in re.findall(r'\] .* \(([\d.]+) s\)', text)]
+    check('loaded checkpoint step 0' in text,
+          'cli.validate did not restore the converted checkpoint')
+    check(all(v > 0 for v in vl.values()),
+          f'cli.validate (converted): a kernel of A-F was not launched {vl}')
+    check(not any(plain.values()), f'cli.validate (converted): plain '
+          f'versions ran: {plain}')
+    with open(os.path.join(out, 'val', 'metrics.json')) as f:
+        mean = json.load(f)['mean']
+    check(all(np.isfinite(v) for v in mean.values()),
+          f'cli.validate (converted): metrics not finite {mean}')
+    # the same item in this process with the restored parameters
+    item = get_dataset('val', cfg, subsampling_rate=30)[0]
+    d_idx = int(item['inputs.data_idx'])
+    if d_idx >= state.params['latent'].shape[0]:
+        d_idx = state.params['latent'].shape[0] - 1
+    m = evaluate_frame(state.params, model_cfg, item,
+                       state.params['latent'][d_idx])
+    ref = os.path.join(root, 'rgb_inproc.png')
+    save_image(ref, m['rgb_pred'])
+    with open(ref, 'rb') as f, \
+            open(os.path.join(out, 'val', 'rgb_000000.png'), 'rb') as g:
+        png_same = f.read() == g.read()
+    print(f'  cli.validate --novel-view from the converted checkpoint: '
+          f'{len(frame_s)} frame(s), {val_s:.2f} s in all, '
+          f'{np.mean(frame_s) if frame_s else float("nan"):.3f} s/frame; '
+          f'launches {vl}, plain calls {plain}; metrics {mean}; rgb PNG '
+          f'byte-equal to the in-process evaluate_frame {png_same}',
+          flush=True)
+    check(png_same, 'cli.validate (converted): the rgb PNG differs from '
+          'the in-process render')
+    print(f'phase 12: preprocess s/frame ZJU cuda '
+          f'{per_frame["ZJU", "cuda"]:.3f} cpu {per_frame["ZJU", "cpu"]:.3f}'
+          f', H36M cuda {per_frame["H36M", "cuda"]:.3f} cpu '
+          f'{per_frame["H36M", "cpu"]:.3f}; convert {convert_s:.2f} s; '
+          f'validate {np.mean(frame_s) if frame_s else float("nan"):.3f} '
+          f's/frame; A-F launches {vl}; phase {time.perf_counter() - t_phase:.1f}'
+          f' s (budget 90) [{card}]', flush=True)
+    return vl
+
+
+def phase12_probe():
+    """`python3 chip_smoke.py --phase12`: phase 12 alone (the kernels'
+    build, then `run_parity`); exits non-zero on a failed check. Prints
+    no result lines."""
+    import tempfile
+    import torch
+    if not torch.cuda.is_available():
+        print('no CUDA device', file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from arah_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def no_tf32():
+        check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 got enabled')
+    card = card_line()
+    _build.load()
+    with tempfile.TemporaryDirectory(prefix='arah_parity_') as tmp:
+        run_parity(card, no_tf32, tmp)
+    print(card)
+    if FAILURES:
+        print(f'{len(FAILURES)} check(s) failed: {FAILURES}', flush=True)
+        sys.exit(1)
+
+
 def phase11_probe():
     """`python3 chip_smoke.py --phase11`: phase 11 alone, the quick probe
     of the data-parallel path (the kernels' build, the fitted scene, phase
@@ -5020,5 +5382,7 @@ if __name__ == '__main__':
         rank_main(sys.argv[2:])
     elif sys.argv[1:2] == ['--phase11']:
         phase11_probe()
+    elif sys.argv[1:2] == ['--phase12']:
+        phase12_probe()
     else:
         main()

@@ -58,7 +58,17 @@ class TestSiren:
         xp = np.concatenate([x, np.zeros(((-n) % tile, 3), np.float32)])
         ref = np.asarray(siren_sdf_pallas(gen, jnp.asarray(xp), tile=tile,
                                           interpret=True))[:n]
-        out = siren_sdf(port_gen(gen), t(x))
+        # one intra-op thread: one reduction order for torch's products
+        # (the Pallas side's does not change with the thread count). The
+        # module's thread count is whatever the last module collected in
+        # this process set, and at 4 threads torch sums so that the 30x
+        # sine chain moves one element of [True] by 1.16e-5.
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            out = siren_sdf(port_gen(gen), t(x))
+        finally:
+            torch.set_num_threads(threads)
         assert out.dtype == torch.float32 and out.shape == (n, 1)
         np.testing.assert_allclose(np_(out), ref, atol=1e-5)
 

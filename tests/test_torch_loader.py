@@ -223,3 +223,54 @@ def test_step_per_block_frame_vs_jax():
     for row in (0, 1):
         assert np.abs(g[row]).max() > 0 and np.abs(pg[row]).max() > 0
     assert np.abs(g[2]).max() == 0 and np.abs(pg[2]).max() == 0
+
+
+def test_prefetcher_draws_as_one_worker(tmp_path):
+    """More workers than cores, every batch in flight and a short switch
+    interval: with a seed, every batch, the dataset's draws and a collate
+    that draws input noise as the trainer's does, is bit-equal to a serial
+    one-worker run's from batch k's generator `RandomState([*seed, k])`,
+    in sampler order, twice."""
+    import os
+    import sys
+    from arah_tpu_torch.data import loader as P
+    from arah_tpu_torch.data.batch import sample_noise
+    from arah_tpu_torch.data.fake_dataset import make_fake_zju_dataset
+    from arah_tpu_torch.data.human_video import ZJUMoCapDataset
+    from arah_tpu_torch.utils.tree import tree_map
+    root = str(tmp_path / 'fake')
+    misc, _ = make_fake_zju_dataset(root, n_frames=4, views=('1', '7'),
+                                    img_size=128, n_verts=256)
+    ds = ZJUMoCapDataset(
+        root, smpl_misc_dir=misc, subjects=('CoreView_313',),
+        mode='train', img_size=(64, 64), num_fg_samples=16,
+        num_bg_samples=16, sample_reg_surface=True, sample_inside=True,
+        seed=3)
+
+    def collate(items, rng):
+        return P.collate_train_batch_np(items, sample_noise(
+            rng, len(items), True, True, n_rays=32))
+
+    def run(workers):
+        sampler = P.FrameBatchSampler(ds, seed=1)
+        if workers == 0:
+            out = []
+            for k, idxs in enumerate(sampler):
+                rng = np.random.RandomState([5, 0, k])
+                out.append(collate([ds.item(i, rng) for i in idxs], rng))
+            return out
+        with P.Prefetcher(ds, sampler, collate, n_workers=workers,
+                          depth=workers, seed=(5, 0)) as pf:
+            return list(pf)
+    want = run(0)
+    assert len(want) == 4
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        runs = [run(2 * (os.cpu_count() or 4)) for _ in range(2)]
+    finally:
+        sys.setswitchinterval(interval)
+    for got in runs:
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            tree_map(np.testing.assert_array_equal, a, b)

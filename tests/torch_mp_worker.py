@@ -19,7 +19,6 @@ generator seeded by its index, so that items do not depend on which
 rank, thread or order draws them."""
 import os
 import sys
-import threading
 
 import numpy as np
 import torch
@@ -140,19 +139,19 @@ def run_cli(module, argv):
     from arah_tpu_torch.data import human_video
     for name in dir(human_video):
         cls = getattr(human_video, name)
-        if isinstance(cls, type) and '__getitem__' in vars(cls):
+        if isinstance(cls, type) and 'item' in vars(cls):
             _seed_items(cls)
     importlib.import_module(module).main(argv)
 
 
 def _seed_items(cls):
-    get, lock = cls.__getitem__, threading.Lock()
+    """Every item's draws (`item`, which `__getitem__` and the prefetcher
+    call) from a generator seeded by the item's index."""
+    item = cls.item
 
-    def getitem(self, idx):
-        with lock:
-            self.rng = np.random.RandomState([7, int(idx)])
-            return get(self, idx)
-    cls.__getitem__ = getitem
+    def seeded(self, idx, rng=None):
+        return item(self, idx, np.random.RandomState([7, int(idx)]))
+    cls.item = seeded
 
 
 def main():
