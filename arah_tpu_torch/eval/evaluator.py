@@ -20,6 +20,7 @@ import torch
 from arah_tpu_torch.data.loader import frame_from_item
 from arah_tpu_torch.render.renderer import ModelConfig, RenderInputs, render
 from arah_tpu_torch.utils import metrics as metrics_lib
+from arah_tpu_torch.utils import trace
 from arah_tpu_torch.utils.image import write_image, write_jpeg
 
 # candidate chunks and their relative eval throughput, from the JAX
@@ -39,16 +40,31 @@ def pick_eval_chunk(n_rays: int) -> int:
     return best
 
 
+def _to_host(t):
+    """t copied to the host: the host waits for the stream
+    (`eval.sync.d2h`)."""
+    with trace.sync('eval.sync.d2h'):
+        return t.cpu()
+
+
+def _to_device(a, dev):
+    """The numpy array a as a tensor on `dev`: a pageable copy, which the
+    host waits for (`eval.sync.h2d`)."""
+    with trace.sync('eval.sync.h2d'):
+        return torch.as_tensor(a, device=dev)
+
+
 def _gather_chunk(outs, mesh):
     """Every rank's (rgb, weights, depth, converged) piece of a chunk,
     gathered through the host in rank order: the whole chunk's numpy
     arrays on every rank."""
     import torch.distributed as dist
     from arah_tpu_torch.parallel import distributed
-    rgb, w, d, c = (o.float().cpu() for o in outs)
+    rgb, w, d, c = (_to_host(o.float()) for o in outs)
     piece = torch.cat([rgb, w[:, None], d[:, None], c[:, None]], 1)
     pieces = [torch.empty_like(piece) for _ in range(mesh.size)]
-    dist.all_gather(pieces, piece, group=distributed.cpu_group())
+    with trace.sync('eval.sync.gather'):
+        dist.all_gather(pieces, piece, group=distributed.cpu_group())
     full = torch.cat(pieces).numpy()
     return full[:, :3], full[:, 3], full[:, 4], full[:, 5] > 0
 
@@ -63,7 +79,18 @@ def render_frame_rays(params, cfg: ModelConfig, fd, item, latent,
     mesh: every rank calls it on the same item; the chunk is rounded to
     a multiple of the mesh size (as in JAX), each rank renders its
     contiguous chunk / size rays of every chunk, and the pieces are
-    gathered, so that every rank returns the whole frame."""
+    gathered, so that every rank returns the whole frame.
+
+    Spans (`utils/trace.py`): `eval.image` the call, `eval.chunk` each
+    chunk, `eval.pad` its padding; the host waits at each copy of a
+    chunk's inputs to the device and of its outputs to the host, and at
+    the gather (`eval.sync.*`)."""
+    with trace.span('eval.image'):
+        return _render_frame_rays(params, cfg, fd, item, latent, chunk, mesh)
+
+
+def _render_frame_rays(params, cfg: ModelConfig, fd, item, latent, chunk,
+                       mesh):
     dev = fd.smpl.verts_posed.device
     rays = np.asarray(item['inputs.ray_dirs'], np.float32)
     bounds = np.asarray(item['inputs.body_bounds_intersections'],
@@ -81,36 +108,38 @@ def render_frame_rays(params, cfg: ModelConfig, fd, item, latent,
     if latent is not None:
         pose_cond_extra['latent_code'] = latent[None]
         geo_latent = latent
-    cam_loc = torch.as_tensor(np.asarray(item['image.cam_loc'], np.float32)
-                              .reshape(3), device=dev)
+    cam_loc = _to_device(np.asarray(item['image.cam_loc'], np.float32)
+                         .reshape(3), dev)
 
     rgb = np.zeros((n, 3), np.float32)
     weights = np.zeros((n,), np.float32)
     depth = np.zeros((n,), np.float32)
     conv = np.zeros((n,), bool)
     for i in range(0, n, chunk):
-        j = min(i + chunk, n)
-        pad = chunk - (j - i)
-        rd = np.pad(rays[i:j], ((0, pad), (0, 0)), mode='edge')[own]
-        nr = np.pad(bounds[i:j, 0], (0, pad), mode='edge')[own]
-        fr = np.pad(bounds[i:j, 1], (0, pad), mode='edge')[own]
-        inp = RenderInputs(
-            cam_loc=cam_loc, ray_dirs=torch.as_tensor(rd, device=dev),
-            near=torch.as_tensor(nr, device=dev),
-            far=torch.as_tensor(fr, device=dev),
-            frame=fd.frame, smpl=fd.smpl, rots=fd.rots, Jtrs=fd.Jtrs,
-            rots_full=fd.rots_full, Jtrs_posed=fd.Jtrs_posed,
-            pose_cond_extra=pose_cond_extra, geo_latent=geo_latent)
-        out = render(params, cfg, inp, training=False)
-        outs = (out['rgb_values'], out['weights_sum'], out['surface_depth'],
-                out['surface_converged'])
-        if size > 1:
-            outs = _gather_chunk(outs, mesh)
-        else:
-            outs = [o.float().cpu().numpy() for o in outs[:3]] + \
-                [outs[3].cpu().numpy()]
-        k = j - i
-        rgb[i:j], weights[i:j], depth[i:j], conv[i:j] = (o[:k] for o in outs)
+        with trace.span('eval.chunk'):
+            j = min(i + chunk, n)
+            pad = chunk - (j - i)
+            with trace.span('eval.pad'):
+                rd = np.pad(rays[i:j], ((0, pad), (0, 0)), mode='edge')[own]
+                nr = np.pad(bounds[i:j, 0], (0, pad), mode='edge')[own]
+                fr = np.pad(bounds[i:j, 1], (0, pad), mode='edge')[own]
+            inp = RenderInputs(
+                cam_loc=cam_loc, ray_dirs=_to_device(rd, dev),
+                near=_to_device(nr, dev), far=_to_device(fr, dev),
+                frame=fd.frame, smpl=fd.smpl, rots=fd.rots, Jtrs=fd.Jtrs,
+                rots_full=fd.rots_full, Jtrs_posed=fd.Jtrs_posed,
+                pose_cond_extra=pose_cond_extra, geo_latent=geo_latent)
+            out = render(params, cfg, inp, training=False)
+            outs = (out['rgb_values'], out['weights_sum'],
+                    out['surface_depth'], out['surface_converged'])
+            if size > 1:
+                outs = _gather_chunk(outs, mesh)
+            else:
+                outs = [_to_host(o.float()).numpy() for o in outs[:3]] + \
+                    [_to_host(outs[3]).numpy()]
+            k = j - i
+            rgb[i:j], weights[i:j], depth[i:j], conv[i:j] = (
+                o[:k] for o in outs)
     return rgb, weights, depth, conv
 
 

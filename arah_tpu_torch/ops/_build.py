@@ -11,9 +11,8 @@ no fallback: a missing `nvcc`, a failed build or a failed load raises.
 tens of radians, softplus100 and the hierarchical softmax need exact
 expf/log1pf, and the solvers converge at 1e-5.
 
-Each kernel wrapper adds one to `COUNTS[name]` per launch and nowhere
-else, so a run can show that its path went through the kernels; a
-launch of an option's variant counts under the variant's name.
+The kernels' launch counts (`COUNTS`, `reset_counts`) are kept with the
+port's other instrumentation in `utils/trace.py`.
 """
 from __future__ import annotations
 
@@ -32,23 +31,9 @@ CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC']
 
-COUNTS = {'knn': 0, 'corr': 0, 'shade': 0, 'color_fwd': 0, 'march': 0,
-          'iso': 0, 'skin_jac': 0, 'shade_bwd': 0, 'color_bwd': 0,
-          'siren': 0, 'knn_rows': 0, 'corr_rows': 0,
-          # the launches of the kernel variants that options select, each
-          # counted under its own name only (C and H with bf16 residents;
-          # B with want_jac and at a precision other than f32)
-          'shade_resid': 0, 'shade_bwd_resid': 0, 'corr_jac': 0,
-          'corr_split3': 0, 'corr_bf16': 0, 'corr_jac_split3': 0,
-          'corr_jac_bf16': 0}
 BUILD_SECONDS = None     # wall time of this process's build, None if cached
 
 _LIB = None
-
-
-def reset_counts():
-    for k in COUNTS:
-        COUNTS[k] = 0
 
 
 def _sources():

@@ -21,6 +21,7 @@ import torch
 
 from arah_tpu_torch.nn.layers import mm_t
 from arah_tpu_torch.ops import _build
+from arah_tpu_torch.utils import trace
 
 # under bf16 the pose gradient rounds the column sum of delta over each
 # group of BWD_TILE points (as the Pallas kernel rounds each grid tile's;
@@ -299,7 +300,7 @@ def color_fwd_launch(params, meta, wbf, pose_t, small, feats):
         params.data_ptr(), None if wbf is None else wbf.data_ptr(), meta,
         rgb.data_ptr(), pose_sum.data_ptr(), _build.stream_ptr(small)),
         'color_fwd')
-    _build.COUNTS['color_fwd'] += 1
+    trace.COUNTS['color_fwd'] += 1
     return rgb
 
 
@@ -366,7 +367,7 @@ def color_bwd_rows(weights, biases, small, feats, pose, g_rgb, skips: tuple,
         dsmall.data_ptr(), dfeats.data_ptr(),
         partial.data_ptr(), nblocks, size, grads.data_ptr(), ws.data_ptr(),
         _build.stream_ptr(small)), 'color_bwd')
-    _build.COUNTS['color_bwd'] += 1
+    trace.COUNTS['color_bwd'] += 1
     dW, off = [], 0
     for w in weights:
         dW.append(grads[off:off + w.numel()].reshape(w.shape))

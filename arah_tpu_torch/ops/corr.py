@@ -35,6 +35,7 @@ from arah_tpu_torch.ops.march import (TracePack, check_pass,
                                       pass_widths, put_skin_padded)
 from arah_tpu_torch.solver.root_find import (CanonicalFrame,
                                              search_canonical_corr)
+from arah_tpu_torch.utils import trace
 
 # (cluster size, widest layer) of csrc/corr_rows.cu's launch shapes
 SHAPES = ((1, 128), (2, 128), (1, 256))
@@ -94,11 +95,13 @@ def corr_search_plain(x_bar, x0, T0_16, mask, skin_weights, skin_biases,
                       bones16, coord_min, coord_max, center,
                       max_steps: int = 50, cvg_thresh: float = 1e-5,
                       softmax_scale: float = 20.0, precision: str = 'f32',
-                      want_jac: bool = False):
+                      want_jac: bool = False, iters=None):
     """Plain version of kernel B; returns (x_hat (N, 3), T16 (N, 16),
     valid (N,), active (N,)) and, with `want_jac`, jac (N, 3, 3): the
     exact d fwd_skin / d x_hat at x_hat (the best iterate, x0 for a masked
-    point), [i, k] = d xb_i / d x_k (`ops/skin_jac.py`)."""
+    point), [i, k] = d xb_i / d x_k (`ops/skin_jac.py`). Writes each
+    point's Broyden iteration count into `iters` ((N,) int32) when
+    given."""
     n = x_bar.shape[0]
     frame = CanonicalFrame(bones16.reshape(24, 4, 4),
                            torch.zeros(3, device=x_bar.device),
@@ -107,6 +110,8 @@ def corr_search_plain(x_bar, x0, T0_16, mask, skin_weights, skin_biases,
         dense_skin_fn(skin_weights, skin_biases, softmax_scale, precision),
         frame, x_bar, x0, T0_16.reshape(n, 4, 4), max_steps=max_steps,
         cvg_thresh=cvg_thresh, active_init=mask)
+    if iters is not None:
+        iters.copy_(res.iters)
     out = (res.x_hat, res.T_fwd.reshape(n, 16), res.valid & mask,
            res.active)
     if want_jac:
@@ -229,8 +234,8 @@ def launch_corr(count: str, x_bar, x0, T0_16, mask, packed: TracePack,
         None if iters is None else iters.data_ptr(),
         None if jac is None else jac.data_ptr(),
         _build.stream_ptr(x_bar)), count)
-    _build.COUNTS[count + ('_jac' if want_jac else '')
-                  + ('' if prec == 0 else '_' + pack_precision(packed))] += 1
+    trace.COUNTS[count + ('_jac' if want_jac else '')
+                 + ('' if prec == 0 else '_' + pack_precision(packed))] += 1
     return (x_hat, T16, valid, active) + ((jac,) if want_jac else ())
 
 
@@ -238,22 +243,23 @@ def corr_search(x_bar, x0, T0_16, mask, skin_weights, skin_biases, bones16,
                 coord_min, coord_max, center, max_steps: int = 50,
                 cvg_thresh: float = 1e-5, softmax_scale: float = 20.0,
                 precision: str = 'f32', want_jac: bool = False,
-                packed: TracePack | None = None):
+                packed: TracePack | None = None, iters=None):
     """Kernel B. x_bar/x0 (N, 3) metric canonical targets and inits;
     T0_16 (N, 16) initial blended transforms; mask (N,) bool; dense (out,
     in) skinning weights and (out,) biases; bones16 (24, 16); coord_min/
     coord_max () and center (3,); `packed`: the skinning MLP's
     `pack_corr` at `precision`, or a `pack_trace` that holds it (the
     tracer's, f32), made once where the kernel runs often (packed here
-    when not given). Returns (x_hat, T16, valid, active) and, with
-    `want_jac`, jac (N, 3, 3) (see `corr_search_plain`)."""
+    when not given); `iters`: an (N,) int32 buffer for each point's
+    Broyden iteration count, or None. Returns (x_hat, T16, valid, active)
+    and, with `want_jac`, jac (N, 3, 3) (see `corr_search_plain`)."""
     if precision not in PRECISIONS:
         raise ValueError(f'corr kernel: unknown precision {precision!r}')
     if not x_bar.is_cuda:
         return corr_search_plain(x_bar, x0, T0_16, mask, skin_weights,
                                  skin_biases, bones16, coord_min, coord_max,
                                  center, max_steps, cvg_thresh,
-                                 softmax_scale, precision, want_jac)
+                                 softmax_scale, precision, want_jac, iters)
     if packed is None:
         packed = pack_corr(skin_weights, skin_biases, precision)
     if pack_precision(packed) != precision:
@@ -262,4 +268,5 @@ def corr_search(x_bar, x0, T0_16, mask, skin_weights, skin_biases, bones16,
                          f'{precision!r}')
     return launch_corr('corr', x_bar, x0, T0_16, mask, packed, bones16,
                        coord_min, coord_max, center, max_steps, cvg_thresh,
-                       softmax_scale, want_active=True, want_jac=want_jac)
+                       softmax_scale, want_active=True, iters=iters,
+                       want_jac=want_jac)

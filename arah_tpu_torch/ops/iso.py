@@ -22,6 +22,7 @@ from arah_tpu_torch.ops.march import (TracePack, frame_vec, kernel_affine,
                                       launch_shape, pack_trace)
 from arah_tpu_torch.solver.broyden import broyden
 from arah_tpu_torch.solver.root_find import CanonicalFrame
+from arah_tpu_torch.utils import trace
 
 
 def iso_residual(cam, dirs, skin_weights, skin_biases, frame: CanonicalFrame,
@@ -86,7 +87,7 @@ def launch_iso(cam, dirs, u0, T0_16, J_inv0_16, mask, frame: CanonicalFrame,
         valid.data_ptr(), active.data_ptr(),
         0 if iters is None else iters.data_ptr(),
         _build.stream_ptr(dirs)), 'iso')
-    _build.COUNTS['iso'] += 1
+    trace.COUNTS['iso'] += 1
     return u, T16, valid, active
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from arah_tpu_torch.ops import _build
+from arah_tpu_torch.utils import trace
 
 # (threads, points a thread, vertex groups a CTA, cluster size) of
 # csrc/knn.cu's launch shapes, in the order of its dispatch.
@@ -72,7 +73,7 @@ def launch_knn(points: torch.Tensor, verts: torch.Tensor, shape: int,
     _build.check(_build.load().arah_knn(
         points.data_ptr(), n, verts.data_ptr(), v, int(shape),
         out.data_ptr(), _build.stream_ptr(points)), counter)
-    _build.COUNTS[counter] += 1
+    trace.COUNTS[counter] += 1
     return out
 
 

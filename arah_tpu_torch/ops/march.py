@@ -24,6 +24,7 @@ from arah_tpu_torch.core.linalg import inv3x3
 from arah_tpu_torch.nn.siren import GeneratedMLP, siren_apply
 from arah_tpu_torch.ops import _build
 from arah_tpu_torch.solver.root_find import CanonicalFrame
+from arah_tpu_torch.utils import trace
 
 
 def kernel_affine(frame: CanonicalFrame):
@@ -276,7 +277,7 @@ def launch_march(cam, dirs, near, far, verts, skin_weights,
         x_norm.data_ptr(), T16.data_ptr(),
         0 if iters is None else iters.data_ptr(),
         _build.stream_ptr(dirs)), 'march')
-    _build.COUNTS['march'] += 1
+    trace.COUNTS['march'] += 1
     return t, unf, div, x_norm, T16, counters
 
 

@@ -17,6 +17,7 @@ import torch
 
 from arah_tpu_torch.nn.siren import GeneratedMLP
 from arah_tpu_torch.ops import _build
+from arah_tpu_torch.utils import trace
 
 
 def pack_shade(gen: GeneratedMLP, bf16: bool, resid_bf16: bool = False):
@@ -125,5 +126,5 @@ def siren_shade(gen: GeneratedMLP, x: torch.Tensor, bf16: bool = False,
                                 int(feat_f32), grad.data_ptr(),
                                 _build.stream_ptr(x)),
                  'shade')
-    _build.COUNTS['shade_resid' if resid_bf16 else 'shade'] += 1
+    trace.COUNTS['shade_resid' if resid_bf16 else 'shade'] += 1
     return sdf, feat, grad

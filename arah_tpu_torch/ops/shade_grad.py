@@ -23,6 +23,7 @@ from arah_tpu_torch.nn.siren import GeneratedMLP
 from arah_tpu_torch.ops import _build
 from arah_tpu_torch.ops.shade import (_rounder, pack_shade,
                                       pack_shade_bf16, siren_shade)
+from arah_tpu_torch.utils import trace
 
 
 def shade_bwd_plain(gen: GeneratedMLP, x, g_out, g_feat, g_n,
@@ -144,7 +145,7 @@ def shade_bwd(gen: GeneratedMLP, x, g_out, g_feat, g_n, bf16: bool = False,
         g_feat.data_ptr(), g_n.data_ptr(), dx.data_ptr(), partial.data_ptr(),
         nblocks, gmeta, size, grads.data_ptr(), ws.data_ptr(),
         _build.stream_ptr(x)), 'shade_bwd')
-    _build.COUNTS['shade_bwd_resid' if resid_bf16 else 'shade_bwd'] += 1
+    trace.COUNTS['shade_bwd_resid' if resid_bf16 else 'shade_bwd'] += 1
 
     def take(i, shp):
         end = offs[i + 1] if i + 1 < len(offs) else size

@@ -20,6 +20,7 @@ import torch
 from arah_tpu_torch.nn.siren import GeneratedMLP, siren_apply
 from arah_tpu_torch.ops import _build
 from arah_tpu_torch.ops.march import check_pass, pack_siren
+from arah_tpu_torch.utils import trace
 
 # (cluster size, widest layer) of csrc/siren.cu's launch shapes
 SHAPES = ((1, 256), (2, 256))
@@ -59,7 +60,7 @@ def launch_siren(x: torch.Tensor, packed, out_dim: int,
     _build.check(lib.arah_siren(x.data_ptr(), n, params.data_ptr(), meta,
                                 out_dim, int(shape), out.data_ptr(),
                                 _build.stream_ptr(x)), 'siren')
-    _build.COUNTS['siren'] += 1
+    trace.COUNTS['siren'] += 1
     return out
 
 

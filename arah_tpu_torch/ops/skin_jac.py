@@ -18,6 +18,7 @@ from arah_tpu_torch.ops import _build
 from arah_tpu_torch.ops.corr import dense_skin_fn
 from arah_tpu_torch.ops.march import frame_vec, kernel_affine, put_skin_padded
 from arah_tpu_torch.solver.root_find import CanonicalFrame
+from arah_tpu_torch.utils import trace
 
 
 @torch.no_grad()
@@ -76,5 +77,5 @@ def skinning_jac(x_hat, skin_weights, skin_biases, frame: CanonicalFrame,
         x_hat.data_ptr(), n, bones16.data_ptr(), fvec.data_ptr(),
         params.data_ptr(), meta, float(softmax_scale), jac.data_ptr(),
         _build.stream_ptr(x_hat)), 'skin_jac')
-    _build.COUNTS['skin_jac'] += 1
+    trace.COUNTS['skin_jac'] += 1
     return jac

@@ -46,6 +46,7 @@ from arah_tpu_torch.solver.root_find import (CanonicalFrame,
                                              iso_init_inv_jacobian,
                                              search_canonical_corr,
                                              search_iso_surface_depth)
+from arah_tpu_torch.utils import trace
 
 
 class RayTracerConfig(NamedTuple):
@@ -120,8 +121,10 @@ def _split_write_back(base: torch.Tensor, idx: torch.Tensor,
 
 
 def _resolve_idx(active: torch.Tensor, cap: int) -> torch.Tensor:
-    """Indices of the first `cap` active rows (the phase-2 batch)."""
-    return torch.nonzero(active).flatten()[:cap]
+    """Indices of the first `cap` active rows (the phase-2 batch): the
+    host waits for the device's count (`tracer.sync.resolve`)."""
+    with trace.sync('tracer.sync.resolve'):
+        return torch.nonzero(active).flatten()[:cap]
 
 
 def _nn_backward_map(points_world, smpl: SmplRef, frame: CanonicalFrame):
@@ -207,18 +210,22 @@ def _march_split(cfg: RayTracerConfig, sdf_fn: Callable,
     rays then resume from their depth with the remaining budget."""
     p1 = cfg.march_phase1_steps
     if p1 <= 0 or p1 >= cfg.sphere_tracing_iters:
-        return _march(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near, far,
-                      sdf_gen, packed)
-    c1 = _march(cfg._replace(sphere_tracing_iters=p1), sdf_fn, frame, smpl,
-                cam_loc, ray_dirs, near, far, sdf_gen, packed)
+        with trace.span('tracer.march.p1'):
+            return _march(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near,
+                          far, sdf_gen, packed)
+    with trace.span('tracer.march.p1'):
+        c1 = _march(cfg._replace(sphere_tracing_iters=p1), sdf_fn, frame,
+                    smpl, cam_loc, ray_dirs, near, far, sdf_gen, packed)
     idx = _resolve_idx(c1.unfinished, cfg.march_resolve_cap)
     if idx.numel() == 0:
         return c1
-    c2 = _march(cfg._replace(sphere_tracing_iters=cfg.sphere_tracing_iters
-                             - p1), sdf_fn, frame, smpl, cam_loc[idx],
-                ray_dirs[idx], c1.t[idx], far[idx], sdf_gen, packed)
-    return MarchCarry(*(_split_write_back(a, idx, b)
-                        for a, b in zip(c1, c2)))
+    with trace.span('tracer.march.p2'):
+        c2 = _march(cfg._replace(sphere_tracing_iters=cfg.sphere_tracing_iters
+                                 - p1), sdf_fn, frame, smpl, cam_loc[idx],
+                    ray_dirs[idx], c1.t[idx], far[idx], sdf_gen, packed)
+    with trace.span('tracer.march.write_back'):
+        return MarchCarry(*(_split_write_back(a, idx, b)
+                            for a, b in zip(c1, c2)))
 
 
 def trace_pack(cfg: RayTracerConfig, sdf_gen=None, skin_dense=None):
@@ -265,8 +272,9 @@ def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
     def _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd, max_steps):
         if use_iso:
             n = ray_dirs.shape[0]
-            J_inv0 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, ray_dirs,
-                                           x_hat)
+            with trace.span('tracer.iso.init'):
+                J_inv0 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame,
+                                               ray_dirs, x_hat)
             u0 = torch.cat([x_hat, z0[:, None]], dim=-1)
             wts, bs, softmax_scale = skin_dense
             u, T16, ok, act = iso_refine(
@@ -288,18 +296,24 @@ def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
     def _iso(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd):
         p1 = cfg.iso_phase1_steps
         if p1 <= 0 or p1 >= cfg.iso_max_steps:
-            return _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd,
-                              cfg.iso_max_steps)
-        r1 = _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd, p1)
+            with trace.span('tracer.iso.p1'):
+                return _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd,
+                                  cfg.iso_max_steps)
+        with trace.span('tracer.iso.p1'):
+            r1 = _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd, p1)
         idx = _resolve_idx(r1.active, cfg.iso_resolve_cap)
         if idx.numel() == 0:
             return r1._replace(active=torch.zeros_like(r1.active))
-        r2 = _iso_solve(cam_loc[idx], ray_dirs[idx],
-                        torch.ones_like(idx, dtype=torch.bool), x_hat[idx],
-                        z0[idx], T_fwd[idx], cfg.iso_max_steps)
-        return IsoSurfaceResult(
-            *(_split_write_back(a, idx, b) for a, b in zip(r1[:4], r2[:4])),
-            active=torch.zeros_like(r1.active))
+        with trace.span('tracer.iso.p2'):
+            r2 = _iso_solve(cam_loc[idx], ray_dirs[idx],
+                            torch.ones_like(idx, dtype=torch.bool),
+                            x_hat[idx], z0[idx], T_fwd[idx],
+                            cfg.iso_max_steps)
+        with trace.span('tracer.iso.write_back'):
+            return IsoSurfaceResult(
+                *(_split_write_back(a, idx, b)
+                  for a, b in zip(r1[:4], r2[:4])),
+                active=torch.zeros_like(r1.active))
 
     n = ray_dirs.shape[0]
     c = _march_split(cfg, sdf_fn, frame, smpl, cam_loc, ray_dirs, near, far,
@@ -384,12 +398,14 @@ def sample_z_vals(cfg: RayTracerConfig, body_mask, surface_depth, near, far,
 def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,
                 frame: CanonicalFrame, skin_dense, x_bar, x0, T0, mask,
                 max_steps: int | None = None, packed=None,
-                want_jac: bool = False):
+                want_jac: bool = False, phase: str = 'p1'):
     """Flat canonical-correspondence solve: kernel B when
     `use_pallas_corr` (`packed`: the trace's `corr_pack`), the dense
     plain Broyden otherwise. Returns (x_hat (N, 3), T_fwd (N, 4, 4), valid
     (N,), active (N,), jac): jac (N, 3, 3) from B's own launch under
-    `want_jac`, None from the plain Broyden (as JAX's XLA solve)."""
+    `want_jac`, None from the plain Broyden (as JAX's XLA solve). While a
+    profiler records, the solve's evaluations count under `phase`
+    (`utils/trace.py:count_corr`)."""
     n = x_bar.shape[0]
     if max_steps is None:
         max_steps = cfg.corr_max_steps
@@ -401,6 +417,7 @@ def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,
                     'skips or cond inputs); set use_pallas_corr=False')
         else:
             wts, bs, softmax_scale = skin_dense
+            iters = trace.corr_iters(n, x_bar.device)
             out = corr_search(
                 x_bar, x0, T0.reshape(n, 16).contiguous(), mask, wts, bs,
                 frame.bone_transforms.reshape(24, 16).contiguous(),
@@ -408,13 +425,15 @@ def _corr_solve(cfg: RayTracerConfig, skin_fn: Callable,
                 max_steps=max_steps, cvg_thresh=cfg.root_finding_threshold,
                 softmax_scale=softmax_scale,
                 precision=cfg.pallas_precision, want_jac=want_jac,
-                packed=packed)
+                packed=packed, iters=iters)
+            trace.count_corr(phase, mask, iters)
             return (out[0], out[1].reshape(n, 4, 4), out[2] & mask, out[3],
                     out[4] if want_jac else None)
     res = search_canonical_corr(skin_fn, frame, x_bar, x0, T0,
                                 max_steps=max_steps,
                                 cvg_thresh=cfg.root_finding_threshold,
                                 active_init=mask)
+    trace.count_corr(phase, mask, res.iters if trace.recording() else None)
     return res.x_hat, res.T_fwd, res.valid & mask, res.active, None
 
 
@@ -429,21 +448,26 @@ def _corr_solve_split(cfg: RayTracerConfig, skin_fn: Callable,
     the cap keep their phase-1 result."""
     p1 = cfg.corr_phase1_steps
     if p1 <= 0 or p1 >= cfg.corr_max_steps:
-        return _corr_solve(cfg, skin_fn, frame, skin_dense, x_bar, x0, T0,
-                           mask, packed=packed, want_jac=want_jac)
-    x1, T1, v1, act, J1 = _corr_solve(cfg, skin_fn, frame, skin_dense,
-                                      x_bar, x0, T0, mask, max_steps=p1,
-                                      packed=packed, want_jac=want_jac)
+        with trace.span('tracer.corr.p1'):
+            return _corr_solve(cfg, skin_fn, frame, skin_dense, x_bar, x0,
+                               T0, mask, packed=packed, want_jac=want_jac)
+    with trace.span('tracer.corr.p1'):
+        x1, T1, v1, act, J1 = _corr_solve(cfg, skin_fn, frame, skin_dense,
+                                          x_bar, x0, T0, mask, max_steps=p1,
+                                          packed=packed, want_jac=want_jac)
     idx = _resolve_idx(act, cfg.corr_resolve_cap)
     if idx.numel() == 0:
         return x1, T1, v1, torch.zeros_like(act), J1
-    x2, T2, v2, _, J2 = _corr_solve(
-        cfg, skin_fn, frame, skin_dense, x_bar[idx], x0[idx], T0[idx],
-        torch.ones_like(idx, dtype=torch.bool), packed=packed,
-        want_jac=want_jac)
-    return (_split_write_back(x1, idx, x2), _split_write_back(T1, idx, T2),
-            _split_write_back(v1, idx, v2), torch.zeros_like(act),
-            None if J1 is None else _split_write_back(J1, idx, J2))
+    with trace.span('tracer.corr.p2'):
+        x2, T2, v2, _, J2 = _corr_solve(
+            cfg, skin_fn, frame, skin_dense, x_bar[idx], x0[idx], T0[idx],
+            torch.ones_like(idx, dtype=torch.bool), packed=packed,
+            want_jac=want_jac, phase='p2')
+    with trace.span('tracer.corr.write_back'):
+        return (_split_write_back(x1, idx, x2),
+                _split_write_back(T1, idx, T2),
+                _split_write_back(v1, idx, v2), torch.zeros_like(act),
+                None if J1 is None else _split_write_back(J1, idx, J2))
 
 
 def corr_init(cfg: RayTracerConfig, frame: CanonicalFrame, smpl: SmplRef,
@@ -452,12 +476,16 @@ def corr_init(cfg: RayTracerConfig, frame: CanonicalFrame, smpl: SmplRef,
     `use_pallas_knn`, else `fused_nn_idx`): (x_bar (N, 3) target without
     translation, x0 (N, 3) init, T0 (N, 4, 4) init transform) of world
     points (N, 3)."""
-    idx = _knn(cfg, pts_world, smpl.verts_posed).long()
-    T0 = torch.einsum('nj,jab->nab', smpl.skinning_weights[idx],
-                      frame.bone_transforms)
-    x_bar = pts_world - frame.trans
-    x0 = apply_transform(inv_affine(T0), x_bar)
-    return x_bar.contiguous(), x0.contiguous(), T0
+    with trace.span('tracer.corr.init'):
+        idx = _knn(cfg, pts_world, smpl.verts_posed).long()
+        T0 = torch.einsum('nj,jab->nab', smpl.skinning_weights[idx],
+                          frame.bone_transforms)
+        x_bar = pts_world - frame.trans
+        # inv_affine's constant row is a blocking host-to-device copy
+        with trace.sync('tracer.sync.inv_affine'):
+            T0_inv = inv_affine(T0)
+        x0 = apply_transform(T0_inv, x_bar)
+        return x_bar.contiguous(), x0.contiguous(), T0
 
 
 def _warm_start_inits(cfg: RayTracerConfig, z_vals, x_hat_c, T_c, valid_c,
@@ -577,16 +605,20 @@ def trace_and_sample(cfg: RayTracerConfig, sdf_fn: Callable,
     and B share one parameter pack (`trace_pack`), built once here; B
     reads its own (`corr_pack`) at a `pallas_precision` other than f32.
     `want_jac`: the samples carry kernel B's Jacobians (`jac`)."""
-    packed = trace_pack(cfg, sdf_gen, skin_dense)
-    surf = sphere_trace(cfg, sdf_fn, skin_fn, frame, smpl, cam_loc,
-                        ray_dirs, near, far, eval_mode=eval_mode,
-                        sdf_gen=sdf_gen, skin_dense=skin_dense,
-                        packed=packed)
-    z_vals, sample_mask = sample_z_vals(cfg, ~surf.unconverged,
-                                        surf.start_dis, near, far, eval_mode,
-                                        jitter)
-    out = canonicalize_samples(
-        cfg, skin_fn, frame, smpl, cam_loc, ray_dirs, z_vals, sample_mask,
-        skin_dense=skin_dense, packed=corr_pack(cfg, skin_dense, packed),
-        want_jac=want_jac)
-    return TraceOutput(surf, SamplerResult(z_vals, sample_mask, *out))
+    with trace.span('tracer.trace'):
+        with trace.span('tracer.pack'):
+            packed = trace_pack(cfg, sdf_gen, skin_dense)
+            cpack = corr_pack(cfg, skin_dense, packed)
+        surf = sphere_trace(cfg, sdf_fn, skin_fn, frame, smpl, cam_loc,
+                            ray_dirs, near, far, eval_mode=eval_mode,
+                            sdf_gen=sdf_gen, skin_dense=skin_dense,
+                            packed=packed)
+        with trace.span('tracer.sample'):
+            z_vals, sample_mask = sample_z_vals(
+                cfg, ~surf.unconverged, surf.start_dis, near, far,
+                eval_mode, jitter)
+        out = canonicalize_samples(
+            cfg, skin_fn, frame, smpl, cam_loc, ray_dirs, z_vals,
+            sample_mask, skin_dense=skin_dense, packed=cpack,
+            want_jac=want_jac)
+        return TraceOutput(surf, SamplerResult(z_vals, sample_mask, *out))

@@ -48,6 +48,7 @@ from arah_tpu_torch.render.ray_tracing import (CanonicalFrame,
                                                trace_and_sample)
 from arah_tpu_torch.render.volsdf import composite_masked, volsdf_density
 from arah_tpu_torch.solver.root_find import forward_skinning
+from arah_tpu_torch.utils import trace
 
 
 class ModelConfig(NamedTuple):
@@ -260,7 +261,9 @@ def shade_samples(params, cfg: ModelConfig, gen: GeneratedMLP,
     vd = view_dirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
     vd_orig = view_dirs_orig[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
     if cfg.cano_view_dirs:
-        R_bwd = inv_affine(flat_T)[:, :3, :3].detach()
+        # inv_affine's constant row is a blocking host-to-device copy
+        with trace.sync('renderer.sync.inv_affine'):
+            R_bwd = inv_affine(flat_T)[:, :3, :3].detach()
         in_vd = torch.einsum('nab,nb->na', R_bwd, -vd)
         in_vd_orig = torch.einsum('nab,nb->na', R_bwd, -vd_orig)
     else:
@@ -289,7 +292,8 @@ def shade_samples(params, cfg: ModelConfig, gen: GeneratedMLP,
 
     if training and cfg.train_skinning_net:
         flat_p = _idiff_correct(params, cfg, frame, flat_p, jac)
-    sdf_norm, feats, normal = _shade_sdf(cfg, gen, flat_p, training)
+    with trace.span('renderer.shade'):
+        sdf_norm, feats, normal = _shade_sdf(cfg, gen, flat_p, training)
     if not cfg.cano_view_dirs:
         normal = torch.einsum('nab,nb->na', flat_T[:, :3, :3], normal)
     if training and ray_augm:
@@ -298,18 +302,20 @@ def shade_samples(params, cfg: ModelConfig, gen: GeneratedMLP,
         nv = torch.sum(normal_n * in_vd, dim=-1)
         invalid = torch.arccos(torch.clamp(nv, -1.0, 1.0)) >= math.pi / 2.0
         in_vd = torch.where(invalid[:, None], in_vd_orig, in_vd)
-    rgb = color_apply(params['color'], cfg.color, flat_p, normal, in_vd,
-                      feats, pose_feature, bf16=cfg.bf16_shading)
-    density = volsdf_density(
-        sdf_to_metric(sdf_norm, frame.coord_min, frame.coord_max),
-        deviation_value(params['deviation']))
-    if cfg.shade_pack:
-        rgb = _unpack(rgb, pack_idx, N)
-        density = _unpack(density, pack_idx, N)
-    out = composite_masked(rgb.reshape(n_rays, S, 3),
-                           density.reshape(n_rays, S), z_vals,
-                           converge_mask, cfg.tracer.n_steps,
-                           render_last_pt=cfg.render_last_pt)
+    with trace.span('renderer.color'):
+        rgb = color_apply(params['color'], cfg.color, flat_p, normal, in_vd,
+                          feats, pose_feature, bf16=cfg.bf16_shading)
+    with trace.span('renderer.composite'):
+        density = volsdf_density(
+            sdf_to_metric(sdf_norm, frame.coord_min, frame.coord_max),
+            deviation_value(params['deviation']))
+        if cfg.shade_pack:
+            rgb = _unpack(rgb, pack_idx, N)
+            density = _unpack(density, pack_idx, N)
+        out = composite_masked(rgb.reshape(n_rays, S, 3),
+                               density.reshape(n_rays, S), z_vals,
+                               converge_mask, cfg.tracer.n_steps,
+                               render_last_pt=cfg.render_last_pt)
     return out.rgb, out.weights_sum, aux
 
 
@@ -320,12 +326,13 @@ def render(params, cfg: ModelConfig, inp: RenderInputs, key=None,
     is unused: training takes its draws as data, the sample jitter
     (u1, u2, u3 of `ray_tracing.jitter_shapes`) and `inp.points_eik`."""
     if not training:
-        with torch.no_grad():
+        with torch.no_grad(), trace.span('renderer.render'):
             return _render(params, cfg, inp, False, None)
     if jitter is None or inp.points_eik is None:
         raise ValueError('render(training=True) takes its draws: jitter '
                          'and inp.points_eik')
-    return _render(params, cfg, inp, True, jitter)
+    with trace.span('renderer.render'):
+        return _render(params, cfg, inp, True, jitter)
 
 
 def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
@@ -333,12 +340,14 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
     rots = inp.rots
     if training and inp.rots_noise is not None:
         rots = rots + inp.rots_noise
-    gen = generate_sdf(params, cfg, rots, inp.Jtrs, inp.geo_latent)
+    with trace.span('renderer.generate'):
+        gen = generate_sdf(params, cfg, rots, inp.Jtrs, inp.geo_latent)
     with torch.no_grad():
         gen_ng = _detached(gen)
         skin_dense = None
         if cfg.tracer.use_pallas_corr or cfg.tracer.use_pallas_iso:
-            sd = skinning_dense_params(params['skinning'], cfg.skinning)
+            with trace.span('renderer.skin_dense'):
+                sd = skinning_dense_params(params['skinning'], cfg.skinning)
             if sd is not None:
                 skin_dense = (tuple(w.detach() for w in sd[0]),
                               tuple(b.detach() for b in sd[1]),
@@ -347,14 +356,14 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
                              or cfg.tracer.use_pallas_iso) else None
         want_jac = (training and cfg.train_skinning_net
                     and cfg.idiff_kernel_jac and skin_dense is not None)
-        trace = trace_and_sample(
+        traced = trace_and_sample(
             cfg.tracer, make_sdf_fn(gen_ng, stop_grad=True),
             make_skin_fn(params, cfg),
             inp.frame, inp.smpl, inp.cam_loc.expand(inp.ray_dirs.shape),
             inp.ray_dirs, inp.near, inp.far, eval_mode=not training,
             skin_dense=skin_dense, sdf_gen=sdf_gen, jitter=jitter,
             want_jac=want_jac)
-    samples = trace.samples
+    samples = traced.samples
 
     ray_dirs, ray_augm = inp.ray_dirs, False
     if training and inp.view_noise is not None:
@@ -366,7 +375,9 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
     pose_cond = dict(inp.pose_cond_extra)
     pose_cond.update({'rots_full': inp.rots_full,
                       'Jtrs_posed': inp.Jtrs_posed})
-    pose_feature = color_pose_feature(params['color'], cfg.color, pose_cond)
+    with trace.span('renderer.pose_feature'):
+        pose_feature = color_pose_feature(params['color'], cfg.color,
+                                          pose_cond)
     rgb_values, weights_sum, shade_aux = shade_samples(
         params, cfg, gen, inp.frame, samples.points_norm, samples.z_vals,
         samples.transforms, samples.converge_mask, ray_dirs, inp.ray_dirs,
@@ -380,9 +391,9 @@ def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
         'n_samples_dense': n_dense,
         'n_samples_shaded': shade_aux['n_samples_shaded'],
         'n_samples_overflow': shade_aux['n_samples_overflow'],
-        'surface_depth': trace.surface.start_dis,
-        'surface_converged': ~trace.surface.unconverged,
-        'surface_points_norm': trace.surface.points_norm,
+        'surface_depth': traced.surface.start_dis,
+        'surface_converged': ~traced.surface.unconverged,
+        'surface_points_norm': traced.surface.points_norm,
         'sdf_params': hypernet_flat_params(gen),
         'deviation': deviation_value(params['deviation']),
     }

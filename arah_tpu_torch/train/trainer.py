@@ -4,7 +4,8 @@ frame sampler with background prefetching (`data/loader.py`), the train
 step (`parallel/train_step.py`), resume from `out_dir/checkpoints` (job
 chaining), `exit_after` timed exit, periodic validation with the best
 step in `BEST.json`, TSV/stdout metrics, and a `torch.profiler` trace of
-steps 8-10 under `profile_dir`.
+steps 8-10 under `profile_dir`, with the port's spans (`utils/trace.py`)
+and beside it the counts they took (`counters.json`).
 
 In a process group of several ranks (`parallel/distributed.py`) the run
 is data parallel, as JAX's over its mesh: each rank takes its shard of
@@ -42,6 +43,7 @@ from arah_tpu_torch.parallel.train_step import (TrainState, make_train_step,
                                                 trainable)
 from arah_tpu_torch.train import checkpoints as ckpt_lib
 from arah_tpu_torch.train.optim import make_optimizer
+from arah_tpu_torch.utils import trace
 
 VAL_MAX_FRAMES = 4      # frames of each periodic validation
 
@@ -247,6 +249,11 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
                     prof.export_chrome_trace(os.path.join(
                         profile_dir, 'trace.json' if is_main
                         else f'trace_rank{rank}.json'))
+                    with open(os.path.join(
+                            profile_dir, 'counters.json' if is_main
+                            else f'counters_rank{rank}.json'), 'w') as f:
+                        json.dump(trace.take_counts(), f, indent=1,
+                                  sort_keys=True)
                     prof = None
                 if exit_after is not None:
                     # every rank must take rank 0's decision, or a lone
@@ -266,6 +273,8 @@ def train(cfg: dict, model_cfg, loss_w, optim_cfg, dataset, params,
         if val_logger is not None and done % validate_every_n_epochs == 0:
             run_validation(done, state)
     if prof is not None:
+        # the run ended inside the profiled steps: no trace, no counts
         prof.__exit__(None, None, None)
+        trace.take_counts()
     save(done)
     return state, stop

@@ -1174,7 +1174,6 @@ def check_corr(cfg, frame, fd, pts, flat_mask, wts, bs, card):
     the tile design (`utils/bench_corr.py:tile_waste`). Its record: both
     phases' times, each bound from the kernel's own evaluations."""
     import torch
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.ops.corr import (corr_search, corr_search_plain,
                                          dense_skin_fn, launch_corr,
                                          launch_shape, pack_corr)
@@ -1182,6 +1181,7 @@ def check_corr(cfg, frame, fd, pts, flat_mask, wts, bs, card):
     from arah_tpu_torch.solver.root_find import (CanonicalFrame,
                                                  search_canonical_corr)
     from arah_tpu_torch.utils.bench_corr import tile_waste
+    from arah_tpu_torch.utils import trace
     n_pts, dev, scale = pts.shape[0], pts.device, cfg.skinning.softmax_scale
     with torch.no_grad():
         x_bar, x0, T0 = corr_init(cfg.tracer, frame, fd.smpl, pts)
@@ -1277,11 +1277,11 @@ def check_corr(cfg, frame, fd, pts, flat_mask, wts, bs, card):
     # corr_resolve_cap of them at corr_max_steps and writes them back;
     # the kernel side must launch twice.
     tr1 = cfg.tracer._replace(corr_phase1_steps=1)
-    c0 = _build.COUNTS['corr']
+    c0 = trace.COUNTS['corr']
     with torch.no_grad():
         xk2, _, vk2, _, _ = _corr_solve_split(
             tr1, skin_fn, frame, (wts, bs, scale), x_bar, x0, T0, flat_mask)
-        n_k = _build.COUNTS['corr'] - c0
+        n_k = trace.COUNTS['corr'] - c0
         xp2, _, vp2, _, _ = _corr_solve_split(
             tr1._replace(use_pallas_corr=False), skin_fn, frame, None,
             x_bar, x0, T0, flat_mask)
@@ -1310,9 +1310,9 @@ def check_corr(cfg, frame, fd, pts, flat_mask, wts, bs, card):
         wide_w.append(wp)
         wide_b.append(bp)
     wkargs = (*args2, wide_w, wide_b, bones16, *box)
-    c0 = _build.COUNTS['corr']
+    c0 = trace.COUNTS['corr']
     kw = corr_search(*wkargs, max_steps=p2_steps)
-    n_w = _build.COUNTS['corr'] - c0
+    n_w = trace.COUNTS['corr'] - c0
     same = all(torch.equal(a, b_) for a, b_ in zip(kw, k2))
     wpack = pack_corr(wide_w, wide_b)
     sh_w = launch_shape(sel.numel(), 256)
@@ -1832,9 +1832,9 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
     import numpy as np
     import torch
     from arah_tpu_torch.data.synthetic import synthetic_smpl
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.render.renderer import render
     from arah_tpu_torch.scene import N_VERTS, scene_frame, scene_inputs
+    from arah_tpu_torch.utils import trace
 
     dev = inp.ray_dirs.device
     model = synthetic_smpl(n_verts=N_VERTS)
@@ -1845,12 +1845,12 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
     render(params, cfg, frames[0])              # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _build.reset_counts()
+    trace.reset_counts()
     t0 = time.perf_counter()
     outs = [render(params, cfg, f) for f in frames]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(_build.COUNTS)
+    launches = dict(trace.COUNTS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for i, o in enumerate(outs):
         rgb = o['rgb_values']
@@ -2005,7 +2005,7 @@ def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
     counted corr bench)."""
     import numpy as np
     import torch
-    from arah_tpu_torch.ops import _build, fused
+    from arah_tpu_torch.ops import fused
     from arah_tpu_torch.ops.corr import (corr_search, dense_skin_fn,
                                          launch_corr, pack_corr)
     from arah_tpu_torch.ops.corr_rows import (corr_search_rows,
@@ -2018,6 +2018,7 @@ def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
     from arah_tpu_torch.render.renderer import (make_sdf_fn, make_skin_fn,
                                                 render)
     from arah_tpu_torch.utils import bench_corr
+    from arah_tpu_torch.utils import trace
 
     # ---- the inputs J, K and L meet on frame 0 (flagship kernels)
     inp, frame, smpl = frames[0], fd.frame, fd.smpl
@@ -2139,12 +2140,12 @@ def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
         render(params, cfg_ab, frames[0])          # warm-up, not counted
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _build.reset_counts()
+        trace.reset_counts()
         t0 = time.perf_counter()
         outs = [render(params, cfg_ab, f) for f in frames]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(_build.COUNTS)
+        launches = dict(trace.COUNTS)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ms = wall / len(frames) * 1e3
         profile_frame(lambda: render(params, cfg_ab, frames[0]), ms, card,
@@ -2191,9 +2192,9 @@ def run_ab(cfg, params, fd, frames, flagship_out, card, gen, skin_dense,
     # ---- L on its path: the corr-variant bench, counted
     no_tf32()
     n_b, dev = BENCH_POINTS, inp.ray_dirs.device
-    _build.reset_counts()
+    trace.reset_counts()
     bench = bench_corr.main(['--n', str(n_b), '--iters', '3'], device=dev)
-    launches['corr_rows'] = _build.COUNTS['corr_rows']
+    launches['corr_rows'] = trace.COUNTS['corr_rows']
     check(sorted(bench) == ['chunked', 'dense', 'pallas', 'pallas_t_f32'],
           f'bench_corr ran {sorted(bench)}')
     skin_b, fb, xb, xi, T0b, mb, wb, bb = bench_corr.make_problem(n_b, dev)
@@ -2787,9 +2788,9 @@ def run_train(cfg, params, fd, card, no_tf32):
     import numpy as np
     import torch
     from arah_tpu_torch.data.batch import draw_train_draws
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.parallel.train_step import trainable
     from arah_tpu_torch.scene import build_train_setup
+    from arah_tpu_torch.utils import trace
 
     dev = fd.verts_cano.device
     s = build_train_setup(cfg, RAYS, scene=(params, fd))
@@ -2843,13 +2844,13 @@ def run_train(cfg, params, fd, card, no_tf32):
     times = []
     for i in range(1 + STEPS):
         if i == 0:
-            _build.reset_counts()
+            trace.reset_counts()
         t0 = time.perf_counter()
         state, losses = s.step(state, s.batch, draws[1 + i])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            launches = dict(_build.COUNTS)
+            launches = dict(trace.COUNTS)
         check(bool(torch.isfinite(losses['loss'])),
               f'train step {i}: loss not finite')
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2883,25 +2884,25 @@ def run_step(cfg, p0, batch, loss_w, draws, no_tf32, step_kw=None):
     (path: the step changed the leaf), 'labels' (path: its optimizer
     group)}."""
     import torch
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.parallel.train_step import (TrainState,
                                                     make_train_step,
                                                     trainable)
     from arah_tpu_torch.train.optim import (OptimConfig, make_optimizer,
                                             tree_leaves_with_path)
+    from arah_tpu_torch.utils import trace
     no_tf32()
     p = trainable(p0)
     opt, labels = make_optimizer(OptimConfig(train_skinning_net=True), p)
     step = make_train_step(cfg, loss_w, opt, **(step_kw or {}))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _build.reset_counts()
+    trace.reset_counts()
     t0 = time.perf_counter()
     _, losses = step(TrainState(p, opt, 0), batch, draws)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = dict(_build.COUNTS)
+    launches = dict(trace.COUNTS)
     leaves = dict(tree_leaves_with_path(p))
     moved = {k: bool((v.detach() != v0).any()) for (k, v), (_, v0) in
              zip(leaves.items(), tree_leaves_with_path(p0))}
@@ -3004,9 +3005,9 @@ def run_refined(cfg, params, fd, card, no_tf32, train_launches):
     import numpy as np
     import torch
     from arah_tpu_torch.data.batch import draw_train_draws
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.parallel.train_step import trainable
     from arah_tpu_torch.scene import PATCH, build_train_setup
+    from arah_tpu_torch.utils import trace
 
     dev = fd.verts_cano.device
     s = build_train_setup(cfg, RAYS, scene=(params, fd), refined=True)
@@ -3056,13 +3057,13 @@ def run_refined(cfg, params, fd, card, no_tf32, train_launches):
     times = []
     for i in range(1 + STEPS):
         if i == 0:
-            _build.reset_counts()
+            trace.reset_counts()
         t0 = time.perf_counter()
         state, losses = s.step(state, s.batch, draws[1 + i])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            launches = dict(_build.COUNTS)
+            launches = dict(trace.COUNTS)
         check(bool(torch.isfinite(losses['loss'])),
               f'refined step {i}: loss not finite')
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3386,6 +3387,7 @@ def run_options(cfg, params, fd, card, no_tf32):
     from arah_tpu_torch.render.renderer import (_detached, generate_sdf,
                                                 make_skin_fn, render)
     from arah_tpu_torch.scene import build_train_setup, scene_inputs
+    from arah_tpu_torch.utils import trace
 
     dev = fd.verts_cano.device
     records, launches = {}, {}
@@ -3650,11 +3652,11 @@ def run_options(cfg, params, fd, card, no_tf32):
                 + ('132' if prec == 'split3' else '144'))
         cfg_x = cfg._replace(tracer=cfg.tracer._replace(
             pallas_precision=prec, root_finding_threshold=cvg))
-        _build.reset_counts()
+        trace.reset_counts()
         with torch.no_grad():
             out_x = render(params, cfg_x, inp)
         torch.cuda.synchronize()
-        launches[f'corr_{prec}'] = _build.COUNTS[f'corr_{prec}']
+        launches[f'corr_{prec}'] = trace.COUNTS[f'corr_{prec}']
         print(f'  eval frame at pallas_precision={prec} (cvg {cvg:g}): B '
               f'launches {launches[f"corr_{prec}"]}, valid samples '
               f'{int(out_x["n_samples_valid"])} (f32 frame '
@@ -3677,11 +3679,11 @@ def run_options(cfg, params, fd, card, no_tf32):
 
     # ---- single_bvp: the bench pose's generated SIREN, FiLM folded in
     params_b = dict(params, sdf_plain=fold_film(_detached(gen)))
-    _build.reset_counts()
+    trace.reset_counts()
     with torch.no_grad():
         out_b = render(params_b, cfg, inp)
     torch.cuda.synchronize()
-    lb = dict(_build.COUNTS)
+    lb = dict(trace.COUNTS)
     print(f'single_bvp eval frame: launches {lb}', flush=True)
     check(all(lb[k] > 0 for k in ('knn', 'corr', 'shade', 'color_fwd',
                                   'march', 'iso')),
@@ -3931,9 +3933,9 @@ def run_clis(card, no_tf32, scene, tmp):
                                               model_config_from_cfg)
     from arah_tpu_torch.data.fake_dataset import make_fake_zju_dataset
     from arah_tpu_torch.eval.evaluator import evaluate_frame
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.parallel.train_step import TrainState
     from arah_tpu_torch.train import checkpoints as ckpt_lib
+    from arah_tpu_torch.utils import trace
 
     repo = os.path.dirname(os.path.abspath(__file__))
     base = os.path.join(repo, 'configs', 'fake', 'FAKE-ZJU-flagship.yaml')
@@ -3998,11 +4000,11 @@ def run_clis(card, no_tf32, scene, tmp):
 
     # ---- cli.validate --novel-view, counted
     no_tf32()
-    _build.reset_counts()
+    trace.reset_counts()
     with count_plain() as plain:
         run_cli(cli_validate.main, [cfg_path, '--novel-view'])
     torch.cuda.synchronize()
-    vl = dict(_build.COUNTS)
+    vl = dict(trace.COUNTS)
     with open(os.path.join(out, 'val', 'metrics.json')) as f:
         mean = json.load(f)['mean']
     print(f'cli.validate --novel-view: {mean}; launches '
@@ -4275,10 +4277,10 @@ def run_cli_test(card, no_tf32, cli):
                                               model_config_from_cfg)
     from arah_tpu_torch.data.loader import frame_from_item
     from arah_tpu_torch.data.odp import ODPDataset
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.parallel.train_step import TrainState
     from arah_tpu_torch.train import checkpoints as ckpt_lib
     from arah_tpu_torch.utils.meshing import CHUNK
+    from arah_tpu_torch.utils import trace
 
     cfg_path = cli['cfg']
     cfg = load_config(cfg_path, default_config_path())
@@ -4290,13 +4292,13 @@ def run_cli_test(card, no_tf32, cli):
     no_tf32()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _build.reset_counts()
+    trace.reset_counts()
     t0 = time.perf_counter()
     with count_plain() as plain:
         text = run_cli(cli_test.main, argv)
     torch.cuda.synchronize()
     test_s = time.perf_counter() - t0
-    launches = dict(_build.COUNTS)
+    launches = dict(trace.COUNTS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     parts = read_parts(text)
     n = len(parts.get('render', []))
@@ -4417,19 +4419,19 @@ def cli_train_counted(tag, card, no_tf32, cfg_path):
     import torch
     from arah_tpu_torch.cli import train as cli_train
     from arah_tpu_torch.config.loader import default_config_path, load_config
-    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.utils import trace
     training = load_config(cfg_path, default_config_path())['training']
     out = training['out_dir']
     no_tf32()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _build.reset_counts()
+    trace.reset_counts()
     t0 = time.perf_counter()
     with count_plain() as plain, time_steps() as step_s:
         run_cli(cli_train.main, [cfg_path])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = dict(_build.COUNTS)
+    launches = dict(trace.COUNTS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'{tag}: cli.train ({training["max_epochs"]} epochs) '
           f'{train_s:.2f} s, launches '
@@ -4492,8 +4494,8 @@ def run_cli_h36m(card, no_tf32, tmp, pre):
         get_dataset, smpl_refine_params_from_dataset)
     from arah_tpu_torch.config.loader import default_config_path, load_config
     from arah_tpu_torch.data.fake_dataset import make_fake_h36m_dataset
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.train import checkpoints as ckpt_lib
+    from arah_tpu_torch.utils import trace
 
     repo = os.path.dirname(os.path.abspath(__file__))
     base = os.path.join(repo, 'configs', 'arah-h36m', 'H36M_S9.yaml')
@@ -4524,11 +4526,11 @@ def run_cli_h36m(card, no_tf32, tmp, pre):
     check(all(moved.values()), f'H36M cli.train: SMPL leaves still {moved}')
 
     no_tf32()
-    _build.reset_counts()
+    trace.reset_counts()
     with count_plain() as plain:
         run_cli(cli_validate.main, [cfg_path, '--novel-view'])
     torch.cuda.synchronize()
-    vl = dict(_build.COUNTS)
+    vl = dict(trace.COUNTS)
     with open(os.path.join(out, 'val', 'metrics.json')) as f:
         mean = json.load(f)['mean']
     print(f'H36M cli.validate --novel-view: {mean}; launches '
@@ -4665,6 +4667,7 @@ def rank_main(argv):
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.utils import trace
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not os.path.exists(_build.library_path()):
@@ -4674,14 +4677,14 @@ def rank_main(argv):
     if kind == 'cli':
         import importlib
         module, cli_argv = argv[1], argv[2:]
-        _build.reset_counts()
+        trace.reset_counts()
         try:
             with count_plain() as plain:
                 importlib.import_module(module).main(cli_argv)
         finally:
             torch.cuda.synchronize()
             print('rank launches ' + json.dumps(
-                {k: _build.COUNTS.get(k, 0)
+                {k: trace.COUNTS.get(k, 0)
                  for k in TRAIN_KERNELS + ('siren',)}))
             print('rank plain calls ' + json.dumps(plain), flush=True)
         return
@@ -4715,7 +4718,6 @@ def rank_step(case, out, mesh):
     'losses', 'ms', 'allreduce_ms', 'peak', 'digest', 'grads' (rank 0,
     the first step's)}."""
     import torch
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.parallel.mesh import local_blocks
     from arah_tpu_torch.parallel.train_step import (TrainState,
                                                     allreduce_mean,
@@ -4725,6 +4727,7 @@ def rank_step(case, out, mesh):
     from arah_tpu_torch.scene import flagship_config
     from arah_tpu_torch.train.optim import (OptimConfig, make_optimizer,
                                             tree_leaves_with_path)
+    from arah_tpu_torch.utils import trace
     p = trainable(case['params'])
     opt, _ = make_optimizer(OptimConfig(train_skinning_net=True), p)
     step = make_train_step(flagship_config(), case['loss_w'], opt, mesh=mesh)
@@ -4736,14 +4739,14 @@ def rank_step(case, out, mesh):
     for i, draws in enumerate(case['draws']):
         draws = local_blocks(draws, mesh.rank, mesh.size)
         if i == 0:
-            _build.reset_counts()
+            trace.reset_counts()
         t0 = time.perf_counter()
         with count_plain() as plain:
             state, losses = step(state, batch, draws)
         torch.cuda.synchronize()
         res['ms'].append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            res['launches'] = {k: _build.COUNTS[k] for k in TRAIN_KERNELS}
+            res['launches'] = {k: trace.COUNTS[k] for k in TRAIN_KERNELS}
             res['plain'] = dict(plain)
             res['losses'] = {k: float(v) for k, v in losses.items()}
             if mesh.rank == 0:
@@ -4773,16 +4776,16 @@ def rank_eval(case, out, mesh):
     import torch
     from arah_tpu_torch.eval.evaluator import (pick_eval_chunk,
                                                render_frame_rays)
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.scene import flagship_config
+    from arah_tpu_torch.utils import trace
     cfg, item = flagship_config(), case['item']
     args = (case['params'], cfg, case['fd'])
-    _build.reset_counts()
+    trace.reset_counts()
     with count_plain() as plain:
         full = render_frame_rays(*args, item, case['latent'], mesh=mesh)
     torch.cuda.synchronize()
     res = {'full': full, 'plain': dict(plain),
-           'launches': {k: _build.COUNTS[k] for k in CLI_KERNELS_EVAL}}
+           'launches': {k: trace.COUNTS[k] for k in CLI_KERNELS_EVAL}}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     render_frame_rays(*args, item, case['latent'], mesh=mesh)
@@ -5105,7 +5108,6 @@ def run_parity(card, no_tf32, tmp):
                                                   make_fake_raw_zju)
     from arah_tpu_torch.data.odp import ODPDataset
     from arah_tpu_torch.eval.evaluator import evaluate_frame, save_image
-    from arah_tpu_torch.ops import _build
     from arah_tpu_torch.parallel.train_step import TrainState
     from arah_tpu_torch.preprocess import (extract_smpl_parameters,
                                            preprocess_aist,
@@ -5113,6 +5115,7 @@ def run_parity(card, no_tf32, tmp):
                                            preprocess_zju_mocap)
     from arah_tpu_torch.train import checkpoints as ckpt_lib
     from arah_tpu_torch.train.optim import tree_leaves_with_path
+    from arah_tpu_torch.utils import trace
 
     t_phase = time.perf_counter()
     root = os.path.join(tmp, 'parity')
@@ -5254,14 +5257,14 @@ def run_parity(card, no_tf32, tmp):
     # ---- cli.validate from the converted checkpoint, counted
     no_tf32()
     torch.cuda.synchronize()
-    _build.reset_counts()
+    trace.reset_counts()
     t0 = time.perf_counter()
     with count_plain() as plain:
         text = run_cli(cli_validate.main, [cfg_path, '--novel-view',
                                            '--device', 'cuda'])
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t0
-    vl = {k: _build.COUNTS[k] for k in CLI_KERNELS_EVAL}
+    vl = {k: trace.COUNTS[k] for k in CLI_KERNELS_EVAL}
     frame_s = [float(x) for x in re.findall(r'\] .* \(([\d.]+) s\)', text)]
     check('loaded checkpoint step 0' in text,
           'cli.validate did not restore the converted checkpoint')
