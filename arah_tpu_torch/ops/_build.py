@@ -169,6 +169,9 @@ def load():
     lib.arah_corr_shape.argtypes = [_I, _I, _P]
     lib.arah_siren_shape.argtypes = [_I, _I, _P]
     lib.arah_skin_jac.argtypes = [_P, _I, _P, _P, _P, NetMeta, _F, _P, _P]
+    lib.arah_iso_init.argtypes = [_P, _P, _I, _P, _P, _P, NetMeta, _F, _I,
+                                  _P, _P]
+    lib.arah_iso_init_shape.argtypes = [_I, _I, NetMeta, _P]
     lib.arah_shade_bwd.argtypes = [_P, _I, _P, _P, ShadeMeta, _P, _P, _P,
                                    _P, _P, _I, ShadeMeta, ctypes.c_longlong,
                                    _P, _P, _P]
@@ -195,7 +198,8 @@ def load():
                lib.arah_knn_shape, lib.arah_siren, lib.arah_shade_bwd_blocks,
                lib.arah_color_bwd_blocks, lib.arah_march_shape,
                lib.arah_iso_shape, lib.arah_corr_shape,
-               lib.arah_siren_shape):
+               lib.arah_siren_shape, lib.arah_iso_init,
+               lib.arah_iso_init_shape):
         fn.restype = _I
     _LIB = lib
     return lib

@@ -7,10 +7,12 @@ with dense fixed-shape blocks and convergence masks carried as data.
 Kernels on this path (`ops/`): the fused march (kernel E, when
 `use_pallas_march` and the renderer hands over the generated SIREN), the
 iso refinement (kernel F, when `use_pallas_iso` with the generated SIREN
-and the collapsed skinning MLP), the corr init's nearest-vertex query
-(kernel A, when `use_pallas_knn`) and the corr Broyden (kernel B). With a
-kernel's flag off its plain loop runs (`_march_plain`, the counterpart of
-`_march_xla`; `search_iso_surface_depth`); with the flag on, a CUDA
+and the collapsed skinning MLP, started from the inverse init Jacobian
+that `ops/iso_init.py` computes in one launch a solve), the corr init's
+nearest-vertex query (kernel A, when `use_pallas_knn`) and the corr
+Broyden (kernel B). With a kernel's flag off its plain loop runs
+(`_march_plain`, the counterpart of `_march_xla`;
+`search_iso_surface_depth`); with the flag on, a CUDA
 tensor and no network to hand the kernel, the dispatch raises. Every
 other nearest-vertex query (the plain march's, and the corr init's with
 `use_pallas_knn` off) is `ops/fused.py:fused_nn_idx`, and the plain loops
@@ -39,11 +41,11 @@ from arah_tpu_torch.core.rays import stratified_z_vals
 from arah_tpu_torch.ops.corr import corr_search, pack_corr
 from arah_tpu_torch.ops.fused import fused_nn_idx
 from arah_tpu_torch.ops.iso import iso_refine
+from arah_tpu_torch.ops.iso_init import iso_init
 from arah_tpu_torch.ops.knn import nn_idx
 from arah_tpu_torch.ops.march import pack_trace, sphere_march
 from arah_tpu_torch.solver.root_find import (CanonicalFrame,
                                              IsoSurfaceResult,
-                                             iso_init_inv_jacobian,
                                              search_canonical_corr,
                                              search_iso_surface_depth)
 from arah_tpu_torch.utils import trace
@@ -260,9 +262,9 @@ def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
                  skin_dense=None, packed=None) -> SphereTraceResult:
     """KNN-skinning sphere tracing + joint root-finding refinement.
     cam_loc: (N, 3) per-ray origins; ray_dirs (N, 3); near/far (N,);
-    sdf_gen: the generated SIREN (kernels E and F); skin_dense: the
-    collapsed skinning MLP (wts, bs, softmax_scale) (kernel F); packed:
-    the trace's `trace_pack` (built here when not given)."""
+    sdf_gen: the generated SIREN (kernels E, F and F's init); skin_dense:
+    the collapsed skinning MLP (wts, bs, softmax_scale) (F and its init);
+    packed: the trace's `trace_pack` (built here when not given)."""
     thresh = cfg.root_finding_threshold
     use_iso = cfg.use_pallas_iso and sdf_gen is not None \
         and skin_dense is not None
@@ -272,16 +274,19 @@ def sphere_trace(cfg: RayTracerConfig, sdf_fn: Callable, skin_fn: Callable,
     def _iso_solve(cam_loc, ray_dirs, valid, x_hat, z0, T_fwd, max_steps):
         if use_iso:
             n = ray_dirs.shape[0]
-            with trace.span('tracer.iso.init'):
-                J_inv0 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame,
-                                               ray_dirs, x_hat)
-            u0 = torch.cat([x_hat, z0[:, None]], dim=-1)
             wts, bs, softmax_scale = skin_dense
+            ray_dirs = ray_dirs.contiguous()
+            with trace.span('tracer.iso.init'):
+                J_inv0 = iso_init(x_hat.contiguous(), ray_dirs, wts, bs,
+                                  frame, sdf_gen, softmax_scale,
+                                  packed=packed)
+            trace.count('iso.init')
+            u0 = torch.cat([x_hat, z0[:, None]], dim=-1)
             u, T16, ok, act = iso_refine(
-                cam_loc.contiguous(), ray_dirs.contiguous(), u0,
-                T_fwd.reshape(n, 16).contiguous(),
-                J_inv0.reshape(n, 16).contiguous(), valid.contiguous(), wts,
-                bs, frame, sdf_gen, max_steps=max_steps, cvg_thresh=thresh,
+                cam_loc.contiguous(), ray_dirs, u0,
+                T_fwd.reshape(n, 16).contiguous(), J_inv0,
+                valid.contiguous(), wts, bs, frame, sdf_gen,
+                max_steps=max_steps, cvg_thresh=thresh,
                 softmax_scale=softmax_scale, packed=packed)
             return IsoSurfaceResult(u[:, :3], u[:, 3], T16.reshape(n, 4, 4),
                                     ok, act)

@@ -22,10 +22,11 @@ iteration buffer (`corr_iters`) and adds each solve's evaluations, one
 at init and one an iteration of each unmasked point, to an int64
 accumulator on the device, by phase (`count_corr`: `corr.p1`,
 `corr.p2`, and phase 1's unmasked points `corr.p1.points`), with the
-rows and launches of B (`corr.rows`, `corr.launches`) on the host.
-`take_counts()` reads every work and sync count with one sync and zeroes
-them. With no session no buffer or accumulator exists and B is launched
-as it would be without this module.
+rows and launches of B (`corr.rows`, `corr.launches`) on the host; and
+it counts the iso init's calls, one a solve of kernel F, on the host
+(`iso.init`, `count`). `take_counts()` reads every work and sync count
+with one sync and zeroes them. With no session no buffer or accumulator
+exists and B is launched as it would be without this module.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import torch
 
 COUNTS = {'knn': 0, 'corr': 0, 'shade': 0, 'color_fwd': 0, 'march': 0,
           'iso': 0, 'skin_jac': 0, 'shade_bwd': 0, 'color_bwd': 0,
-          'siren': 0, 'knn_rows': 0, 'corr_rows': 0,
+          'siren': 0, 'knn_rows': 0, 'corr_rows': 0, 'iso_init': 0,
           # the launches of the kernel variants that options select, each
           # counted under its own name only (C and H with bf16 residents;
           # B with want_jac and at a precision other than f32)
@@ -71,6 +72,12 @@ def sync(name: str):
         _HOST[name] = _HOST.get(name, 0) + 1
         return torch.profiler.record_function('arah.' + name)
     return _NULL
+
+
+def count(name: str):
+    """Add one to the host count `name` while a session records."""
+    if recording():
+        _HOST[name] = _HOST.get(name, 0) + 1
 
 
 def corr_iters(n: int, device):

@@ -6,9 +6,9 @@
 1. Builds the CUDA kernels from `arah_tpu_torch/csrc/` (first use, into
    `.cache/torch_ext/`) and prints the build time and each kernel's
    registers, spills and shared memory as ptxas reports them (the kernels
-   on `csrc/stream_mlp.cuh`, E, F, B/L and J, and A/K's nearest-vertex
-   body, one symbol a launch shape, must all be there and none may
-   spill).
+   on `csrc/stream_mlp.cuh`, E, F, B/L and J, A/K's nearest-vertex
+   body and the iso init, one symbol a launch shape, must all be there
+   and none may spill).
 2. Builds the flagship bench scene (`scene.build_scene(pretrain=True)`:
    SIREN and skinning net fitted to the capsule body) and prints the
    fit's time and its loss at a fresh batch against the random init's.
@@ -16,7 +16,11 @@
    the shapes of the flagship eval (8192 rays; 8192 x 64 = 524,288
    points), and times both: E march and F iso at their phase-1 shapes
    (8192 rays, 16 iterations) and phase-2 shapes (the stragglers: E
-   resumed for 34 iterations, F from scratch at 50 steps); A knn (its
+   resumed for 34 iterations, F from scratch at 50 steps), the iso init
+   (F's J_inv0, one launch a solve) beside F and on its own at the eval's
+   phase-1 chunks of 16,384 and 32,768 rays and at phase 2, held row by
+   row by condition number, bit-equal at every launch shape, and F from
+   its J_inv0 held to F's floors (`check_iso_init`); A knn (its
    indices equal to the plain version's at every point; every launch
    shape of A/K's body, each with the plain version's indices, timed at
    524,288 points and strided subsets of them down to 256; the tie case
@@ -245,7 +249,7 @@ BENCH_POINTS = 262144   # the corr-variant bench (L's path)
 FAILURES = []
 # the kernels of the flagship train step (A-I); J, K and L run elsewhere
 TRAIN_KERNELS = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso',
-                 'skin_jac', 'shade_bwd', 'color_bwd')
+                 'skin_jac', 'shade_bwd', 'color_bwd', 'iso_init')
 # J against its plain version, absolute: the JAX package's bound for the
 # Pallas SIREN (tests/test_pallas.py:28)
 J_TOL = 1e-5
@@ -712,6 +716,45 @@ def card_line():
         else 'nvidia-smi unavailable'
 
 
+def ptxas_check():
+    """Print each kernel's registers, spills and shared memory as ptxas
+    reported them in the build's log, and fail unless every kernel on
+    csrc/stream_mlp.cuh (E, F, B/L, J), A/K's body and the iso init has one
+    symbol a launch shape and none of them, nor any device function of
+    their sources that was not inlined, spills."""
+    from arah_tpu_torch.ops import _build
+    log = os.path.join(os.path.dirname(_build.library_path()), 'build.log')
+    if not os.path.exists(log):
+        return
+    from arah_tpu_torch.utils import ptxas
+    ptx = ptxas.report(log)
+    for name, r in ptx.items():
+        print(f'  ptxas: {name}: '
+              + (f'{r.get("registers")} registers, ' if r['entry']
+                 else 'not inlined, ')
+              + f'spill stores {r.get("spill_stores")} B, spill loads '
+              f'{r.get("spill_loads")} B, stack {r.get("stack")} B'
+              + (f', smem {r.get("smem", 0)} B' if r['entry'] else ''))
+    from arah_tpu_torch.ops import (corr as ocorr, iso_init as oinit,
+                                    knn as oknn, siren as osiren)
+    # the kernels on csrc/stream_mlp.cuh, A/K's body and the iso init, one
+    # symbol a launch shape
+    for tag, names, want in (
+            ('E/F', ('march_kernel<', 'iso_kernel<'), 4),
+            ('B/L', ('corr_kernel<',),
+             len(ocorr.SHAPES) + len(ocorr.VARIANTS)),
+            ('J', ('siren_kernel<',), len(osiren.SHAPES)),
+            ('A/K', ('knn_kernel<',), len(oknn.SHAPES)),
+            ('iso init', ('iso_init_kernel<',), len(oinit.SHAPES))):
+        # the entries, and every device function of their sources that was
+        # not inlined (any of them may call it)
+        ks, callees = ptxas.group(ptx, names)
+        check(len(ks) == want
+              and not any(map(ptxas.spills, [*ks.values(),
+                                             *callees.values()])),
+              f'kernels {tag} spill or are missing: {ks} {callees}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -744,34 +787,7 @@ def main():
     print(f'kernels: load {build_s:.1f} s (nvcc build '
           f'{"cached" if built is None else f"{built:.1f} s"}) '
           f'-> {_build.library_path()}', flush=True)
-    log = os.path.join(os.path.dirname(_build.library_path()), 'build.log')
-    if os.path.exists(log):
-        from arah_tpu_torch.utils import ptxas
-        ptx = ptxas.report(log)
-        for name, r in ptx.items():
-            print(f'  ptxas: {name}: '
-                  + (f'{r.get("registers")} registers, ' if r['entry']
-                     else 'not inlined, ')
-                  + f'spill stores {r.get("spill_stores")} B, spill loads '
-                  f'{r.get("spill_loads")} B, stack {r.get("stack")} B'
-                  + (f', smem {r.get("smem", 0)} B' if r['entry'] else ''))
-        from arah_tpu_torch.ops import (corr as ocorr, knn as oknn,
-                                        siren as osiren)
-        # the kernels on csrc/stream_mlp.cuh and A/K's body, one symbol a
-        # launch shape
-        for tag, names, want in (
-                ('E/F', ('march_kernel<', 'iso_kernel<'), 4),
-                ('B/L', ('corr_kernel<',),
-                 len(ocorr.SHAPES) + len(ocorr.VARIANTS)),
-                ('J', ('siren_kernel<',), len(osiren.SHAPES)),
-                ('A/K', ('knn_kernel<',), len(oknn.SHAPES))):
-            # the entries, and every device function of their sources
-            # that was not inlined (any of them may call it)
-            ks, callees = ptxas.group(ptx, names)
-            check(len(ks) == want
-                  and not any(map(ptxas.spills, [*ks.values(),
-                                                 *callees.values()])),
-                  f'kernels {tag} spill or are missing: {ks} {callees}')
+    ptxas_check()
 
     from arah_tpu_torch.core.embedder import positional_encoding
     from arah_tpu_torch.nn.layers import wn_weight
@@ -804,6 +820,8 @@ def main():
     no_tf32()
     records['iso'] = check_iso(cfg, make_skin_fn(params, cfg), wts, bs, fd,
                                inp, gen, card)
+    no_tf32()
+    records['iso_init'] = check_iso_init(cfg, params, fd, gen, wts, bs, card)
 
     # ---- main-path inputs of A and B: the samples of one eval frame
     with torch.no_grad():
@@ -1018,7 +1036,8 @@ def main():
                     'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
                     'bound_by': r['bound'][1], 'library_ms': None,
                     **{k: r[k] for k in ('phase2_ms', 'phase2_plain_ms',
-                                         'phase2_bound_ms', 'graph_ms')
+                                         'phase2_bound_ms', 'graph_ms',
+                                         'eager_ms', 'phase2_eager_ms')
                        if k in r},
                     **({'launches_refined_step': refined_launches[name],
                         'launches_cli_train': cli_launches[name],
@@ -1635,6 +1654,7 @@ def check_iso(cfg, skin_fn, wts, bs, fd, inp, gen, card, train=False,
                                         iso_residual, launch_iso)
     from arah_tpu_torch.ops.march import launch_shape, pack_trace
     from arah_tpu_torch.render.ray_tracing import _march_split
+    from arah_tpu_torch.ops.iso_init import iso_init, iso_init_plain
     from arah_tpu_torch.render.renderer import make_sdf_fn
     from arah_tpu_torch.solver.root_find import iso_init_inv_jacobian
     tr = cfg.tracer
@@ -1650,8 +1670,16 @@ def check_iso(cfg, skin_fn, wts, bs, fd, inp, gen, card, train=False,
         x_hat = unnormalize_canonical_points(c.x_norm, frame.coord_min,
                                              frame.coord_max, frame.center)
         J0 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, dirs, x_hat)
+        # the main path's init (the iso init kernel) on the same rays
+        Jk = iso_init(x_hat.contiguous(), dirs.contiguous(), wts, bs, frame,
+                      gen, scale)
+        Jp = iso_init_plain(x_hat, dirs, wts, bs, frame, gen, scale)
+        Jw = init_witness(x_hat, dirs, wts, bs, frame, gen, scale)
     u0 = torch.cat([x_hat, c.t[:, None]], dim=-1).contiguous()
     n_rays = dirs.shape[0]
+    init_compare(f'{tag}init ({n_rays} rays)', Jk, Jp, Jw, card,
+                 (('eager', J0.reshape(n_rays, 16)),))
+    del Jk, Jp, Jw
     T0 = c.T_fwd.reshape(n_rays, 16).contiguous()
     J0 = J0.reshape(n_rays, 16).contiguous()
     mask = torch.ones_like(c.diverged) if train \
@@ -1752,6 +1780,206 @@ def check_iso(cfg, skin_fn, wts, bs, fd, inp, gen, card, train=False,
         print(f'{tag}phase 2: no stragglers after phase 1')
         rec.update(phase2_ms=None, phase2_plain_ms=None,
                    phase2_bound_ms=None)
+    return rec
+
+
+INIT_FACTOR = 10   # the init kernel's distance from the float64 witness,
+                   # in units of its plain version's (`init_compare`)
+INIT_RAYS = (16384, 32768)   # the main path's phase-1 chunks (the eval's)
+
+
+def init_witness(x_hat, dirs, wts, bs, frame, gen, scale):
+    """The iso init's plain version run in float64: `init_compare`'s
+    witness."""
+    from arah_tpu_torch.ops.iso_init import iso_init_plain
+    return iso_init_plain(*f64((x_hat, dirs, wts, bs, frame, gen)), scale)
+
+
+def init_compare(tag, k, p, w, card, others=()):
+    """Hold the init kernel's J_inv0 (k, (N, 16)) against its plain
+    version's (p) by their distance from the plain version run in float64
+    (w, `init_witness`), row by row: e = max |x - w| / max |w|. Float32
+    roundoff in the SIREN's chain, amplified where its gradient cancels and
+    by the condition number of the 4x4 M = inv(w), sets how far any float32
+    init lies from w, and the plain version shows how far on these rays:
+    the kernel must be finite wherever w is, and its median e and its
+    largest e / cond(M) must each be at most INIT_FACTOR times the plain
+    version's. `others` ((name, J_inv0), ...) are printed beside, not held.
+    Returns the kernel's largest e / cond(M)."""
+    import torch
+    fin = torch.isfinite(w).all(-1)
+    wf = w[fin]
+    cond = torch.linalg.cond(torch.linalg.inv(wf.reshape(-1, 4, 4)))
+    stats, msg = {}, []
+    for name, x in (('kernel', k), ('plain', p)) + tuple(others):
+        e = (x[fin].double() - wf).abs().amax(-1) / wf.abs().amax(-1)
+        e = torch.nan_to_num(e, nan=float('inf'))
+        stats[name] = (float(e.median()), float((e / cond).max()))
+        msg.append(f'{name} {stats[name][0]:.3e} / {stats[name][1]:.3e}')
+    (km, kr), (pm, pr) = stats['kernel'], stats['plain']
+    ok = (bool(torch.isfinite(k[fin]).all()) and km <= INIT_FACTOR * pm
+          and kr <= INIT_FACTOR * pr)
+    print(f'  {tag}: {int((~fin).sum())} rows of the witness not finite; '
+          f'cond(M) median {q(cond, 0.5):.1f} p99 {q(cond, 0.99):.1f} max '
+          f'{float(cond.max()):.3e}; distance from the float64 witness, '
+          f'median e / largest e over cond(M): {", ".join(msg)} (bound '
+          f'for the kernel: {INIT_FACTOR}x the plain version) [{card}]',
+          flush=True)
+    check(ok, f'{tag}: the init kernel lies farther from the float64 '
+          'witness than its bound')
+    return kr
+
+
+def check_iso_init(cfg, params, fd, gen, wts, bs, card):
+    """The iso init kernel (ops/iso_init.py) against its plain version at
+    the main path's shapes: phase 1 at 16,384 and 32,768 rays (fresh rays
+    of the bench mix in the frame of `fd`, marched by E with its split as
+    `check_iso` builds them) and phase 2 at the first `iso_resolve_cap`
+    rays still active after F's phase 1 of the 32,768; each held row by row
+    by `init_compare` against the plain version's distance from their
+    float64 witness (the eager forward-mode init it replaces,
+    `solver/root_find.py:iso_init_inv_jacobian`, printed beside), called
+    twice (bit-equal), at every launch
+    shape (the same bits), and timed beside its bound, the plain version
+    and the eager init. Then F from the kernel's J_inv0 against the plain
+    solve from the eager J_inv0, at both phases, by `iso_compare`'s floors.
+    Returns the record (the 32,768-ray phase 1's, phase 2's beside it)."""
+    import numpy as np
+    import torch
+    from arah_tpu_torch.core.body import unnormalize_canonical_points
+    from arah_tpu_torch.ops.iso import iso_refine, iso_refine_plain, \
+        iso_residual
+    from arah_tpu_torch.ops.iso_init import (SHAPES, init_shape, iso_init,
+                                             iso_init_plain, launch_iso_init,
+                                             launch_shape)
+    from arah_tpu_torch.ops.march import pack_trace
+    from arah_tpu_torch.render.ray_tracing import _march_split
+    from arah_tpu_torch.render.renderer import make_sdf_fn, make_skin_fn
+    from arah_tpu_torch.scene import scene_inputs
+    from arah_tpu_torch.solver.root_find import iso_init_inv_jacobian
+    tr = cfg.tracer
+    frame = fd.frame
+    scale = cfg.skinning.softmax_scale
+    sdf_fn, skin_fn = make_sdf_fn(gen), make_skin_fn(params, cfg)
+    packed = pack_trace(gen, wts, bs)
+    H, L = gen.weights[0].shape[0], len(gen.weights)
+    # a ray: the SIREN's hidden products forward and in reverse, the skinning
+    # MLP four times (the primal and three tangents), as multiply-adds
+    macs = 2 * (3 * H + (L - 2) * H * H) + 4 * sum(w.numel() for w in wts)
+    wbytes = 4 * sum(w.numel() + w.shape[0]
+                     for w in list(gen.weights) + list(wts))
+    rng = np.random.RandomState(21)
+    dev = fd.frame.bone_transforms.device
+    rec = {}
+
+    def one(tag, x_hat, dirs):
+        n = dirs.shape[0]
+        with torch.no_grad():
+            k = iso_init(x_hat, dirs, wts, bs, frame, gen, scale,
+                         packed=packed)
+            p = iso_init_plain(x_hat, dirs, wts, bs, frame, gen, scale)
+            e = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, dirs,
+                                      x_hat).reshape(n, 16)
+            w = init_witness(x_hat, dirs, wts, bs, frame, gen, scale)
+        worst = init_compare(tag, k, p, w, card, (('eager', e),))
+        k2 = iso_init(x_hat, dirs, wts, bs, frame, gen, scale,
+                      packed=packed)
+        check(torch.equal(k, k2), f'{tag}: two calls differ')
+        shape = launch_shape(n)
+        for sh in range(len(SHAPES)):
+            d = init_shape(sh, n, packed)
+            ms_sh = timed(lambda: launch_iso_init(x_hat, dirs, frame, packed,
+                                                  scale, sh), REPS)
+            same = torch.equal(launch_iso_init(x_hat, dirs, frame, packed,
+                                               scale, sh), k)
+            taken = ' (taken)' if sh == shape else ''
+            print(f'  {tag} launch shape {sh}{taken}: {d["blocks"]} blocks '
+                  f'of {d["rays"]} rays, {d["smem"]} B dynamic shared '
+                  f'memory, {d["per_sm"]} blocks an SM: {ms_sh:.4f} ms, the '
+                  f'same bits {same} [{card}]', flush=True)
+            check(same, f'{tag}: launch shape {sh} gives other bits')
+        ms = timed(lambda: iso_init(x_hat, dirs, wts, bs, frame, gen, scale,
+                                    packed=packed), REPS)
+        plain_ms = timed(lambda: iso_init_plain(x_hat, dirs, wts, bs, frame,
+                                                gen, scale), REPS)
+        eager_ms = timed(lambda: iso_init_inv_jacobian(
+            sdf_fn, skin_fn, frame, dirs, x_hat), 2)
+        b = bound(n * (12 + 12 + 64) + wbytes, 2.0 * n * macs, PEAK_F32)
+        print(f'  {tag}: two calls bit-equal {torch.equal(k, k2)}; kernel '
+              f'{ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; {2 * macs} flops '
+              f'a ray), plain {plain_ms:.3f} ms, the eager init it replaces '
+              f'{eager_ms:.3f} ms [{card}]', flush=True)
+        return k, dict(max_abs_err=float((k - p).abs().max()), ms=ms,
+                       plain_ms=plain_ms, bound=b, eager_ms=eager_ms,
+                       worst=worst)
+
+    def resid_of(rays):
+        def resid(sel, u):
+            g = iso_residual(rays[0][sel], rays[1][sel], wts, bs, frame, gen,
+                             scale)
+            with torch.no_grad():
+                return torch.linalg.norm(g(u)[0], dim=-1)
+        return resid
+
+    for n_rays in INIT_RAYS:
+        inp = scene_inputs(params, fd, n_rays, rng, dev)
+        dirs = inp.ray_dirs
+        cam = inp.cam_loc.expand(dirs.shape).contiguous()
+        with torch.no_grad():
+            c = _march_split(tr, sdf_fn, frame, fd.smpl, cam, dirs, inp.near,
+                             inp.far, gen)
+            x_hat = unnormalize_canonical_points(
+                c.x_norm, frame.coord_min, frame.coord_max, frame.center)
+        tag = f'iso init phase 1 ({n_rays} rays)'
+        k1, r1 = one(tag, x_hat, dirs)
+        rec = r1
+        # F from the kernel's J_inv0 against the plain solve from the
+        # eager one, as the main path before this kernel ran it
+        with torch.no_grad():
+            e1 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, dirs,
+                                       x_hat).reshape(n_rays, 16)
+        u0 = torch.cat([x_hat, c.t[:, None]], dim=-1).contiguous()
+        T0 = c.T_fwd.reshape(n_rays, 16).contiguous()
+        mask = (~c.diverged).contiguous()
+        p1 = tr.iso_phase1_steps
+
+        def solve(fn, rays, J, steps):
+            return fn(*rays[:4], J, rays[4], wts, bs, frame, gen,
+                      max_steps=steps, cvg_thresh=tr.root_finding_threshold,
+                      softmax_scale=scale)
+        rays1 = (cam, dirs, u0, T0, mask)
+        o1 = solve(iso_refine_plain, rays1, e1, p1)
+        iso_compare(f'F from the init kernel, phase 1 ({n_rays} rays, {p1} '
+                    'steps)', solve(iso_refine, rays1, k1, p1), o1,
+                    resid_of((cam, dirs)))
+        if n_rays != INIT_RAYS[-1]:
+            continue
+        idx = torch.nonzero(o1[3]).flatten()[:tr.iso_resolve_cap]
+        if not idx.numel():
+            print('iso init phase 2: no stragglers after phase 1',
+                  flush=True)
+            rec.update(phase2_ms=None, phase2_plain_ms=None,
+                       phase2_bound_ms=None)
+            continue
+        x2, d2 = x_hat[idx].contiguous(), dirs[idx].contiguous()
+        k2, r2 = one(f'iso init phase 2 ({idx.numel()} stragglers)', x2, d2)
+        rec.update(phase2_ms=r2['ms'], phase2_plain_ms=r2['plain_ms'],
+                   phase2_bound_ms=r2['bound'][0],
+                   phase2_eager_ms=r2['eager_ms'])
+        with torch.no_grad():
+            e2 = iso_init_inv_jacobian(sdf_fn, skin_fn, frame, d2,
+                                       x2).reshape(-1, 16)
+        cam2 = cam[idx].contiguous()
+        rays2 = (cam2, d2, u0[idx].contiguous(), T0[idx].contiguous(),
+                 torch.ones_like(idx, dtype=torch.bool))
+        steps = tr.iso_max_steps
+        iso_compare(f'F from the init kernel, phase 2 ({idx.numel()} rays, '
+                    f'{steps} steps)', solve(iso_refine, rays2, k2, steps),
+                    solve(iso_refine_plain, rays2, e2, steps),
+                    resid_of((cam2, d2)))
+    rec.update(src='arah_tpu_torch/csrc/iso_init.cu',
+               rep='arah_tpu/solver/root_find.py:134 (XLA; no Pallas '
+                   'kernel)')
     return rec
 
 
@@ -1868,7 +2096,8 @@ def run_render(cfg, params, fd, inp, card, gen, no_tf32):
               f'{int(o["n_samples_valid"])}, mean rgb '
               f'{float(rgb.mean()):.4f}, mean weights_sum '
               f'{float(o["weights_sum"].mean()):.4f}')
-    eval_kernels = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso')
+    eval_kernels = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso',
+                    'iso_init')
     check(all(launches[k] > 0 for k in eval_kernels),
           f'a kernel was not launched on the main path: {launches}')
     ms = wall / len(frames) * 1e3
@@ -3722,13 +3951,15 @@ def run_options(cfg, params, fd, card, no_tf32):
 # ---- phase 9: the CLIs on the fake ZJU dataset
 
 CLI_FRAMES = 4          # fixture frames, views 1 and 7, 1024 x 1024
-CLI_KERNELS_EVAL = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso')
+CLI_KERNELS_EVAL = ('knn', 'corr', 'shade', 'color_fwd', 'march', 'iso',
+                    'iso_init')
 # the plain versions of A-I (and the tracer's plain loops): none may run
 # on the card's path
 PLAIN_FNS = ('nn_idx_plain', 'corr_search_plain', 'siren_shade_plain',
              'color_mlp_plain', 'color_mlp_bwd_plain', 'sphere_march_plain',
              'iso_refine_plain', 'skinning_jac_plain', 'shade_bwd_plain',
-             '_march_plain', 'search_iso_surface_depth', 'siren_sdf_plain')
+             '_march_plain', 'search_iso_surface_depth', 'siren_sdf_plain',
+             'iso_init_plain', 'iso_init_inv_jacobian')
 
 
 @contextlib.contextmanager
@@ -5380,6 +5611,43 @@ def phase11_probe():
         sys.exit(1)
 
 
+def iso_init_probe():
+    """`python3 chip_smoke.py --iso-init`: the iso init kernel alone (the
+    kernels' build and ptxas check, the fitted scene, F's check at phase 1
+    and 2 with the init held beside it, then `check_iso_init`); exits
+    non-zero on a failed check. Prints no result lines."""
+    import torch
+    if not torch.cuda.is_available():
+        print('no CUDA device', file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from arah_tpu_torch.nn.skinning import skinning_dense_params
+    from arah_tpu_torch.ops import _build
+    from arah_tpu_torch.render.renderer import generate_sdf, make_skin_fn
+    from arah_tpu_torch.scene import build_scene, flagship_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f'card: {card}', flush=True)
+    t0 = time.perf_counter()
+    _build.load()
+    print(f'kernels loaded in {time.perf_counter() - t0:.1f} s', flush=True)
+    ptxas_check()
+    cfg = flagship_config()
+    params, fd, inp = build_scene(cfg, RAYS, seed=0)
+    gen = generate_sdf(params, cfg, inp.rots, inp.Jtrs, inp.geo_latent)
+    wts, bs = skinning_dense_params(params['skinning'], cfg.skinning)
+    check_iso(cfg, make_skin_fn(params, cfg), wts, bs, fd, inp, gen, card)
+    rec = check_iso_init(cfg, params, fd, gen, wts, bs, card)
+    print(f'iso_init: {rec["ms"]:.4f} ms kernel at 32768 rays, '
+          f'{rec["plain_ms"]:.3f} ms plain, bound {rec["bound"][0]:.4f} ms, '
+          f'the eager init {rec["eager_ms"]:.3f} ms [{card}]', flush=True)
+    print(card)
+    if FAILURES:
+        print(f'{len(FAILURES)} check(s) failed: {FAILURES}', flush=True)
+        sys.exit(1)
+
+
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--rank']:
         rank_main(sys.argv[2:])
@@ -5387,5 +5655,7 @@ if __name__ == '__main__':
         phase11_probe()
     elif sys.argv[1:2] == ['--phase12']:
         phase12_probe()
+    elif sys.argv[1:2] == ['--iso-init']:
+        iso_init_probe()
     else:
         main()

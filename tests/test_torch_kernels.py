@@ -403,6 +403,110 @@ class TestSkinJac:
                                        atol=1e-5)
 
 
+def _init_close(out, ref, tol=1e-5):
+    """An iso init J_inv0 (N, 16) against a reference row by row by the
+    condition number of the reference's 4x4 M = inv(ref) (float64): a
+    relative change d of M's entries moves the inverse by up to about
+    cond(M) d, so each row's max |out - ref| / max |ref| must be at most
+    tol cond(M) (float32 roundoff amplified along the SIREN's chain reads
+    ~1e-6 cond here). Returns that ratio's maximum."""
+    o = np_(out).reshape(-1, 16).astype(np.float64)
+    r = np.asarray(ref, np.float64).reshape(-1, 16)
+    assert np.isfinite(o).all() and np.isfinite(r).all()
+    err = np.abs(o - r).max(-1) / np.abs(r).max(-1)
+    cond = np.linalg.cond(np.linalg.inv(r.reshape(-1, 4, 4)))
+    assert (err <= tol * cond).all(), (err / cond).max()
+    return float((err / cond).max())
+
+
+class TestIsoInit:
+    """The iso init's plain version (`ops/iso_init.py`, which the wrapper
+    computes for CPU tensors) against JAX's forward-mode init
+    (`arah_tpu/solver/root_find.py:iso_init_inv_jacobian`, CPU JAX at
+    highest) and the port's eager one, at the rays' march points of the
+    `small_config` scene, with its networks or at flagship widths (the
+    256 x 5 hypernet SIREN and the 128 x 4 skinning net), FiLM on or off;
+    held row by row by condition number (`_init_close`)."""
+
+    @pytest.mark.parametrize('widths', ['small', 'flagship'])
+    @pytest.mark.parametrize('film', [True, False])
+    def test_plain_vs_jax_and_eager(self, rng, widths, film):
+        from arah_tpu.core.body import unnormalize_canonical_points
+        from arah_tpu.nn.hypernet import (HypernetConfig, hypernet_cond,
+                                          hypernet_generate, init_hypernet)
+        from arah_tpu.nn.skinning import SkinningConfig, init_skinning
+        from arah_tpu.ops.pallas.corr_kernel_t import skinning_dense_params
+        from arah_tpu.render.ray_tracing import RayTracerConfig, _march_xla
+        from arah_tpu.render.renderer import make_sdf_fn, make_skin_fn
+        from arah_tpu.solver.root_find import iso_init_inv_jacobian as jinit
+        from arah_tpu_torch.nn.skinning import SkinningConfig as PSkin
+        from arah_tpu_torch.ops.iso_init import iso_init, iso_init_plain
+        from arah_tpu_torch.render import renderer as prend
+        from arah_tpu_torch.solver.root_find import iso_init_inv_jacobian
+        from test_renderer import small_config
+        from torch_port_util import port_frame
+        cfg = small_config()
+        params, fd, gen, cam, dirs, near, far = _march_scene(rng, cfg)
+        fr = fd.frame
+        c = _march_xla(RayTracerConfig(sphere_tracing_iters=12),
+                       make_sdf_fn(gen), fr, fd.smpl, cam, dirs, near, far)
+        x_hat = unnormalize_canonical_points(c.x_norm, fr.coord_min,
+                                             fr.coord_max, fr.center)
+        hcfg, scfg, skin = cfg.hypernet, cfg.skinning, params['skinning']
+        if widths == 'flagship':
+            hcfg, scfg = HypernetConfig(), SkinningConfig()
+            skin = init_skinning(jax.random.PRNGKey(1), scfg)
+        if widths == 'flagship' or not film:
+            hcfg = hcfg._replace(use_film=film)
+            hp = init_hypernet(jax.random.PRNGKey(2), hcfg)
+            cond = hypernet_cond(
+                hp, hcfg, jnp.asarray(rng.randn(1, 24, 9).astype(np.float32)),
+                jnp.asarray(rng.randn(1, 24, 3).astype(np.float32)))[0]
+            gen = hypernet_generate(hp, hcfg, cond, jnp.asarray(
+                rng.randn(128).astype(np.float32)) if film else None)
+        assert (len(gen.freqs) > 0) == film
+        skin_fn = make_skin_fn({'skinning': skin},
+                               type('C', (), {'skinning': scfg}))
+        ref = jinit(make_sdf_fn(gen), skin_fn, fr, dirs, x_hat)
+        wts, bs = skinning_dense_params(skin, scfg)
+        args = (t(x_hat), t(dirs), [t(w) for w in wts], [t(b) for b in bs],
+                port_frame(fr), port_gen(gen), scfg.softmax_scale)
+        out = iso_init(*args)
+        n = dirs.shape[0]
+        assert tuple(out.shape) == (n, 16)
+        assert torch.equal(out, iso_init_plain(*args))
+        _init_close(out, ref)
+        pskin = {'skinning': jax.tree.map(t, skin)}
+        eager = iso_init_inv_jacobian(
+            prend.make_sdf_fn(args[5]),
+            prend.make_skin_fn(pskin, type('C', (), {
+                'skinning': PSkin(**scfg._asdict())})), args[4], args[1],
+            args[0])
+        _init_close(out, eager.reshape(n, 16))
+
+    def test_shape_check(self, rng):
+        """The kernel's shape check: G's limits on the skinning MLP (3 ->
+        hidden widths of at most 128 -> 25, at most 8 layers) and E's and
+        F's on the SIREN."""
+        from arah_tpu_torch.nn.siren import GeneratedMLP
+        from arah_tpu_torch.ops.iso_init import check_iso_init
+        gen = port_gen(_small_gen(rng, True))
+
+        def mlp(dims):
+            return [torch.zeros((o, i)) for i, o in zip(dims[:-1], dims[1:])]
+        check_iso_init(gen, mlp([3, 128, 128, 128, 25]))
+        check_iso_init(gen, mlp([3, 25]))
+        for dims in ([3, 256, 25], [3, 64, 129, 25], [3, 64, 24],
+                     [4, 64, 25], [3] + [8] * 8 + [25]):
+            with pytest.raises(ValueError, match='skinning MLP'):
+                check_iso_init(gen, mlp(dims))
+        wide = GeneratedMLP(tuple(torch.zeros(s) for s in
+                                  ((260, 3), (260, 260), (1, 260))),
+                            gen.biases, gen.freqs, gen.phases)
+        with pytest.raises(ValueError, match='SIREN'):
+            check_iso_init(wide, mlp([3, 64, 25]))
+
+
 def _small_gen(rng, film):
     from arah_tpu.nn.hypernet import (HypernetConfig, hypernet_cond,
                                       hypernet_generate, init_hypernet)

@@ -166,6 +166,25 @@ def test_corr_counts_are_the_plain_solves(scene):
     assert counts['corr.launches'] == 2
 
 
+def test_iso_init_counts(scene, profiled):
+    """The iso init's counts: the launch count `COUNTS['iso_init']`, which
+    `reset_counts` zeroes and a CPU render (the plain version) leaves at
+    0; and under a session one `iso.init` a solve of kernel F's path, as
+    many as the `tracer.iso.init` spans, read and zeroed by
+    `take_counts()`."""
+    from arah_tpu_torch.utils import trace
+    _, events, counts = profiled
+    spans = [e for e in events if e[0] == 'tracer.iso.init']
+    assert counts['iso.init'] == len(spans) >= N_CHUNKS
+    assert 'iso.init' not in trace.take_counts()
+    trace.COUNTS['iso_init'] += 3
+    trace.reset_counts()
+    assert trace.COUNTS['iso_init'] == 0
+    render(scene)
+    assert trace.COUNTS['iso_init'] == 0
+    assert trace.take_counts() == {}
+
+
 def test_outputs_bit_equal_with_and_without_profiler(scene, profiled):
     out = render(scene)
     assert out[3].any()
@@ -176,8 +195,8 @@ def test_outputs_bit_equal_with_and_without_profiler(scene, profiled):
 def test_profiled_training_writes_counters(tmp_path):
     """`cli.train --profile-dir` on the CPU (the fake fixture's 2 frames,
     6 epochs, so that steps 8-10 run): the trace and, beside it,
-    `counters.json` with kernel B's evaluations of the three steps; no
-    count is left behind."""
+    `counters.json` with kernel B's evaluations of the three steps and
+    the iso init's calls; no count is left behind."""
     from arah_tpu_torch.cli import train
     from arah_tpu_torch.data.fake_dataset import main as fake_main
     from arah_tpu_torch.utils import trace
@@ -195,4 +214,5 @@ def test_profiled_training_writes_counters(tmp_path):
         counts = json.load(f)
     assert counts['corr.p1'] >= counts['corr.p1.points'] > 0
     assert counts['corr.launches'] >= 3
+    assert counts['iso.init'] >= 3
     assert trace.take_counts() == {}
