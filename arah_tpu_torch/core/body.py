@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from arah_tpu_torch.core.linalg import inv_affine
+from arah_tpu_torch.core.linalg import device_const, inv_affine
 
 
 def skinning(x: torch.Tensor, w: torch.Tensor, tfs: torch.Tensor,
@@ -68,8 +68,9 @@ def hierarchical_softmax(x: torch.Tensor) -> torch.Tensor:
 
     for child, parent in ((4, 1), (5, 2), (6, 3), (7, 4), (8, 5), (9, 6),
                           (10, 7), (11, 8)):
-        p[child] = p[parent] * sig(c[child])
-        p[parent] = p[parent] * (1 - sig(c[child]))
+        s = sig(c[child])
+        p[child] = p[parent] * s
+        p[parent] = p[parent] * (1 - s)
 
     spine_gate = sig(c[24])
     spine = sm3(c[12], c[13], c[14])
@@ -78,12 +79,11 @@ def hierarchical_softmax(x: torch.Tensor) -> torch.Tensor:
     p[14] = p[9] * spine_gate * spine[..., 2]
     p[9] = p[9] * (1 - spine_gate)
 
-    p[15] = p[12] * sig(c[15])
-    p[12] = p[12] * (1 - sig(c[15]))
-    for child, parent in ((16, 13), (17, 14), (18, 16), (19, 17),
-                          (20, 18), (21, 19), (22, 20), (23, 21)):
-        p[child] = p[parent] * sig(c[child])
-        p[parent] = p[parent] * (1 - sig(c[child]))
+    for child, parent in ((15, 12), (16, 13), (17, 14), (18, 16),
+                          (19, 17), (20, 18), (21, 19), (22, 20), (23, 21)):
+        s = sig(c[child])
+        p[child] = p[parent] * s
+        p[parent] = p[parent] * (1 - s)
     return torch.stack(p, dim=-1)
 
 
@@ -121,15 +121,16 @@ def get_02v_bone_transforms_jnp(Jtr: torch.Tensor) -> torch.Tensor:
     rest joints (the name keeps the JAX package's, for the reader)."""
     out = torch.eye(4, dtype=Jtr.dtype, device=Jtr.device).repeat(24, 1, 1)
     for chain, deg in (([1, 4, 7, 10], 45.0), ([2, 5, 8, 11], -45.0)):
-        rot = torch.as_tensor(rotation_z(deg), dtype=Jtr.dtype,
-                              device=Jtr.device)
+        rot = device_const(tuple(map(tuple, rotation_z(deg).tolist())),
+                           Jtr.dtype, Jtr.device)
         ts = []
         for i, j_idx in enumerate(chain):
             t = Jtr[j_idx]
             if i > 0:
                 t = rot @ (t - Jtr[chain[i - 1]]) + ts[i - 1]
             ts.append(t)
-        ts = torch.stack(ts) - Jtr[chain] @ rot.T
+        ts = torch.stack(ts) - Jtr[device_const(
+            tuple(chain), torch.long, Jtr.device)] @ rot.T
         for i, j_idx in enumerate(chain):
             out[j_idx, :3, :3] = rot
             out[j_idx, :3, 3] = ts[i]

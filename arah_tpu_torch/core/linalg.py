@@ -2,6 +2,8 @@
 cofactor), batched over leading dims. Port of `arah_tpu/core/linalg.py`."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -27,13 +29,32 @@ def inv3x3(m: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
+def det3x3(m: torch.Tensor) -> torch.Tensor:
+    """Batched determinant of (..., 3, 3), by `inv3x3`'s cofactors in its
+    order, so that it is the determinant `inv3x3` divides by."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    return a * (e * i - f * h) + b * (-(d * i - f * g)) + c * (d * h - e * g)
+
+
+@functools.lru_cache(maxsize=None)
+def device_const(values: tuple, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """`torch.tensor(values)` (nested tuples of Python numbers) on
+    `device`, made once a (values, dtype, device) and then shared: a copy
+    from the host waits for the device's stream, so a constant of the
+    step is copied on its first use only. Callers never write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def inv_affine(m: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., 4, 4) affine transforms with last row [0,0,0,1]."""
     A_inv = inv3x3(m[..., :3, :3])
     t_inv = -torch.einsum('...ij,...j->...i', A_inv, m[..., :3, 3])
     top = torch.cat([A_inv, t_inv[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=m.dtype,
-                          device=m.device).expand(m.shape[:-2] + (1, 4))
+    bottom = device_const((0.0, 0.0, 0.0, 1.0), m.dtype,
+                          m.device).expand(m.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -7,6 +7,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from arah_tpu_torch.core.linalg import device_const
+
 # SMPL kinematic tree (parent of each of the 24 joints)
 SMPL_PARENTS = np.array(
     [-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18,
@@ -44,8 +46,8 @@ def batch_rodrigues(aa: torch.Tensor) -> torch.Tensor:
 def transform_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) + (..., 3) -> homogeneous (..., 4, 4)."""
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(R.shape[:-2] + (1, 4))
+    bottom = device_const((0.0, 0.0, 0.0, 1.0), R.dtype,
+                          R.device).expand(R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -55,9 +57,13 @@ def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
     (B, J, 3) -> (posed joints (B, J, 3), rel transforms A (B, J, 4, 4),
     abs transforms (B, J, 4, 4))."""
     parents = np.asarray(parents)
-    has_parent = torch.as_tensor(parents >= 0, device=joints.device)
+    tree = tuple(int(p) for p in parents)
+    has_parent = device_const(tuple(p >= 0 for p in tree), torch.bool,
+                              joints.device)
+    parent_idx = device_const(tuple(max(p, 0) for p in tree), torch.long,
+                              joints.device)
     rel_joints = joints - torch.where(
-        has_parent[None, :, None], joints[:, np.maximum(parents, 0)],
+        has_parent[None, :, None], joints[:, parent_idx],
         torch.zeros_like(joints))
     transforms_mat = transform_mat(rot_mats, rel_joints)
 

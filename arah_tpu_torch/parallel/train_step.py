@@ -19,7 +19,20 @@ seed; the tests draw them with the JAX step's own keys).
 The gradient of the mean over blocks is taken one block at a time (each
 block's loss / B, backward, the gradients summed in the leaves), so that
 only one block's graph is alive at once: the same gradient, up to the
-order of the sums, at the peak memory of one block.
+order of the sums, at the peak memory of one block. What depends only on
+a block's frame (the refined frame, the latent code and the SIREN the
+hypernetwork generates) is computed for all the blocks in one batched
+pass at the step's start; each block takes its row as a leaf of its own,
+and after the blocks one backward carries their rows' gradients through
+that pass: the same gradient, with the hypernetwork's and the SMPL
+chain's small eager ops dispatched once a step instead of once a block.
+
+Spans (`utils/trace.py`, recorded only under a profiler): `train.step`
+around a step, `train.block` around each block's render, loss and
+backward, `train.frame` around the blocks' refined frames,
+`renderer.generate` around their hypernetwork pass, `train.loss`,
+`train.backward` (each block's, and the batched pass's), `train.optim`
+(Adam) and, with a mesh, `train.allreduce`.
 """
 from __future__ import annotations
 
@@ -27,11 +40,14 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from arah_tpu_torch.core.smpl import quat_to_rot
 from arah_tpu_torch.model import FrameData, prepare_frame
-from arah_tpu_torch.render.renderer import ModelConfig, RenderInputs, render
+from arah_tpu_torch.render.renderer import (ModelConfig, RenderInputs,
+                                             generate_sdf_blocks, render)
 from arah_tpu_torch.train.loss import LossWeights, compute_loss
+from arah_tpu_torch.utils import trace
 from arah_tpu_torch.utils.lpips import make_perceptual_loss
 from arah_tpu_torch.utils.tree import tree_map
 
@@ -99,17 +115,33 @@ def _take(a, i):
     return a[i]
 
 
-def _refined_frame(params, smpl_model, frame_idx,
-                   box_margin: float = 0.05) -> FrameData:
-    """The frame recomputed from the learnable per-frame SMPL leaves,
-    with gradients into pose, shape and translation."""
+def _rows(a, idx):
+    """The rows `idx` of a, kept 2-D: an int (a view) or an index tensor
+    of any shape, gathered on the device (without reading the index back
+    to the host) a row at a time, so that a row taken twice sums its
+    gradients in the rows' order."""
+    if torch.is_tensor(idx):
+        idx = idx.reshape(-1).to(a.device, torch.long)
+        return torch.cat([a.index_select(0, idx[i:i + 1])
+                          for i in range(idx.numel())])
+    return a[idx:idx + 1]
+
+
+def _refined_frames(params, smpl_model, frame_idx,
+                    box_margin: float = 0.05) -> FrameData:
+    """The frames `frame_idx` (an int, or an index tensor of n frames)
+    recomputed from the learnable per-frame SMPL leaves, with gradients
+    into pose, shape and translation: `prepare_frame` over the rows in
+    one vectorised pass (`torch.func.vmap`), every field with a leading
+    dim of the rows."""
     sp = params['smpl_params']
-    pose = torch.cat([_take(sp['root_orient'], frame_idx),
-                      _take(sp['pose_body'], frame_idx),
-                      _take(sp['pose_hand'], frame_idx)], dim=-1)
-    return prepare_frame(smpl_model, params['betas'], pose,
-                         _take(sp['trans'], frame_idx),
-                         box_margin=box_margin, device=pose.device)
+    pose = torch.cat([_rows(sp['root_orient'], frame_idx),
+                      _rows(sp['pose_body'], frame_idx),
+                      _rows(sp['pose_hand'], frame_idx)], dim=-1)
+    return torch.func.vmap(
+        lambda p, t: prepare_frame(smpl_model, params['betas'], p, t,
+                                   box_margin=box_margin, device=p.device))(
+        pose, _rows(sp['trans'], frame_idx))
 
 
 def _refined_rays(params, batch: TrainBatch, b: int):
@@ -126,17 +158,11 @@ def _refined_rays(params, batch: TrainBatch, b: int):
 
 
 def _block_loss(params, cfg: ModelConfig, loss_w: LossWeights,
-                batch: TrainBatch, draws: TrainDraws, latent, b: int,
-                smpl_model=None, refine_smpl: bool = False,
-                refine_cameras: bool = False, perceptual_fn=None,
-                per_block_frame: bool = False):
-    """Render + losses of ray block b."""
-    fd, latent_idx = batch.frame, batch.latent_idx
-    if per_block_frame:
-        fd = tree_map(lambda a: a[b], fd)
-        latent_idx = latent_idx[b]
-    if refine_smpl:
-        fd = _refined_frame(params, smpl_model, latent_idx)
+                batch: TrainBatch, draws: TrainDraws, b: int, fd: FrameData,
+                latent, gen, refine_cameras: bool = False,
+                perceptual_fn=None):
+    """Render + losses of ray block b, on its frame `fd`, latent code and
+    generated SIREN `gen` (None: the renderer's own, `single_bvp`)."""
     cam_loc, ray_dirs = batch.cam_loc[b], batch.ray_dirs[b]
     if refine_cameras:
         cam_loc, ray_dirs = _refined_rays(params, batch, b)
@@ -155,12 +181,42 @@ def _block_loss(params, cfg: ModelConfig, loss_w: LossWeights,
         points_uniform=batch.points_uniform[b],
         points_skinning=batch.points_skinning[b],
         points_inside=batch.points_inside[b],
-        points_eik=draws.points_eik[b])
+        points_eik=draws.points_eik[b], gen=gen)
     out = render(params, cfg, inp, training=True,
                  jitter=(draws.u1[b], draws.u2[b], draws.u3[b]))
     gt = {'rgb': batch.rgb_gt[b], 'body_mask': batch.body_mask[b],
           'sampled_weights': batch.sampled_weights[b]}
-    return compute_loss(out, gt, loss_w, perceptual_fn=perceptual_fn)
+    with trace.span('train.loss'):
+        return compute_loss(out, gt, loss_w, perceptual_fn=perceptual_fn)
+
+
+def _block_row(t, b: int):
+    """Row b of a batched input as a leaf of its own (requiring grad
+    where the input does), so that block b's backward stops at it; None
+    stays None."""
+    if t is None:
+        return None
+    row = t[b].detach()
+    return row.requires_grad_(True) if t.requires_grad else row
+
+
+def _rows_backward(flat: list, rows: list):
+    """One backward through the batched pass: each input of `flat` (a
+    leading block dim) takes its blocks' rows' gradients, stacked (a row
+    without one counts as zeros)."""
+    outs, grads = [], []
+    for i, t in enumerate(flat):
+        if t is None or not t.requires_grad:
+            continue
+        gs = [r[i].grad for r in rows]
+        if all(g is None for g in gs):
+            continue
+        outs.append(t)
+        grads.append(torch.stack([
+            g if g is not None else torch.zeros_like(r[i])
+            for g, r in zip(gs, rows)]))
+    if outs:
+        torch.autograd.backward(outs, grads)
 
 
 def allreduce_mean(leaves, losses: dict, mesh) -> dict:
@@ -229,13 +285,36 @@ def make_train_step(cfg: ModelConfig, loss_w: LossWeights, optimizer,
     perceptual_fn = make_perceptual_loss() if loss_w.perceptual > 0 \
         else None
 
-    def block_latent(params, batch, b):
-        if 'latent' not in params:
-            return None
-        idx = batch.latent_idx[b] if per_block_frame else batch.latent_idx
-        return _take(params['latent'], idx)
+    def batched_inputs(params, batch: TrainBatch, n_blocks: int) -> dict:
+        """Every block's frame, latent code and generated SIREN, with a
+        leading block dim, in one pass (a frame or latent shared by the
+        blocks expanded to them)."""
+        idx = batch.latent_idx
+        if refine_smpl:
+            with trace.span('train.frame'):
+                fd = _refined_frames(params, smpl_model, idx)
+        elif per_block_frame:
+            fd = batch.frame
+        else:
+            fd = tree_map(lambda a: a[None], batch.frame)
+        latent = _rows(params['latent'], idx) if 'latent' in params \
+            else None
+        fd, latent = tree_map(
+            lambda a: None if a is None
+            else a.expand((n_blocks,) + a.shape[1:]), (fd, latent))
+        rots = fd.rots[:, 0]
+        if batch.rots_noise is not None:
+            rots = rots + batch.rots_noise
+        with trace.span('renderer.generate'):
+            gen = generate_sdf_blocks(params, cfg, rots, fd.Jtrs[:, 0],
+                                      latent)
+        return {'frame': fd, 'latent': latent, 'gen': gen}
 
     def step_fn(state: TrainState, batch: TrainBatch, draws: TrainDraws):
+        with trace.span('train.step'):
+            return _step(state, batch, draws)
+
+    def _step(state: TrainState, batch: TrainBatch, draws: TrainDraws):
         params = state.params
         n_blocks = batch.ray_dirs.shape[0]
         # every leaf's, the frozen ones' too (the optimizer's zero_grad
@@ -243,20 +322,27 @@ def make_train_step(cfg: ModelConfig, loss_w: LossWeights, optimizer,
         leaves = grad_leaves(params)
         for p in leaves:
             p.grad = None
+        flat, spec = tree_flatten(batched_inputs(params, batch, n_blocks))
+        rows = [[_block_row(t, b) for t in flat] for b in range(n_blocks)]
         per_block = []
         for b in range(n_blocks):
-            bl = _block_loss(params, cfg, loss_w, batch, draws,
-                             block_latent(params, batch, b), b,
-                             smpl_model=smpl_model, refine_smpl=refine_smpl,
-                             refine_cameras=refine_cameras,
-                             perceptual_fn=perceptual_fn,
-                             per_block_frame=per_block_frame)
-            (bl['loss'] / n_blocks).backward()
+            mine = tree_unflatten(rows[b], spec)
+            with trace.span('train.block'):
+                bl = _block_loss(params, cfg, loss_w, batch, draws, b,
+                                 mine['frame'], mine['latent'], mine['gen'],
+                                 refine_cameras=refine_cameras,
+                                 perceptual_fn=perceptual_fn)
+                with trace.span('train.backward'):
+                    (bl['loss'] / n_blocks).backward()
             per_block.append({k: v.detach() for k, v in bl.items()})
+        with trace.span('train.backward'):
+            _rows_backward(flat, rows)
         losses = {k: torch.stack([bl[k] for bl in per_block]).mean()
                   for k in per_block[0]}
         if mesh is not None:
-            losses = allreduce_mean(leaves, losses, mesh)
-        optimizer.step()
+            with trace.span('train.allreduce'):
+                losses = allreduce_mean(leaves, losses, mesh)
+        with trace.span('train.optim'):
+            optimizer.step()
         return TrainState(params, optimizer, state.step + 1), losses
     return step_fn

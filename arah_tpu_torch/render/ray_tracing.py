@@ -486,10 +486,7 @@ def corr_init(cfg: RayTracerConfig, frame: CanonicalFrame, smpl: SmplRef,
         T0 = torch.einsum('nj,jab->nab', smpl.skinning_weights[idx],
                           frame.bone_transforms)
         x_bar = pts_world - frame.trans
-        # inv_affine's constant row is a blocking host-to-device copy
-        with trace.sync('tracer.sync.inv_affine'):
-            T0_inv = inv_affine(T0)
-        x0 = apply_transform(T0_inv, x_bar)
+        x0 = apply_transform(inv_affine(T0), x_bar)
         return x_bar.contiguous(), x0.contiguous(), T0
 
 

@@ -27,7 +27,7 @@ import torch
 from arah_tpu_torch.core.body import (normalize_canonical_points,
                                       sdf_to_metric,
                                       unnormalize_canonical_points)
-from arah_tpu_torch.core.linalg import inv3x3, inv_affine
+from arah_tpu_torch.core.linalg import det3x3, inv3x3, inv_affine
 from arah_tpu_torch.nn.color import (ColorConfig, color_apply,
                                      color_pose_feature)
 from arah_tpu_torch.nn.deviation import deviation_value
@@ -125,9 +125,28 @@ def generate_sdf(params, cfg: ModelConfig, rots, Jtrs, geo_latent=None):
     return hypernet_generate(params['hypernet'], cfg.hypernet, cond, latent)
 
 
+def generate_sdf_blocks(params, cfg: ModelConfig, rots, Jtrs,
+                        geo_latent=None):
+    """`generate_sdf` for B ray blocks in one hypernetwork pass: rots
+    (B, 24, 9), Jtrs (B, 24, 3), geo_latent (B, D) or None -> the
+    generated SIREN with a leading B on every weight (row b is block b's,
+    for `RenderInputs.gen`); None for the `single_bvp` variant, whose
+    weights are the parameters themselves."""
+    if 'sdf_plain' in params:
+        return None
+    cond = hypernet_cond(params['hypernet'], cfg.hypernet, rots, Jtrs)
+    latent = None
+    if cfg.hypernet.use_film and geo_latent is not None:
+        latent = geo_latent
+    elif geo_latent is not None:
+        cond = cond + geo_latent
+    return hypernet_generate(params['hypernet'], cfg.hypernet, cond, latent)
+
+
 class RenderInputs(NamedTuple):
     """Per-step inputs for one frame, field for field the JAX
-    `RenderInputs`. The training fields may be None in eval."""
+    `RenderInputs` (and `gen`). The training fields may be None in
+    eval."""
     cam_loc: torch.Tensor          # (3,)
     ray_dirs: torch.Tensor         # (N, 3)
     near: torch.Tensor             # (N,)
@@ -146,6 +165,8 @@ class RenderInputs(NamedTuple):
     points_skinning: Any = None    # (S, 3) metric cano, skinning reg
     points_inside: Any = None      # (I, 3) normalized, inside reg
     points_eik: Any = None         # (E, 3) eikonal points (training)
+    gen: Any = None                # the generated SIREN, where the caller
+                                   # made it (`generate_sdf_blocks`)
 
 
 def _detached(gen: GeneratedMLP) -> GeneratedMLP:
@@ -180,14 +201,38 @@ def _shade_sdf(cfg: ModelConfig, gen: GeneratedMLP, flat_p,
     return out[:, 0].detach(), feats.detach(), grads
 
 
+# The implicit-diff correction's determinant guard, a departure from the
+# JAX package and from ARAH (as the box-miss mask of
+# `ray_tracing.sample_z_vals` is): a point whose skinning Jacobian has
+# |det| <= IDIFF_DET_FLOOR, taken of the metric Jacobian d x / d x_hat
+# (both in metres, so the floor holds at any body size or box), keeps
+# its value and loses its correction's gradient. The correction's
+# gradient grows as 1/|det|, and at a fold of the skinning field (|det|
+# <= 0.1: a volume squeezed tenfold) the root itself is ill-conditioned,
+# so that two f32 solvers stop at different points: on the H100, in one
+# H36M-S9 training step, a corrected point at |det| 1.1e-4 carried three
+# quarters of the skinning net's gradient in the plain reference and none
+# in the port. 0.1 holds any point to ~10x a typical point's share and
+# drops 1-3e-4 of the corrected points. (Near 1e-6 the f32 determinant
+# is not known to its sign: kernel G and the plain f32 Jacobian of one
+# point gave -1.21e-7 and 2.44e-6, and J^-1 turned the step's gradient
+# non-finite.)
+IDIFF_DET_FLOOR = 0.1
+
+
 def _idiff_correct(params, cfg: ModelConfig, frame: CanonicalFrame, flat_p,
-                   jac=None):
+                   jac=None, valid=None):
     """The implicit-differentiation correction p - J^-1 (f - sg(f)), f =
     fwd_skin(unnormalize(p)): the value of p unchanged, its gradient
     reaching the skinning net as -J^-1 df/dtheta. J (metric) is `jac`
     when the tracer's corr kernel gave it (`idiff_kernel_jac`), else from
     kernel G (`idiff_standalone_jac`, a collapsible skinning MLP), else
-    from three forward-mode tangents; no gradient flows through J."""
+    from three forward-mode tangents; no gradient flows through J. A
+    point under the determinant guard (`IDIFF_DET_FLOOR`) takes no
+    correction; every other point's value and gradient are those of the
+    unguarded correction, bit for bit. `valid`, called only while a
+    profiler records, gives the (N,) bool of the points that count as
+    corrected (`trace.count_idiff`); all by default."""
     skin_fn = make_skin_fn(params, cfg)
 
     def fwd_batched(p_norm):
@@ -203,9 +248,10 @@ def _idiff_correct(params, cfg: ModelConfig, frame: CanonicalFrame, flat_p,
                 flat_p, frame.coord_min, frame.coord_max, frame.center)
             jac = skinning_jac(x_hat, sd[0], sd[1], frame,
                                cfg.skinning.softmax_scale)
+    # unnormalize scales each axis by s_u, so J_norm = J_metric * s_u
+    s_u = (1.1 * (frame.coord_max - frame.coord_min) / 2.0).detach()
     if jac is not None:
-        # unnormalize scales each axis by s_u, so J_norm = J_metric * s_u
-        J = jac * (1.1 * (frame.coord_max - frame.coord_min) / 2.0)
+        J = jac * s_u
     else:
         with torch.no_grad():
             cols = []
@@ -215,9 +261,15 @@ def _idiff_correct(params, cfg: ModelConfig, frame: CanonicalFrame, flat_p,
                 cols.append(torch.func.jvp(fwd_batched, (flat_p,),
                                            (tk,))[1])
             J = torch.stack(cols, dim=-1)
+    J = J.detach()
+    # det(J_norm) = det(J_metric) s_u^3
+    ok = det3x3(J).abs() > IDIFF_DET_FLOOR * s_u ** 3
+    trace.count_idiff(ok, valid)
+    eye = torch.eye(3, dtype=J.dtype, device=J.device)
+    J_inv = inv3x3(torch.where(ok[:, None, None], J, eye))
     f = fwd_batched(flat_p)
-    return flat_p - torch.einsum('nab,nb->na', inv3x3(J.detach()),
-                                 f - f.detach())
+    step = torch.einsum('nab,nb->na', J_inv, f - f.detach())
+    return flat_p - torch.where(ok[:, None], step, torch.zeros_like(step))
 
 
 def pack_index(mask: torch.Tensor, K: int) -> torch.Tensor:
@@ -261,9 +313,7 @@ def shade_samples(params, cfg: ModelConfig, gen: GeneratedMLP,
     vd = view_dirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
     vd_orig = view_dirs_orig[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
     if cfg.cano_view_dirs:
-        # inv_affine's constant row is a blocking host-to-device copy
-        with trace.sync('renderer.sync.inv_affine'):
-            R_bwd = inv_affine(flat_T)[:, :3, :3].detach()
+        R_bwd = inv_affine(flat_T)[:, :3, :3].detach()
         in_vd = torch.einsum('nab,nb->na', R_bwd, -vd)
         in_vd_orig = torch.einsum('nab,nb->na', R_bwd, -vd_orig)
     else:
@@ -291,7 +341,10 @@ def shade_samples(params, cfg: ModelConfig, gen: GeneratedMLP,
             mask_flat.sum() - K, min=0)}
 
     if training and cfg.train_skinning_net:
-        flat_p = _idiff_correct(params, cfg, frame, flat_p, jac)
+        flat_p = _idiff_correct(
+            params, cfg, frame, flat_p, jac,
+            valid=(lambda: take(mask_flat) & (pack_idx < N))
+            if cfg.shade_pack else (lambda: converge_mask.reshape(-1)))
     with trace.span('renderer.shade'):
         sdf_norm, feats, normal = _shade_sdf(cfg, gen, flat_p, training)
     if not cfg.cano_view_dirs:
@@ -337,11 +390,13 @@ def render(params, cfg: ModelConfig, inp: RenderInputs, key=None,
 
 def _render(params, cfg: ModelConfig, inp: RenderInputs, training: bool,
             jitter):
-    rots = inp.rots
-    if training and inp.rots_noise is not None:
-        rots = rots + inp.rots_noise
-    with trace.span('renderer.generate'):
-        gen = generate_sdf(params, cfg, rots, inp.Jtrs, inp.geo_latent)
+    gen = inp.gen
+    if gen is None:
+        rots = inp.rots
+        if training and inp.rots_noise is not None:
+            rots = rots + inp.rots_noise
+        with trace.span('renderer.generate'):
+            gen = generate_sdf(params, cfg, rots, inp.Jtrs, inp.geo_latent)
     with torch.no_grad():
         gen_ng = _detached(gen)
         skin_dense = None

@@ -8,6 +8,8 @@ from typing import NamedTuple
 
 import torch
 
+from arah_tpu_torch.utils import trace
+
 
 class LossWeights(NamedTuple):
     rgb: float = 30.0
@@ -54,8 +56,10 @@ def compute_loss(outputs: dict, ground_truth: dict, w: LossWeights,
     denom = float(n_loss)
     losses = {}
 
-    # boundary pixels (label 100) are ignored when the mask has them
-    has_boundary = bool(ground_truth['body_mask'].max() > 1)
+    # boundary pixels (label 100) are ignored when the mask has them; the
+    # host reads the mask's maximum, a wait for the device stream
+    with trace.sync('train.sync.boundary'):
+        has_boundary = bool(ground_truth['body_mask'].max() > 1)
     valid = net_mask & (body_mask != 100) if has_boundary else net_mask
     res = _rgb_residual(rgb_pred, rgb_gt, w.rgb_loss_type)
     losses['rgb_loss'] = torch.sum(res * valid[:, None]) / denom

@@ -7,7 +7,9 @@ in the session's trace beside the kernels, on its clock; otherwise it is
 one shared null context, and a span costs one check (an unchecked
 `record_function` costs ~10 us with no session). Names are
 `<layer>.<what>`, the layer one of `eval`, `renderer`, `tracer`, placed
-at the phases of the render path, never inside a solver's loop. A point
+at the phases of the render path, never inside a solver's loop, or
+`train`, placed at the train step's phases (`train.step`, `.block`,
+`.frame`, `.loss`, `.backward`, `.optim`, `.allreduce`). A point
 where the host waits for the device stream is a span of its own,
 `<layer>.sync.<what>` (`sync`), around exactly one blocking operation,
 and is counted under its name.
@@ -24,7 +26,10 @@ accumulator on the device, by phase (`count_corr`: `corr.p1`,
 `corr.p2`, and phase 1's unmasked points `corr.p1.points`), with the
 rows and launches of B (`corr.rows`, `corr.launches`) on the host; and
 it counts the iso init's calls, one a solve of kernel F, on the host
-(`iso.init`, `count`). `take_counts()` reads every work and sync count
+(`iso.init`, `count`). The training render's implicit-diff correction
+counts, on the device, its corrected points and those of them that its
+determinant guard dropped (`idiff.points`, `idiff.guarded`;
+`count_idiff`). `take_counts()` reads every work and sync count
 with one sync and zeroes them. With no session no buffer or accumulator
 exists and B is launched as it would be without this module.
 """
@@ -109,6 +114,18 @@ def count_corr(phase: str, mask: torch.Tensor, iters):
         _add('corr.p1.points', points)
     _HOST['corr.rows'] = _HOST.get('corr.rows', 0) + mask.shape[0]
     _HOST['corr.launches'] = _HOST.get('corr.launches', 0) + 1
+
+
+def count_idiff(ok: torch.Tensor, valid=None):
+    """Add one implicit-diff correction: its points (`valid()`, (N,)
+    bool, or all N) to `idiff.points` and those of them whose Jacobian the
+    determinant guard dropped (~ok) to `idiff.guarded`, on the device.
+    No-op unless a session records; `valid` is called only then."""
+    if not recording():
+        return
+    valid = torch.ones_like(ok) if valid is None else valid()
+    _add('idiff.points', valid.sum())
+    _add('idiff.guarded', (valid & ~ok).sum())
 
 
 def take_counts(reset: bool = True) -> dict:

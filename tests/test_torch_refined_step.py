@@ -29,10 +29,9 @@ def test_build_train_setup_refined_on_cpu(setup):
     from arah_tpu_torch.core.smpl import smpl_to_device
     from arah_tpu_torch.data.batch import draw_train_draws
     from arah_tpu_torch.data.synthetic import synthetic_smpl
-    from arah_tpu_torch.parallel.train_step import (_refined_frame,
+    from arah_tpu_torch.parallel.train_step import (_refined_frames,
                                                     _refined_rays)
     from arah_tpu_torch.scene import N_VERTS, flagship_config
-    from arah_tpu_torch.utils.tree import tree_map
     cfg, s, n, ps = flagship_config(), setup, N_LOSS, PS
     R = n + ps * ps
     assert tuple(s.batch.ray_dirs.shape) == (2, R, 3)
@@ -46,12 +45,12 @@ def test_build_train_setup_refined_on_cpu(setup):
 
     model = smpl_to_device(synthetic_smpl(n_verts=N_VERTS), 'cpu')
     with torch.no_grad():
+        # both blocks' frames in one pass, a row a block
+        got = _refined_frames(s.params, model, s.batch.latent_idx)
+        for x, y in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(s.batch.frame)):
+            torch.testing.assert_close(x, y, rtol=0, atol=2e-6)
         for b in range(2):
-            want = tree_map(lambda a: a[b], s.batch.frame)
-            got = _refined_frame(s.params, model, s.batch.latent_idx[b])
-            for x, y in zip(torch.utils._pytree.tree_leaves(got),
-                            torch.utils._pytree.tree_leaves(want)):
-                torch.testing.assert_close(x, y, rtol=0, atol=2e-6)
             cam, rays = _refined_rays(s.params, s.batch, b)
             assert torch.equal(cam, s.batch.cam_loc[b])
             torch.testing.assert_close(rays, s.batch.ray_dirs[b], rtol=0,

@@ -100,14 +100,14 @@ def test_spans_nest_by_layer(profiled):
 
 
 def test_sync_spans_are_the_chunks_and_splits(profiled):
-    """Each chunk: three input copies, four output copies, one resolve of
-    each split (march, iso, corr) and the two inverse affines (the corr
-    init's and the renderer's view directions); the image: its camera's
-    copy. The counts taken are the spans, name by name."""
+    """Each chunk: three input copies, four output copies and one resolve
+    of each split (march, iso, corr); the image: its camera's copy. (The
+    inverse affines' constant row is copied once a process, on the
+    image's first use, by `core/linalg.py:device_const`.) The counts
+    taken are the spans, name by name."""
     _, events, counts = profiled
     per_chunk = {'eval.sync.h2d': 3, 'eval.sync.d2h': 4,
-                 'tracer.sync.resolve': 3, 'tracer.sync.inv_affine': 1,
-                 'renderer.sync.inv_affine': 1}
+                 'tracer.sync.resolve': 3}
     want = {k: v * N_CHUNKS for k, v in per_chunk.items()}
     want['eval.sync.h2d'] += 1
     got = {}
@@ -216,3 +216,90 @@ def test_profiled_training_writes_counters(tmp_path):
     assert counts['corr.launches'] >= 3
     assert counts['iso.init'] >= 3
     assert trace.take_counts() == {}
+
+
+@pytest.fixture(scope='module')
+def train_profiled():
+    """(the `arah.` events, the counts taken, the block count) of one
+    refined train step (`scene.build_train_setup(refined=True)`: two
+    blocks on two poses, SMPL refinement, a 16 x 16 patch a block) under
+    a CPU profiler, after one step without it that leaves no count."""
+    from arah_tpu_torch import scene as scene_mod
+    from arah_tpu_torch.data.batch import draw_train_draws
+    from arah_tpu_torch.utils import trace
+    patch = scene_mod.PATCH
+    scene_mod.PATCH = 16
+    try:
+        cfg = scene_mod.flagship_config()
+        s = scene_mod.build_train_setup(cfg, n_rays=24, n_reg=16,
+                                        pretrain=False, device='cpu',
+                                        refined=True)
+    finally:
+        scene_mod.PATCH = patch
+    n_blocks, R = s.batch.ray_dirs.shape[:2]
+
+    def draws(seed):
+        return draw_train_draws(np.random.RandomState(seed), cfg, n_blocks,
+                                R, device='cpu')
+    trace.take_counts()
+    state, _ = s.step(s.state, s.batch, draws(1))
+    unprofiled = trace.take_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s.step(state, s.batch, draws(2))
+    events = [(e.name[len('arah.'):], e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.name.startswith('arah.')]
+    return events, trace.take_counts(), unprofiled, n_blocks
+
+
+def test_train_step_spans_nest_and_count(train_profiled):
+    """One `train.step`; in it, before the blocks, one `train.frame` (the
+    blocks' refined frames) and one `renderer.generate` (their
+    hypernetwork pass); a `train.block` a block, each holding its render,
+    its loss and its backward; after the blocks one more `train.backward`
+    (the batched pass's) and one `train.optim` (Adam); no
+    `train.allreduce` without a mesh."""
+    events, _, _, n_blocks = train_profiled
+    names = [e[0] for e in events]
+
+    def inside(inner, outer):
+        return [e for e in events if e[0] == inner
+                and any(o[0] == outer and o[1] <= e[1] and e[2] <= o[2]
+                        for o in events)]
+    assert names.count('train.step') == 1
+    assert names.count('train.optim') == 1
+    assert 'train.allreduce' not in names
+    for name in ('train.block', 'train.loss'):
+        assert names.count(name) == n_blocks, name
+    assert names.count('train.frame') == names.count('renderer.generate') \
+        == 1
+    assert names.count('train.backward') == n_blocks + 1
+    for name in ('train.block', 'train.optim', 'train.frame',
+                 'renderer.generate', 'train.backward'):
+        assert len(inside(name, 'train.step')) == names.count(name), name
+    for name in ('train.loss', 'renderer.render'):
+        assert len(inside(name, 'train.block')) == names.count(name), name
+    assert len(inside('train.backward', 'train.block')) == n_blocks
+    assert not inside('train.frame', 'train.block')
+    assert not inside('renderer.generate', 'train.block')
+    blocks = [e for e in events if e[0] == 'train.block']
+    first = min(e[1] for e in blocks)
+    last = max(e[2] for e in blocks)
+    for name in ('train.frame', 'renderer.generate'):
+        assert [e for e in events if e[0] == name][0][2] <= first, name
+    optim = [e for e in events if e[0] == 'train.optim'][0]
+    batched = [e for e in events if e[0] == 'train.backward'
+               and e[1] >= last]
+    assert len(batched) == 1 and batched[0][2] <= optim[1]
+
+
+def test_train_step_counts(train_profiled):
+    """The train step's sync (the loss's read of the mask's maximum) is
+    counted once a block, as its spans are; the implicit-diff correction
+    counts its converged samples and those the guard dropped; without a
+    profiler nothing is counted."""
+    events, counts, unprofiled, n_blocks = train_profiled
+    syncs = [e for e in events if e[0] == 'train.sync.boundary']
+    assert counts['train.sync.boundary'] == len(syncs) == n_blocks
+    assert counts['idiff.points'] > 0
+    assert 0 <= counts['idiff.guarded'] <= counts['idiff.points']
+    assert unprofiled == {}

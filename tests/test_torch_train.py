@@ -86,13 +86,18 @@ def _rotation(rng, angle=0.2):
 
 
 @pytest.mark.parametrize('cano', [False, True])
-def test_shade_samples_training(rng, cano):
+def test_shade_samples_training(rng, cano, monkeypatch):
     """The training branch of `shade_samples` (implicit-diff correction
     with J from kernel G's plain version, the C -> H and D -> I ops,
     `ray_augm` with a rotated view) on the samples of the JAX training
     trace: rgb, weights and the gradient of a random-cotangent
     scalarisation for every parameter leaf (through the hypernetwork),
-    against the JAX package's XLA training path."""
+    against the JAX package's XLA training path. The correction's
+    determinant guard, the port's departure from JAX, is held by
+    `tests/test_torch_idiff_guard.py`; here its floor is 0, so that the
+    port computes JAX's unguarded correction (this small random skinning
+    net folds space enough that some samples lie under the program's
+    floor)."""
     from arah_tpu.nn.color import color_pose_feature as jpose
     from arah_tpu.render.ray_tracing import trace_and_sample
     from arah_tpu.render.renderer import (generate_sdf, make_sdf_fn,
@@ -101,6 +106,7 @@ def test_shade_samples_training(rng, cano):
     from arah_tpu_torch.parallel.train_step import trainable
     from arah_tpu_torch.render import renderer as prend
     from arah_tpu_torch.train.optim import tree_leaves_with_path
+    monkeypatch.setattr(prend, 'IDIFF_DET_FLOOR', 0.0)
     cfg = small_config(train_skinning=True)._replace(cano_view_dirs=cano)
     _, params, _, inp = jax_scene(cfg, rng, n_rays=24)
     cam = jnp.broadcast_to(inp.cam_loc, inp.ray_dirs.shape)
